@@ -1,0 +1,397 @@
+"""Public decoder API (the analogue of dav1d's 3-function hot API).
+
+Port of ``dav1d_mirror_tpu/api.py``. A `Decoder` is opened with
+`Settings`, fed temporal units with `send_data`, and produces `Picture`s
+from `get_picture`; `flush` resets in-flight state for seeking. Every
+frame takes the hybrid device route: native entropy decode on the host,
+the frame's pixel program on the device (models/inter), the intra blocks
+in the native host walk, then deblock and CDEF on the device
+(models/filters). Frames decode in order, synchronously; the reference's
+entropy-vs-pixels pipelining (``n_threads``, ``max_frame_delay``) is not
+ported yet.
+
+The device is `Settings.device` ("cuda" by default). Asking for CUDA
+where PyTorch has none raises; nothing falls back to the CPU.
+
+Reference parity: dav1d_open src/lib.c:138, dav1d_send_data :437,
+dav1d_get_picture :457, dav1d_flush :525, show-existing handling
+src/obu.c:1572-1682, inloop-filter debug mask include/dav1d/dav1d.h:66-74.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .data.tables import new_cdf_context, qcat_from_qidx, cdf_thread_update
+from .errors import DecodeError
+from .host import headers as h
+from .host import native_tile
+from .host import obu as obu_mod
+from .host.ivf import split_obus
+from .host.native import NativeMsac
+from .host.tilecoder import TileCoder, DecodeSide
+from .models.filters import apply_inloop_filters
+from .models.frame_buffers import FrameBuffers, _tile_payload
+from .models.inter import build_frame_program, execute_frame_program
+from .utils import stages
+
+INLOOPFILTER_NONE = 0
+INLOOPFILTER_DEBLOCK = 1
+INLOOPFILTER_CDEF = 2
+INLOOPFILTER_RESTORATION = 4
+INLOOPFILTER_ALL = 7
+
+# Dav1dDecodeFrameType (include/dav1d/dav1d.h:71-76)
+DECODEFRAMETYPE_ALL = 0
+DECODEFRAMETYPE_REFERENCE = 1
+DECODEFRAMETYPE_INTRA = 2
+DECODEFRAMETYPE_KEY = 3
+
+
+@dataclass
+class Settings:
+    """Analogue of Dav1dSettings (include/dav1d/dav1d.h:78-99)."""
+    apply_grain: bool = True
+    operating_point: int = 0
+    all_layers: bool = True
+    frame_size_limit: int = 0
+    strict_std_compliance: bool = False
+    output_invisible_frames: bool = False
+    inloop_filters: int = INLOOPFILTER_ALL
+    decode_frame_type: int = DECODEFRAMETYPE_ALL
+    # Dav1dLogger analogue (dav1d.h:49-59): callable(str) or None for
+    # the default stderr logger; False-y disables logging entirely
+    logger: object = "default"
+    # torch device of the pixel stage
+    device: str = "cuda"
+
+
+@dataclass
+class Picture:
+    """Analogue of Dav1dPicture (decoded planes + stream metadata)."""
+    planes: tuple
+    width: int = 0
+    height: int = 0
+    bitdepth: int = 8
+    layout: int = h.PIXEL_LAYOUT_I420
+    frame_hdr: object = None
+    seq_hdr: object = None
+    # HDR metadata props (Dav1dPicture content_light/mastering_display/
+    # itut_t35, picture.h:52-63)
+    content_light: tuple = None
+    mastering_display: dict = None
+    itut_t35: tuple = ()
+    # first picture of a temporal unit (PICTURE_FLAG_NEW_TEMPORAL_UNIT)
+    new_temporal_unit: bool = False
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda is not available")
+    return dev
+
+
+class Decoder:
+    """dav1d_open/send_data/get_picture/flush/close as one object."""
+
+    def __init__(self, settings: Settings | None = None):
+        self.s = settings or Settings()
+        if self.s.frame_size_limit and self.s.frame_size_limit < 0:
+            raise ValueError("invalid frame_size_limit")
+        self.device = resolve_device(self.s.device)
+        if not native_tile.available():
+            raise RuntimeError("native tile walk unavailable")
+        self.flush()
+
+    # -- lifecycle ---------------------------------------------------------
+    def flush(self):
+        """dav1d_flush: drop in-flight state, keep the sequence header."""
+        seq = getattr(self, "_st", None) and self._st.seq_hdr
+        self._st = obu_mod.ObuState()
+        self._st.seq_hdr = seq
+        self._st.operating_point = self.s.operating_point
+        self._refs = [None] * 8       # FrameBuffers (post-filter planes)
+        self._ref_cdfs = [None] * 8
+        self._ref_tmvs = [None] * 8
+        self._ref_refpoc = [[0] * 7 for _ in range(8)]
+        self._ref_segmaps = [None] * 8
+        self._out = []                # decoded Picture queue
+        self._sl_cache = None         # spatial-layer candidate (lib.c:331)
+        self._errored_slots = set()   # refs poisoned by decode errors
+        self.last_error = None        # dav1d_get_decode_error_data_props
+
+    def close(self):
+        self._out = []
+        self._refs = [None] * 8
+
+    def _log(self, msg: str):
+        lg = self.s.logger
+        if lg == "default":
+            import sys
+            print(f"dav1d_mirror_tpu_torch: {msg}", file=sys.stderr)
+        elif callable(lg):
+            lg(msg)
+
+    # -- input -------------------------------------------------------------
+    def send_data(self, data: bytes):
+        """Feed one temporal unit (a sequence of length-prefixed OBUs).
+        Decodes any frame completed by this data."""
+        self.send_obus(o for _, o in split_obus(data))
+
+    def send_obus(self, obus):
+        """Feed individual complete OBUs (with or without size fields).
+
+        Errors are CONTAINED (dav1d abort_frame): a frame that fails to
+        parse or decode poisons the reference slots it would have
+        refreshed and raises DecodeError, but the decoder object stays
+        consistent. A stream feature this package does not decode yet
+        raises NotImplementedError as it is."""
+        for obu_data in obus:
+            try:
+                obu_mod.parse_obus(self._st, obu_data)
+            except Exception as e:
+                self._contain_error(e)
+            if self._st.frame_ready:
+                self._st.frame_ready = False
+                try:
+                    self._handle_frame()
+                except NotImplementedError:
+                    raise
+                except Exception as e:
+                    self._contain_error(e)
+
+    def _contain_error(self, e):
+        st = self._st
+        fhdr = st.frame_hdr
+        if fhdr is not None and getattr(fhdr, "refresh_frame_flags", 0):
+            for i in range(8):
+                if (fhdr.refresh_frame_flags >> i) & 1:
+                    self._errored_slots.add(i)
+        st.frame_hdr = None
+        st.tiles = []
+        st.n_tiles = 0
+        st.frame_ready = False
+        self.last_error = e
+        self._log(f"decode error contained: {e}")
+        raise DecodeError(str(e)) from e
+
+    # -- output ------------------------------------------------------------
+    def get_picture(self) -> Picture | None:
+        if not self._out:
+            return None
+        return self._out.pop(0)
+
+    # -- internals ---------------------------------------------------------
+    def _emit(self, bufs, fhdr):
+        seq = self._st.seq_hdr
+        st = self._st
+        if self.s.apply_grain and fhdr.film_grain_present:
+            raise NotImplementedError(
+                "film grain: ROADMAP queue 1, item 6 (config 3)")
+        t35 = tuple(st.itut_t35)
+        st.itut_t35 = []
+        new_tu = st.new_temporal_unit
+        st.new_temporal_unit = False
+        w, hgt = bufs.width, bufs.height
+        planes = bufs.planes
+        vis = [planes[0][:hgt, :w]]
+        if len(planes) > 1:
+            cw = (w + bufs.ss_hor) >> bufs.ss_hor
+            ch = (hgt + bufs.ss_ver) >> bufs.ss_ver
+            vis += [p[:ch, :cw] for p in planes[1:]]
+        pic = Picture(tuple(vis), width=w, height=hgt,
+                      bitdepth=seq.bitdepth, layout=seq.layout,
+                      frame_hdr=fhdr, seq_hdr=seq,
+                      content_light=st.content_light,
+                      mastering_display=st.mastering_display,
+                      itut_t35=t35, new_temporal_unit=new_tu)
+        self._queue_out(pic)
+
+    def _queue_out(self, p):
+        """Spatial-layer output gating (dav1d lib.c
+        output_picture_ready:331): with all_layers off and a multi-
+        spatial-layer operating point, hold one candidate per temporal
+        unit and emit it when the top spatial layer arrives or the next
+        temporal unit begins."""
+        st = self._st
+        if self.s.all_layers or not st.max_spatial_id:
+            self._out.append(p)
+            return
+        c = self._sl_cache
+        if c is not None and (
+                c.frame_hdr.spatial_id == st.max_spatial_id or
+                p.new_temporal_unit):
+            self._out.append(c)
+        self._sl_cache = p
+
+    def drain(self):
+        """End-of-input: release the held spatial-layer candidate."""
+        if self._sl_cache is not None:
+            self._out.append(self._sl_cache)
+            self._sl_cache = None
+
+    def _handle_frame(self):
+        st = self._st
+        seq, fhdr = st.seq_hdr, st.frame_hdr
+        if fhdr.show_existing_frame:
+            if self._skip_by_frame_type(
+                    st.refs[fhdr.existing_frame_idx], False):
+                st.tiles = []
+                st.n_tiles = 0
+                return
+            bufs = self._refs[fhdr.existing_frame_idx]
+            if bufs is None:
+                raise DecodeError("show_existing of empty slot")
+            self._emit(bufs, st.refs[fhdr.existing_frame_idx])
+            st.tiles = []
+            st.n_tiles = 0
+            return
+        if self._skip_by_frame_type(fhdr, True):
+            # headers-only slot update (dav1d obu.c:1713-1726)
+            for i in range(8):
+                if (fhdr.refresh_frame_flags >> i) & 1:
+                    st.refs[i] = fhdr
+            st.tiles = []
+            st.n_tiles = 0
+            return
+        bufs = self._decode_frame(seq, fhdr)
+        if fhdr.show_frame or self.s.output_invisible_frames:
+            self._emit(bufs, fhdr)
+        st.tiles = []
+        st.n_tiles = 0
+
+    def _skip_by_frame_type(self, fhdr, check_refresh):
+        """Dav1dDecodeFrameType filtering (dav1d obu.c:1570-1700)."""
+        dft = self.s.decode_frame_type
+        if dft == DECODEFRAMETYPE_ALL or fhdr is None:
+            return False
+        non_ref = (check_refresh and dft == DECODEFRAMETYPE_REFERENCE and
+                   not fhdr.refresh_frame_flags)
+        if fhdr.frame_type in (h.INTER, h.SWITCH):
+            return dft > DECODEFRAMETYPE_REFERENCE or non_ref
+        if fhdr.frame_type == h.INTRA:
+            return dft > DECODEFRAMETYPE_INTRA or non_ref
+        return False
+
+    def _decode_frame(self, seq, fhdr):
+        st = self._st
+        refs = self._refs
+        if self.s.frame_size_limit and \
+                fhdr.width[1] * fhdr.height > self.s.frame_size_limit:
+            raise DecodeError("frame size over limit")
+        if fhdr.width[0] != fhdr.width[1]:
+            raise NotImplementedError(
+                "super-resolution: ROADMAP queue 1, item 6 (config 3)")
+        keyframe = fhdr.frame_type in (0, 2)
+        # strict mode: frames referencing error-poisoned slots are
+        # themselves in error (dav1d decode.c:3296-3304)
+        if not keyframe and self.s.strict_std_compliance and \
+                self._errored_slots:
+            for i in range(7):
+                if fhdr.refidx[i] in self._errored_slots:
+                    raise RuntimeError(
+                        f"reference slot {fhdr.refidx[i]} is errored")
+        rf = None
+        ref_poc = None
+        ref_scaled = None
+        cur_w = fhdr.width[0]
+        if keyframe and fhdr.allow_intrabc:
+            from .host.refmvs import RefmvsFrame
+            bw4f = ((cur_w + 7) >> 3) << 1
+            bh4f = ((fhdr.height + 7) >> 3) << 1
+            rf = RefmvsFrame(fhdr, seq, bw4f, bh4f)
+        if not keyframe:
+            from .host.refmvs import RefmvsFrame
+            ref_poc = [st.refs[fhdr.refidx[i]].frame_offset
+                       if st.refs[fhdr.refidx[i]] is not None else 0
+                       for i in range(7)]
+            bw4f = ((cur_w + 7) >> 3) << 1
+            bh4f = ((fhdr.height + 7) >> 3) << 1
+            rf = RefmvsFrame(fhdr, seq, bw4f, bh4f, ref_poc=ref_poc)
+            rf.setup_temporal(
+                seq, fhdr, ref_poc,
+                [self._ref_refpoc[fhdr.refidx[i]] for i in range(7)],
+                [self._ref_tmvs[fhdr.refidx[i]] for i in range(7)])
+            ref_scaled = [
+                refs[fhdr.refidx[i]] is not None and
+                (refs[fhdr.refidx[i]].width != cur_w or
+                 refs[fhdr.refidx[i]].height != fhdr.height)
+                for i in range(7)]
+
+        if fhdr.primary_ref_frame == h.PRIMARY_REF_NONE:
+            cdf_in = new_cdf_context(qcat_from_qidx(fhdr.quant_yac))
+        else:
+            src = self._ref_cdfs[fhdr.refidx[fhdr.primary_ref_frame]]
+            if src is None:
+                raise DecodeError("missing primary-ref CDFs")
+            cdf_in = src
+
+        prev_segmap = None
+        if fhdr.segmentation_enabled and \
+                (fhdr.segmentation_temporal or
+                 not fhdr.segmentation_update_map) and \
+                fhdr.primary_ref_frame != h.PRIMARY_REF_NONE:
+            prev_segmap = \
+                self._ref_segmaps[fhdr.refidx[fhdr.primary_ref_frame]]
+
+        coders = []
+        t = fhdr.tiling
+        with stages.scope("host-entropy"):
+            for tile_row in range(t.rows):
+                for tile_col in range(t.cols):
+                    ti = tile_row * t.cols + tile_col
+                    data_t, _, _ = _tile_payload(st, ti, fhdr)
+                    coder = TileCoder(
+                        seq, fhdr, cdf_in.copy(),
+                        DecodeSide(NativeMsac(
+                            data_t, bool(fhdr.disable_cdf_update))),
+                        tile_col=tile_col, tile_row=tile_row, rf=rf,
+                        ref_poc=ref_poc, ref_scaled=ref_scaled,
+                        prev_segmap=prev_segmap)
+                    native_tile.code_tile_native(coder)
+                    coders.append(coder)
+
+        bufs = FrameBuffers(seq, fhdr, width=fhdr.width[1])
+        with stages.scope("plan"):
+            built = build_frame_program(seq, fhdr, coders, bufs, refs)
+        execute_frame_program(built, seq, fhdr, coders, bufs, self.device)
+        with stages.scope("filters", self.device):
+            apply_inloop_filters(seq, fhdr, coders, bufs, self.device,
+                                 filters_mask=self.s.inloop_filters)
+
+        # reference slot updates (entropy-stage products)
+        out_cdf = cdf_thread_update(cdf_in,
+                                    coders[fhdr.tiling.update].cdf,
+                                    keyframe) if fhdr.refresh_context \
+            else cdf_in
+        cur_tmvs = None
+        cur_refpoc = [0] * 7
+        if not keyframe:
+            rf.save_tmvs_frame()
+            cur_tmvs = rf.rp
+            cur_refpoc = ref_poc
+        cur_segmap = None
+        if fhdr.segmentation_enabled:
+            if fhdr.segmentation_update_map:
+                cur_segmap = coders[0].seg_map.copy()
+                for c in coders[1:]:
+                    cur_segmap[c.row_start:c.row_end,
+                               c.col_start:c.col_end] = \
+                        c.seg_map[c.row_start:c.row_end,
+                                  c.col_start:c.col_end]
+            else:
+                cur_segmap = prev_segmap
+        for i in range(8):
+            if (fhdr.refresh_frame_flags >> i) & 1:
+                refs[i] = bufs
+                st.refs[i] = fhdr
+                self._ref_cdfs[i] = out_cdf
+                self._ref_tmvs[i] = cur_tmvs
+                self._ref_refpoc[i] = cur_refpoc
+                self._ref_segmaps[i] = cur_segmap
+                self._errored_slots.discard(i)
+        return bufs

@@ -1,0 +1,374 @@
+"""Per-frame device program: a packed op list replayed eagerly in PyTorch.
+
+Port of ``dav1d_mirror_tpu/models/frame_exec.py``. The host planner packs
+every descriptor, coefficient and filter map of a frame into three flat
+buffers (int32, int16, int8) plus a static op list (``FrameProgram``,
+copied from the reference with its Pallas-only forms left out). The
+executor uploads the three buffers ONCE per frame and replays the ops on
+device tensors, slicing each op's inputs out of the uploaded buffers.
+
+The executor implements the op kinds of the hybrid inter path with
+deblock and CDEF: ``hpx``, ``puthv_x``, ``put``, ``residmc``, ``hresmc``,
+``dbk``, ``cdef`` and ``out``. Every other kind raises
+``NotImplementedError`` naming its ROADMAP item, before any op runs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import mc_cuda
+from ..ops.cdef import cdef_frame
+from ..ops.itx import _residual_multi_core, itx_residual_multi
+from ..ops.loopfilter import deblock_plane
+from ..ops.mc import (HPAD_L, PAD_OOB, mc_hv_combos, mc_unit_batch,
+                      scatter_units, unit_index)
+
+
+# int16 OOB sentinel for destination rows: PAD_OOB (1 << 20) marks
+# dropped scatter rows but doesn't fit int16, so narrow emits carry
+# OOB16 and the executor widens it back
+OOB16 = 0x7FFF
+
+
+def emit_ys16(prog, ys):
+    v = np.asarray(ys, np.int64)
+    assert v.max(initial=0) < 0x7FFF or \
+        v[v >= 0x7FFF].min(initial=PAD_OOB) >= PAD_OOB, \
+        "ys16 value collides with OOB16"
+    return prog.emit16(np.where(v >= PAD_OOB, OOB16, v))
+
+
+def _ys_oob(ys):
+    return torch.where(ys == OOB16, PAD_OOB, ys)
+
+
+def compact_cf(cf):
+    """Sparsify a (B, sh, sw) coefficient batch to (vals (B, K),
+    pos (B, K), K): inverse-transform inputs are mostly zeros (eob
+    truncates the scan), so the descriptor carries only the nonzeros;
+    the device rebuilds the dense block (pad lanes carry the out-of-range
+    position S). K is the bucket's max nonzero count."""
+    B = cf.shape[0]
+    S = cf.shape[1] * cf.shape[2]
+    flat = cf.reshape(B, S)
+    r, c = np.nonzero(flat)
+    counts = np.bincount(r, minlength=B)
+    K = max(int(counts.max()) if B else 0, 1)
+    starts = np.zeros(B + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    k_idx = np.arange(len(r)) - starts[r]
+    vals = np.zeros((B, K), np.int32)
+    pos = np.full((B, K), S, np.int32)   # S = out of range -> dropped
+    vals[r, k_idx] = flat[r, c]
+    pos[r, k_idx] = c
+    return vals, pos, K
+
+
+def _expand_cf(vals, pos, sh: int, sw: int):
+    """Device-side inverse of compact_cf: (B, K)+(B, K) -> (B, sh, sw).
+    Pad lanes carry position S = sh*sw; they land in an extra sink
+    column that is cut off (the reference drops them)."""
+    B = vals.shape[0]
+    S = sh * sw
+    dense = vals.new_zeros((B, S + 1))
+    dense.scatter_(1, pos.long().clamp(0, S), vals)
+    return dense[:, :S].reshape(B, sh, sw)
+
+
+def _resid_scatter_multi(plane, cfs, rsel, csel, ys, xs, tx: int,
+                         bitdepth: int):
+    """Inverse-transform one bucket and clip-add it onto the plane at
+    (ys, xs). Pad rows carry PAD_OOB ys: masked out of both the read and
+    the write. Updates the plane IN PLACE (one bucket touches a sliver
+    of it) and returns it."""
+    res = _residual_multi_core(cfs, rsel, csel, tx, bitdepth)
+    uh, uw = res.shape[1], res.shape[2]
+    yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
+    yy, xx = yy[ok].long(), xx[ok].long()
+    plane[yy, xx] = (plane[yy, xx] + res[ok]).clamp(0, (1 << bitdepth) - 1)
+    return plane
+
+
+class FrameProgram:
+    """Builder: accumulates op records + one flat int32 descriptor
+    buffer (and int16/int8 side buffers). Everything static (shapes,
+    size classes, offsets) lives in the op records; everything data
+    lives in the buffers."""
+
+    def __init__(self, n_planes, bitdepth, plane_shapes, refspec=(),
+                 plane_inputs=False, out_dtype=None):
+        """refspec: per plane ((h_vis, w_vis), 7-tuple of refsrc index
+        or -1 for an absent/mismatched slot)."""
+        self.n_planes = n_planes
+        self.bd = bitdepth
+        self.plane_shapes = tuple(tuple(s) for s in plane_shapes)
+        self.refspec = tuple(refspec)
+        # views of scaled references: none in this slice; the field keeps
+        # the signature layout the reference interpreter reads
+        self.srefspec = ()
+        self.ref_shapes = tuple(s for s, _ in self.refspec)
+        self.plane_inputs = bool(plane_inputs)
+        # plane pixel values fit the frame's native dtype; the "out" op
+        # narrows the output planes (and the reference planes later
+        # frames read) to it
+        self.out_dtype = np.dtype(out_dtype).name if out_dtype else None
+        self.ops = []
+        self._chunks = []
+        self._off = 0
+        self._chunks16 = []
+        self._off16 = 0
+        self._chunks8 = []
+        self._off8 = 0
+        self._hp_ids = {}      # (pl, combos-bytes) -> cache id
+
+    # -- packing ----------------------------------------------------
+    def emit(self, arr):
+        a = np.ascontiguousarray(np.asarray(arr, dtype=np.int32))
+        h = (self._off, a.shape)
+        self._chunks.append(a.reshape(-1))
+        self._off += a.size
+        return h
+
+    def emit16(self, arr):
+        """Emit into the int16 side buffer. Callers must guarantee values
+        fit int16 — coefficient payloads at 8 bpc, filter level/edge
+        maps, small taps. The executor widens slices back to int32.
+        NEVER use for arrays carrying the PAD_OOB sentinel (1<<20)."""
+        a = np.ascontiguousarray(np.asarray(arr, dtype=np.int16))
+        h = (self._off16, a.shape, 16)
+        self._chunks16.append(a.reshape(-1))
+        self._off16 += a.size
+        return h
+
+    def emit8(self, arr):
+        """Emit into the int8 side buffer — for small-range per-4x4
+        filter maps (deblock levels <= 63, edge masks, luts, CDEF
+        strengths). Same caveats as emit16."""
+        a = np.asarray(arr)
+        assert a.size == 0 or (a.min() >= -128 and a.max() <= 127), \
+            "emit8 value out of int8 range"
+        a = np.ascontiguousarray(a.astype(np.int8))
+        h = (self._off8, a.shape, 8)
+        self._chunks8.append(a.reshape(-1))
+        self._off8 += a.size
+        return h
+
+    def op(self, *rec):
+        self.ops.append(rec)
+
+    def hplanes_id(self, pl, combos):
+        """Cache id for an H-filtered plane stack; emits the build op on
+        first use of this (plane, combos) content."""
+        key = (pl, combos.tobytes())
+        cid = self._hp_ids.get(key)
+        if cid is None:
+            cid = len(self._hp_ids)
+            self._hp_ids[key] = cid
+            self.op("hpx", pl, cid, self.emit(combos))
+        return cid
+
+    def finalize(self):
+        desc = np.concatenate(self._chunks) if self._chunks else \
+            np.zeros(1, np.int32)
+        desc16 = np.concatenate(self._chunks16) if self._chunks16 else \
+            np.zeros(1, np.int16)
+        desc8 = np.concatenate(self._chunks8) if self._chunks8 else \
+            np.zeros(1, np.int8)
+        sig = (tuple(self.ops), self.n_planes, self.bd,
+               self.plane_shapes, self.refspec, self.srefspec,
+               self.plane_inputs, self.out_dtype)
+        return sig, desc, desc16, desc8
+
+
+def plane_to_torch(arr, device):
+    """Upload one numpy plane in a dtype PyTorch computes with: uint8
+    stays uint8; uint16 (10/12-bit) planes go up as int16, which holds
+    every pixel value exactly."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint16:
+        arr = arr.astype(np.int16)
+    return torch.from_numpy(arr).to(device)
+
+
+def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
+    """Upload one frame's packed descriptors and its numpy reference (or
+    input) planes. Returns (desc, desc16, desc8, refsrc) as tensors."""
+    dev = torch.device(device)
+    return (torch.from_numpy(np.ascontiguousarray(desc, np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(desc16, np.int16)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(desc8, np.int8)).to(dev),
+            tuple(p if isinstance(p, torch.Tensor)
+                  else plane_to_torch(p, dev) for p in refsrc))
+
+
+_OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
+
+HANDLED = ("hpx", "puthv_x", "put", "residmc", "hresmc", "dbk", "cdef",
+           "out")
+
+# op kinds outside this slice -> where they stand in ROADMAP.md
+LATER = {
+    "hpp": "Pallas-only form (the port's planner emits hpx)",
+    "puthv_p": "Pallas-only form (the port's planner emits puthv_x)",
+    "outpack": "TPU tunnel download form, not ported",
+    "warp": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
+    "scaled": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
+    "comp": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
+    "obmc": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
+    "resid": "ROADMAP queue 1, item 1a (dense residual forms)",
+    "residm": "ROADMAP queue 1, item 1a (dense residual forms)",
+    "hres": "ROADMAP queue 1, item 1a (dense residual forms)",
+    "hresm": "ROADMAP queue 1, item 1a (dense residual forms)",
+    "residc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
+    "hresc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
+    "snap": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
+    "sres": "ROADMAP queue 1, item 6 (config 3: super-res)",
+    "lrw": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
+    "lrs": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
+    "setplane": "ROADMAP queue 1, item 8 (device intra engine)",
+    "newres": "ROADMAP queue 1, item 8 (device intra engine)",
+    "resraw": "ROADMAP queue 1, item 8 (device intra engine)",
+    "resrawm": "ROADMAP queue 1, item 8 (device intra engine)",
+    "resrawc": "ROADMAP queue 1, item 8 (device intra engine)",
+    "resrawmc": "ROADMAP queue 1, item 8 (device intra engine)",
+    "embed": "ROADMAP queue 1, item 8 (device intra engine)",
+    "palset": "ROADMAP queue 1, item 8 (device intra engine)",
+    "intrascan": "ROADMAP queue 1, item 8 (device intra engine)",
+    "crop": "ROADMAP queue 1, item 8 (device intra engine)",
+}
+
+
+def check_ops(ops):
+    """Raise NotImplementedError for the first op this executor lacks."""
+    for rec in ops:
+        kind = rec[0]
+        if kind not in HANDLED:
+            where = LATER.get(kind, "unknown op kind")
+            raise NotImplementedError(f"frame op {kind!r}: {where}")
+
+
+def execute_program(sig, desc, desc16, desc8, refsrc):
+    """Replay a packed program on the device of `desc`. desc/desc16/desc8:
+    the uploaded int32/int16/int8 buffers; refsrc: tuple of reference
+    plane tensors (or, for plane-input programs, the input planes).
+    Returns (planes tuple, hres tuple)."""
+    (ops, n_planes, bd, plane_shapes, refspec, srefspec,
+     plane_inputs, out_dtype) = sig
+    check_ops(ops)
+    dev = desc.device
+
+    def get(h):
+        if len(h) == 3:      # narrow side buffers (emit16/emit8)
+            off, shape, bits = h
+            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+            src = desc16 if bits == 16 else desc8
+            return src[off:off + n].reshape(shape).to(torch.int32)
+        off, shape = h
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        return desc[off:off + n].reshape(shape)
+
+    refs = []
+    for (hv, wv), slots in refspec:
+        refs.append(torch.stack(
+            [torch.zeros((hv, wv), dtype=torch.int32, device=dev) if i < 0
+             else refsrc[i][:hv, :wv].to(torch.int32) for i in slots]))
+    if plane_inputs:
+        # a copy: the ops below update planes in place, and the inputs
+        # are reference planes later frames still read
+        planes = [p.to(torch.int32, copy=True) for p in refsrc]
+    else:
+        planes = [torch.zeros(s, dtype=torch.int32, device=dev)
+                  for s in plane_shapes]
+    hp = {}       # cache id -> H-plane stack
+    hres = []
+
+    def hres_out(x):
+        # residuals fit int16 at 8 bpc (dav1d's own coef type)
+        hres.append(x.to(torch.int16) if bd == 8 else x)
+
+    for rec in ops:
+        kind = rec[0]
+        if kind == "hpx":
+            _, pl, cid, h_combos = rec
+            hp[cid] = mc_cuda.mc_hplanes(refs[pl], get(h_combos), bd)
+        elif kind == "put":
+            _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
+            a = get(h_arr)
+            out = mc_unit_batch(
+                (refs[pl], a[:, 0], a[:, 1], a[:, 2], a[:, 3],
+                 a[:, 4], a[:, 5]), uw, uh, hh, hv, bd, False)
+            scatter_units(planes[pl], out, _ys_oob(get(h_ys)), get(h_xs),
+                          uh, uw)
+        elif kind == "puthv_x":
+            (_, pl, uw, uh, cid, h_slot, h_oy, h_ox, h_my, h_tv,
+             h_ys, h_xs) = rec
+            out = mc_cuda.mc_unit_batch_hv(
+                (hp[cid], get(h_slot), get(h_oy), get(h_ox), get(h_my),
+                 get(h_tv)), uw, uh, bd, False)
+            scatter_units(planes[pl], out, _ys_oob(get(h_ys)), get(h_xs),
+                          uh, uw)
+        elif kind == "residmc":
+            _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            _resid_scatter_multi(planes[pl], cf, get(h_rs), get(h_cs),
+                                 get(h_ys), get(h_xs), tx, bd)
+        elif kind == "hresmc":
+            _, tx, sh, sw, h_v, h_p, h_rs, h_cs = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            hres_out(itx_residual_multi(cf, get(h_rs), get(h_cs), tx, bd))
+        elif kind == "dbk":
+            (_, pl, luma, sb4, h_ev, h_eh, h_lv, h_lh, h_el, h_il) = rec
+            # the *_prev neighbour-level maps are pure shifts of lv/lh
+            lv = get(h_lv)
+            lh = get(h_lh)
+            lvp = torch.zeros_like(lv)
+            lvp[:, 1:] = lv[:, :-1]
+            lhp = torch.zeros_like(lh)
+            lhp[1:, :] = lh[:-1, :]
+            planes[pl] = deblock_plane(
+                planes[pl], get(h_ev), get(h_eh), lv, lvp, lh, lhp,
+                get(h_el), get(h_il), luma=luma, bitdepth=bd)
+        elif kind == "cdef":
+            (_, h_idx, h_ns, h_ystr, h_uvstr, damping, ssh, ssv,
+             mono) = rec
+            planes = list(cdef_frame(
+                tuple(planes), get(h_idx), get(h_ns) != 0, get(h_ystr),
+                get(h_uvstr), damping=damping, bitdepth=bd, ss_hor=ssh,
+                ss_ver=ssv, monochrome=mono))
+        else:  # "out"
+            planes = [p.to(_OUT_DTYPES[out_dtype]) for p in planes]
+    return tuple(planes), tuple(hres)
+
+
+def run_frame_program(prog: FrameProgram, refsrc, device):
+    """Finalize, upload once, and execute a packed program on `device`.
+    refsrc: reference plane tensors (or numpy planes to upload)."""
+    sig, desc, desc16, desc8 = prog.finalize()
+    desc, desc16, desc8, refsrc = frame_program_to_torch(
+        desc, desc16, desc8, refsrc, device)
+    return execute_program(sig, desc, desc16, desc8, refsrc)
+
+
+# ---------------------------------------------------------------------
+# pack helper shared with the planner (models/inter)
+# ---------------------------------------------------------------------
+def pack_put_case(prog: FrameProgram, pl, key, arr):
+    """One translational-put bucket. arr: pow2-padded (B, 8) rows
+    (ref, oy, ox, mx, my, f2d, dst_y, dst_x) with PAD_OOB dst_y pads.
+    All columns ride the int16 side (coords < 8K, the dst_y OOB sentinel
+    narrowed to OOB16)."""
+    uw, uh, has_h, has_v = key
+    h_ys = emit_ys16(prog, arr[:, 6])
+    h_xs = prog.emit16(arr[:, 7])
+    if has_h and has_v:
+        W = prog.ref_shapes[pl][1]
+        combos, slot, tv = mc_hv_combos(arr[:, :6], uw)
+        cid = prog.hplanes_id(pl, combos)
+        ox = np.clip(arr[:, 2], -HPAD_L, W - 1).astype(np.int32)
+        prog.op("puthv_x", pl, uw, uh, cid, prog.emit16(slot),
+                prog.emit16(arr[:, 1]), prog.emit16(ox),
+                prog.emit16(arr[:, 4]), prog.emit16(tv), h_ys, h_xs)
+    else:
+        prog.op("put", pl, uw, uh, bool(has_h), bool(has_v),
+                prog.emit16(arr[:, :6]), h_ys, h_xs)

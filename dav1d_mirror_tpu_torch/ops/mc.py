@@ -1,0 +1,230 @@
+"""Batched motion compensation as PyTorch ops on int32 tensors.
+
+Port of ``dav1d_mirror_tpu/ops/mc_tpu.py`` (the translational part). The
+host planner decomposes every translational MC block into fixed-size
+units (8x8, with 4-wide/4-tall remainder buckets) that share one subpel
+phase each; these functions run one bucket:
+
+- ``mc_unit_batch``: single-stage put/prep over clamped (uh+7, uw+7)
+  windows (edge emulation == clamped gather, dav1d mc:986-999);
+- ``mc_hplanes`` + ``mc_unit_batch_hv``: the two-stage form of the
+  has_h & has_v buckets. They are the plain versions of the two CUDA
+  kernels in ``csrc/`` (wrappers in ``ops/mc_cuda.py``);
+- ``scatter_units``: writes unit batches into a plane.
+
+Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..data.tables import TABLES
+
+# (6, 15, 8) subpel filter table; rows 0..2 = 8-tap regular/smooth/sharp,
+# 3..4 = 4-tap variants (w <= 4), 5 = bilin
+SUBPEL = np.asarray(TABLES["mc_subpel_filters"], np.int32)
+
+# Filter2d -> (type_h, type_v)
+_F2D = np.asarray([[0, 0], [0, 1], [0, 2],
+                   [2, 0], [2, 1], [2, 2],
+                   [1, 0], [1, 1], [1, 2]], np.int32)
+
+# Sentinel row origin marking shape-padding batch entries: far enough out
+# of bounds that every scatter index of the unit is dropped, small enough
+# that index arithmetic cannot overflow int32.
+PAD_OOB = 1 << 20
+
+HPAD_L = 15          # covers window-origin x0 >= -(uw+7) after clamping
+HPAD_R = 14          # x0 max = W+6, taps reach W+13
+
+
+def ibits(bitdepth):
+    return 4 if bitdepth == 8 else 14 - bitdepth
+
+
+@functools.lru_cache(maxsize=None)
+def subpel_table(device) -> torch.Tensor:
+    """The subpel filter table as a contiguous int32 tensor on `device`."""
+    return torch.as_tensor(SUBPEL, device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _f2d_table(device) -> torch.Tensor:
+    return torch.as_tensor(_F2D, device=device)
+
+
+def _filters_for(ftype, subpel, small: bool):
+    """Per-unit (B, 8) filter rows. ftype: (B,) 0..2; subpel: (B,) 1..15."""
+    row = 3 + (ftype & 1) if small else ftype
+    return subpel_table(ftype.device)[row.long(), (subpel - 1).long()]
+
+
+def _taps(acc_src, f, n, axis):
+    """8 shifted multiply-adds along `axis` (1 = rows, 2 = columns) of a
+    (B, h, w) int32 window with per-unit taps f (B, 8)."""
+    def tap(k):
+        v = acc_src[:, k:k + n] if axis == 1 else acc_src[:, :, k:k + n]
+        return v * f[:, k, None, None]
+    acc = tap(0)
+    for k in range(1, 8):
+        acc = acc + tap(k)
+    return acc
+
+
+def mc_unit_batch(args, uw: int, uh: int, has_h: bool, has_v: bool,
+                  bitdepth: int, prep: bool):
+    """args = (ref_stack (R, H, W) int32, ref_idx (B,), oy (B,), ox (B,)
+    window origins (may be negative; clamped gather), mx (B,), my (B,)
+    subpel 1..15, f2d (B,) Filter2d enum).
+
+    Returns (B, uh, uw) int32: pixels (put) or int16-domain tmp (prep)."""
+    ref_stack, ref_idx, oy, ox, mx, my, f2d = args
+    dev = ref_stack.device
+    H, W = ref_stack.shape[1], ref_stack.shape[2]
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    bd_max = (1 << bitdepth) - 1
+
+    win_h = uh + 7 if has_v else uh
+    win_w = uw + 7 if has_h else uw
+    ar_h = torch.arange(win_h, device=dev, dtype=torch.int32)
+    ar_w = torch.arange(win_w, device=dev, dtype=torch.int32)
+    ys = (oy[:, None] + ar_h[None, :]).clamp(0, H - 1).long()
+    xs = (ox[:, None] + ar_w[None, :]).clamp(0, W - 1).long()
+    win = ref_stack[ref_idx.long()[:, None, None], ys[:, :, None],
+                    xs[:, None, :]].to(torch.int32)
+
+    f2d_tab = _f2d_table(dev)
+    th = f2d_tab[f2d.long(), 0]
+    tv = f2d_tab[f2d.long(), 1]
+
+    if has_h:
+        fh = _filters_for(th, mx, uw <= 4)  # (B, 8)
+        hsum = _taps(win, fh, uw, 2)
+        if has_v:
+            mid = (hsum + ((1 << (6 - ib)) >> 1)) >> (6 - ib)
+        else:
+            if prep:
+                return ((hsum + ((1 << (6 - ib)) >> 1)) >> (6 - ib)) - bias
+            irnd = 32 + ((1 << (6 - ib)) >> 1)
+            return ((hsum + irnd) >> 6).clamp(0, bd_max)
+    else:
+        mid = win
+
+    if has_v:
+        fv = _filters_for(tv, my, uh <= 4)
+        vsum = _taps(mid, fv, uh, 1)
+        if has_h:
+            if prep:
+                return ((vsum + 32) >> 6) - bias
+            return ((vsum + ((1 << (6 + ib)) >> 1)) >> (6 + ib)).clamp(
+                0, bd_max)
+        if prep:
+            return ((vsum + ((1 << (6 - ib)) >> 1)) >> (6 - ib)) - bias
+        return ((vsum + 32) >> 6).clamp(0, bd_max)
+
+    # copy path
+    if prep:
+        return (win[:, :uh, :uw] << ib) - bias
+    return win[:, :uh, :uw]
+
+
+# ---------------------------------------------------------------------
+# Two-stage MC for the has_h & has_v buckets (the dominant case): the
+# horizontal pass runs once per distinct (ref, filter_row, mx) combo over
+# the whole plane, and each unit then gathers only its (uh+7, uw) mid
+# window. The mid values are the same ints as in mc_unit_batch (same
+# taps on the same clamped pixels, same rounding), so the result is
+# bit-exact with mc_unit_batch(..., has_h=True, has_v=True).
+# ---------------------------------------------------------------------
+def mc_hplanes(ref_stack, combos, bitdepth):
+    """Plain version of the ``mc_hplanes`` CUDA kernel. ref_stack:
+    (R, H, W) int32; combos: (C, 3) int32 rows (ref, filter_row, mx).
+    Returns (C, H, W+22) int16 mid planes indexed by window origin
+    xh = x0 + 15 (x0 in [-15, W+6]); rows unchanged. The int16 cast
+    truncates like the reference's ``astype(int16)``."""
+    R, H, W = ref_stack.shape
+    dev = ref_stack.device
+    ib = ibits(bitdepth)
+    # edge-replicated columns: 15 on the left, 14 on the right
+    xs = (torch.arange(W + HPAD_L + HPAD_R, device=dev) - HPAD_L).clamp(
+        0, W - 1)
+    sel = ref_stack.index_select(0, combos[:, 0].long())[:, :, xs]
+    f = subpel_table(dev)[combos[:, 1].long(), (combos[:, 2] - 1).long()]
+    acc = _taps(sel, f, W + 22, 2)
+    mid = (acc + ((1 << (6 - ib)) >> 1)) >> (6 - ib)
+    return mid.to(torch.int16)
+
+
+def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
+    """Plain version of the ``mc_vpass`` CUDA kernel: vertical pass over
+    gathered mid windows. args = (hstack (C, H, W+22) int16 from
+    mc_hplanes, slot (B,), oy (B,), ox (B,) pre-clamped to [-15, W-1],
+    my (B,), tv (B,) vertical filter type)."""
+    hstack, slot, oy, ox, my, tv = args
+    dev = hstack.device
+    H = hstack.shape[1]
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    ar_h = torch.arange(uh + 7, device=dev, dtype=torch.int32)
+    ar_w = torch.arange(uw, device=dev, dtype=torch.int32)
+    ys = (oy[:, None] + ar_h[None, :]).clamp(0, H - 1).long()
+    xh = ((ox + HPAD_L)[:, None] + ar_w[None, :]).long()
+    mid = hstack[slot.long()[:, None, None], ys[:, :, None],
+                 xh[:, None, :]].to(torch.int32)
+    fv = _filters_for(tv, my, uh <= 4)
+    vsum = _taps(mid, fv, uh, 1)
+    if prep:
+        return ((vsum + 32) >> 6) - bias
+    return ((vsum + ((1 << (6 + ib)) >> 1)) >> (6 + ib)).clamp(
+        0, (1 << bitdepth) - 1)
+
+
+def mc_hv_combos(arr, uw):
+    """Host-side combo/slot mapping for a has_h&has_v descriptor bucket.
+    arr: (B, 6) np int32 (ref, oy, ox, mx, my, f2d). Returns
+    (combos (C,3) padded to a multiple of 8, slot (B,), tv (B,))."""
+    th = _F2D[arr[:, 5], 0]
+    tv = _F2D[arr[:, 5], 1]
+    filt_row = np.where(uw <= 4, 3 + (th & 1), th)
+    key = np.stack([arr[:, 0], filt_row, arr[:, 3]], axis=1)
+    combos, slot = np.unique(key, axis=0, return_inverse=True)
+    # quantized padding (8, 16, 24, 40, 64, 96, 144, ... — 1.5x steps
+    # kept multiples of 8), as the reference packer pads
+    padded = 8
+    while padded < combos.shape[0]:
+        padded = (padded + (padded >> 1) + 7) & ~7
+    if padded != combos.shape[0]:
+        combos = np.concatenate(
+            [combos, np.repeat(combos[-1:], padded - combos.shape[0], 0)])
+    return (combos.astype(np.int32), slot.astype(np.int32),
+            tv.astype(np.int32))
+
+
+def unit_index(ys, xs, uh, uw, shape):
+    """(yy, xx, ok) element coordinates of (B, uh, uw) units at top-left
+    (ys, xs), and the mask of those inside a plane of `shape`. Pad rows
+    carry PAD_OOB origins; the reference's scatters drop them implicitly,
+    here the mask drops them."""
+    dev = ys.device
+    H, W = shape
+    yy = ys[:, None, None] + torch.arange(uh, device=dev,
+                                          dtype=ys.dtype)[None, :, None]
+    xx = xs[:, None, None] + torch.arange(uw, device=dev,
+                                          dtype=xs.dtype)[None, None, :]
+    yy, xx = torch.broadcast_tensors(yy, xx)
+    ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+    return yy, xx, ok
+
+
+def scatter_units(plane, units, ys, xs, uh, uw):
+    """Write (B, uh, uw) units into plane at top-left (ys, xs). Units are
+    disjoint. Writes IN PLACE (a frame's planes take hundreds of bucket
+    scatters; a functional copy per bucket would move the whole plane
+    each time) and returns the plane."""
+    yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
+    plane[yy[ok].long(), xx[ok].long()] = units[ok].to(plane.dtype)
+    return plane

@@ -1,0 +1,189 @@
+"""Wrappers of the two hand-written CUDA kernels of the MC path.
+
+- ``mc_hplanes``: ``csrc/mc_hplanes.cu``, the H-plane 8-tap pass;
+- ``mc_unit_batch_hv``: ``csrc/mc_vpass.cu``, the per-unit V-pass.
+
+Each takes the same arguments as its plain version in ``ops/mc.py``. A
+tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+kernel, or the call raises. The kernels are compiled with ``nvcc`` for
+``sm_90a`` at first use, one ``nvcc`` per source, run side by side, into
+``build/kernels/`` beside this package, and bound through ctypes (plain C
+entry points, no PyTorch headers). ``HPLANES_LAUNCHES`` and
+``VPASS_LAUNCHES`` count the launches.
+"""
+from __future__ import annotations
+
+import ctypes as ct
+import fcntl
+import os
+import subprocess
+import threading
+
+import torch
+
+from . import mc
+
+HPLANES_LAUNCHES = 0
+VPASS_LAUNCHES = 0
+
+_PKG = os.path.join(os.path.dirname(__file__), os.pardir)
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "build", "kernels")
+SOURCES = ("mc_hplanes", "mc_vpass")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def _so(name):
+    return os.path.join(_BUILD, f"lib{name}.so")
+
+
+def build(extra_flags=()):
+    """Compile every stale kernel library, all ``nvcc`` runs side by
+    side. Returns {name: compiler output} for the sources it built.
+    Raises if a build fails."""
+    os.makedirs(_BUILD, exist_ok=True)
+    with open(os.path.join(_BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = {}
+        for name in SOURCES:
+            src = os.path.join(_CSRC, f"{name}.cu")
+            so = _so(name)
+            if os.path.exists(so) and \
+                    os.path.getmtime(so) >= os.path.getmtime(src):
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = {}
+        for name, (tmp, p) in procs.items():
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, _so(name))
+            logs[name] = out
+        return logs
+
+
+def _lib(name):
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            build()
+            lib = ct.CDLL(_so(name))
+            vp = ct.c_void_p
+            fn = getattr(lib, f"{name}_launch")
+            fn.restype = ct.c_int
+            if name == "mc_hplanes":
+                fn.argtypes = [vp, vp, vp, vp] + [ct.c_int] * 4 + [vp]
+            else:
+                fn.argtypes = [vp] * 8 + [ct.c_int] * 9 + [vp]
+            err = getattr(lib, f"{name}_error_string")
+            err.restype = ct.c_char_p
+            err.argtypes = [ct.c_int]
+            _libs[name] = lib
+    return _libs[name]
+
+
+def _check(t, name, dtype, ndim, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _raise_on(lib, name, rc):
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+def _cuda_device(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors must be on the CPU (plain "
+                         f"version) or on a CUDA device, got {t.device}")
+    return t.device
+
+
+def mc_hplanes(ref_stack, combos, bitdepth):
+    """ref_stack (R, H, W) int32; combos (C, 3) int32 (ref, filter_row,
+    mx), ref < R, filter_row < 6, mx in 1..15. Returns (C, H, W+22)
+    int16. See ``ops/mc.mc_hplanes``."""
+    global HPLANES_LAUNCHES
+    if ref_stack.device.type == "cpu":
+        return mc.mc_hplanes(ref_stack, combos, bitdepth)
+    dev = _cuda_device(ref_stack, "mc_hplanes")
+    _check(ref_stack, "ref_stack", torch.int32, 3, dev)
+    _check(combos, "combos", torch.int32, 2, dev)
+    if combos.shape[1] != 3:
+        raise ValueError(f"combos: shape {tuple(combos.shape)}, "
+                         "expected (C, 3)")
+    if bitdepth not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bitdepth}")
+    _, H, W = ref_stack.shape
+    C = combos.shape[0]
+    out = torch.empty((C, H, W + 22), dtype=torch.int16, device=dev)
+    lib = _lib("mc_hplanes")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mc_hplanes_launch(
+            ref_stack.data_ptr(), combos.data_ptr(),
+            mc.subpel_table(dev).data_ptr(), out.data_ptr(), H, W, C,
+            mc.ibits(bitdepth), stream)
+    _raise_on(lib, "mc_hplanes", rc)
+    HPLANES_LAUNCHES += 1
+    return out
+
+
+def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
+    """args = (hstack (C, H, W+22) int16, slot, oy, ox, my, tv), each
+    (B,) int32; slot < C, ox in [-15, W-1], my in 1..15, tv in 0..2.
+    Returns (B, uh, uw) int32. See ``ops/mc.mc_unit_batch_hv``."""
+    global VPASS_LAUNCHES
+    hstack = args[0]
+    if hstack.device.type == "cpu":
+        return mc.mc_unit_batch_hv(args, uw, uh, bitdepth, prep)
+    dev = _cuda_device(hstack, "mc_unit_batch_hv")
+    _check(hstack, "hstack", torch.int16, 3, dev)
+    cols = args[1:]
+    for nm, t in zip(("slot", "oy", "ox", "my", "tv"), cols):
+        _check(t, nm, torch.int32, 1, dev)
+    B = cols[0].shape[0]
+    if any(t.shape[0] != B for t in cols):
+        raise ValueError("descriptor columns differ in length")
+    if uw not in (2, 4, 8) or uh not in (2, 4, 8):
+        raise ValueError(f"unit {uw}x{uh}")
+    if bitdepth not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bitdepth}")
+    _, H, w_mid = hstack.shape
+    out = torch.empty((B, uh, uw), dtype=torch.int32, device=dev)
+    lib = _lib("mc_vpass")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mc_vpass_launch(
+            hstack.data_ptr(), *(t.data_ptr() for t in cols),
+            mc.subpel_table(dev).data_ptr(), out.data_ptr(), B, H, w_mid,
+            uw, uh, mc.ibits(bitdepth), 0 if bitdepth == 8 else 8192,
+            (1 << bitdepth) - 1, int(bool(prep)), stream)
+    _raise_on(lib, "mc_vpass", rc)
+    VPASS_LAUNCHES += 1
+    return out

@@ -1,0 +1,41 @@
+"""Per-stage wall time of the decode (host entropy, planning, device
+execute, host pass 2, filters).
+
+Off by default: ``scope`` then costs one branch. When ``enabled``, each
+scope that names a CUDA device synchronizes it on exit, so device work
+queued inside the scope is charged to that scope and not to whichever
+later scope happens to wait for it.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+
+import torch
+
+enabled = False
+_acc = defaultdict(float)
+
+
+def reset():
+    _acc.clear()
+
+
+@contextlib.contextmanager
+def scope(name: str, device=None):
+    if not enabled:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        _acc[name] += time.perf_counter() - t0
+
+
+def seconds() -> dict:
+    """{stage: total seconds} accumulated since reset()."""
+    return dict(_acc)
