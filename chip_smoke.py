@@ -12,11 +12,17 @@ Run from the root of a checkout. It
    ``Decoder(Settings(device="cuda"))``, asserts its md5, and asserts that
    both kernel launch counters moved during that decode;
 3. runs each kernel's wrapper on the card at the shapes the decode gave
-   it, for bit depths 8/10/12, all four unit sizes, put and prep, and
-   requires ``torch.equal`` with the kernel's plain PyTorch version, then
-   times kernel and plain version with CUDA events;
-4. prints the kernel table, the decode's per-frame times and stage split,
-   one JSON line of kernel numbers, the card's name and power limit, and
+   it, for bit depths 8/10/12, every unit size, put and prep, and at the
+   edge shapes (odd widths, one row, one combo, unsorted and duplicate
+   combos, int16 wrap, one unit, extreme window origins), and requires
+   ``torch.equal`` with the kernel's plain PyTorch version; then times
+   kernel and plain version as device time with CUDA events: warm (many
+   back-to-back launches queued while the card is busy, over their
+   count) and with a cold L2 (a 256 MB write queued before each timed
+   launch), beside an empty kernel's launch floor;
+4. prints the kernel table (ms in the JSON line is the warm time), the
+   decode's per-frame times and stage split, one JSON line of kernel
+   numbers, the card's name and power limit, and
    as the last line the device JSON.
 
 With ``--profile DIR`` it also writes a torch.profiler table of two
@@ -40,6 +46,8 @@ STREAM = os.path.join(HERE, "bench_cache",
 STREAM_MD5 = "383c08fe120aef29ce8709efdab36187"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
+CYCLES_PER_MS = 2.0e6        # about the H100's clock; sizes busy waits
 
 
 def card_line():
@@ -77,6 +85,8 @@ class ShapeLog:
         self.frame_exec = frame_exec
         self.hplanes = []   # (R, H, W, C, bd)
         self.vpass = []     # (B, uw, uh, C, H, w_mid, bd)
+        self.vpass_args = {}  # (uw, uh) -> args of its largest put call
+        self.hplanes_args = None  # args of the largest H-plane call
         self.frame_ops = []  # per frame: {op kind: count}
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
                       frame_exec.execute_program)
@@ -96,11 +106,21 @@ class ShapeLog:
         def rec_hp(ref_stack, combos, bd):
             self.hplanes.append(tuple(ref_stack.shape) +
                                 (combos.shape[0], bd))
+            size = lambda r, c: (r.shape[1] * r.shape[2], c.shape[0])
+            kept = self.hplanes_args
+            if kept is None or size(ref_stack, combos) > size(*kept):
+                # the reference stack is never written after it is made
+                self.hplanes_args = (ref_stack, combos.clone())
             return hp(ref_stack, combos, bd)
 
         def rec_vp(args, uw, uh, bd, prep):
-            self.vpass.append((args[1].shape[0], uw, uh) +
-                              tuple(args[0].shape) + (bd,))
+            B = args[1].shape[0]
+            self.vpass.append((B, uw, uh) + tuple(args[0].shape) + (bd,))
+            kept = self.vpass_args.get((uw, uh))
+            if not prep and (kept is None or B > kept[1].shape[0]):
+                # the H-plane stack is never written after it is made
+                self.vpass_args[(uw, uh)] = (args[0], *(
+                    c.clone() for c in args[1:]))
             return vp(args, uw, uh, bd, prep)
 
         self.mc_cuda.mc_hplanes = rec_hp
@@ -129,75 +149,241 @@ def decode(api, MD5Muxer, frames, torch, on_frame=None):
     return mux.digest(), mux.n, times
 
 
-def time_ms(torch, fn, warmup, iters):
-    """Median milliseconds of fn() by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
+def _event(torch):
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _queue_ahead(torch, enqueue, busy_ms=2.0):
+    """Run enqueue() while the card is kept busy (torch.cuda._sleep), so
+    that the host has queued all of its work before the card reaches
+    it and the events it records bracket device work only. enqueue
+    returns its events, the first recorded first. Doubles the busy time
+    until the host finished queueing before the card reached the first
+    event."""
+    for _ in range(10):
+        start = _event(torch)
+        start.record()
+        torch.cuda._sleep(int(busy_ms * CYCLES_PER_MS))
+        t0 = time.perf_counter()
+        events = enqueue()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if start.elapsed_time(events[0]) > host_ms:
+            return events
+        busy_ms *= 2
+    raise RuntimeError("the host could not queue ahead of the card")
+
+
+def time_warm(torch, fn, n):
+    """Device ms per launch: n back-to-back launches of fn between one
+    pair of CUDA events, the elapsed time over n."""
+    fn()
     torch.cuda.synchronize()
-    ts = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+
+    def enqueue():
+        a, b = _event(torch), _event(torch)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
+        return a, b
+    a, b = _queue_ahead(torch, enqueue)
+    return a.elapsed_time(b) / n
+
+
+def time_cold(torch, fn, scratch, n):
+    """Median device ms of n launches of fn with a cold L2: before each
+    timed launch a write of `scratch` (several times the 50 MB L2) is
+    queued outside its pair of events."""
+    fn()
+    torch.cuda.synchronize()
+
+    def enqueue():
+        events = []
+        for i in range(n):
+            scratch.fill_(i & 127)
+            a, b = _event(torch), _event(torch)
+            a.record()
+            fn()
+            b.record()
+            events += [a, b]
+        return events
+    ev = _queue_ahead(torch, enqueue)
+    return statistics.median(ev[2 * i].elapsed_time(ev[2 * i + 1])
+                             for i in range(n))
+
+
+def bound(n_bytes, n_ops):
+    """(least ms, what bounds it) at the H100's published rates."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / CUDA_CORE_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _hp_combos(rng, np, n_ref, c, sort):
+    combos = np.stack([rng.integers(0, n_ref, c), rng.integers(0, 6, c),
+                       rng.integers(1, 16, c)], 1).astype(np.int32)
+    if sort:   # the planner's order (np.unique rows: by reference first)
+        combos = combos[np.lexsort(combos.T[::-1])]
+    return combos
+
+
+def hplanes_edge_cases(rng, np):
+    """(label, refs, combos, bd) of the shapes that the vector stores,
+    peeled heads, row bands and combo runs can get wrong."""
+    cases = []
+
+    def add(label, r, h, w, c, bd, hi=None, combos=None):
+        refs = rng.integers(0, hi or 1 << bd, (r, h, w), dtype=np.int32)
+        if combos is None:
+            combos = _hp_combos(rng, np, r, c, False)
+        cases.append((label, refs, combos, bd))
+    add("odd W=37, H=13", 3, 13, 37, 10, 8)
+    add("odd W=961, H=9", 2, 9, 961, 7, 10)
+    add("H=1", 2, 1, 64, 8, 8)
+    add("C=1", 2, 20, 48, 1, 12)
+    add("C=7", 2, 17, 1920, 7, 8)
+    alt = _hp_combos(rng, np, 3, 12, False)
+    alt[:, 0] = np.arange(12) % 2 * 2
+    add("alternating refs", 3, 11, 70, 12, 8, combos=alt)
+    dup = _hp_combos(rng, np, 2, 12, True)
+    dup[6:] = dup[:6]
+    add("duplicate combos", 2, 10, 33, 12, 10, combos=dup)
+    # reference values up to 2^15, beyond 12-bit pixels (whose mid values
+    # peak at 23546), so the int16 store wraps
+    add("bd12 int16 wrap", 2, 12, 45, 9, 12, hi=1 << 15)
+    return cases
+
+
+def vpass_edge_cases(rng, np, torch, dev):
+    """(label, args, uw, uh, bd) over every unit size in {2,4,8}^2, bd
+    8/10/12: B = 1 and B = 131 (no multiple of any units-per-block
+    count), ox at -15 and W-1, oy far above and below the plane, on an
+    odd-width plane (rows start at odd elements too) that starts 0, 1
+    or 3 elements into an 8-byte word (bd 8, 10, 12)."""
+    Cs, Hs, Wd = 3, 20, 37
+    w_mid = Wd + 22
+    cases = []
+    for uw in (2, 4, 8):
+        for uh in (2, 4, 8):
+            for bd in (8, 10, 12):
+                skew = {8: 0, 10: 1, 12: 3}[bd]
+                flat = torch.from_numpy(rng.integers(
+                    -(1 << 15), 1 << 15, Cs * Hs * w_mid + skew,
+                    dtype=np.int16)).to(dev)
+                hstack = flat[skew:].view(Cs, Hs, w_mid)
+                for B in (1, 131):
+                    k = np.arange(B)
+                    ox = np.where(k % 3 == 0, -15, np.where(
+                        k % 3 == 1, Wd - 1, rng.integers(-15, Wd, B)))
+                    oy = np.where(k % 4 == 0, -1000, np.where(
+                        k % 4 == 1, Hs + 1000, rng.integers(-8, Hs, B)))
+                    cols = [rng.integers(0, Cs, B), oy, ox,
+                            rng.integers(1, 16, B), rng.integers(0, 3, B)]
+                    cols = [torch.from_numpy(c.astype(np.int32)).to(dev)
+                            for c in cols]
+                    cases.append((f"{uw}x{uh} bd{bd} B={B}",
+                                  (hstack, *cols), uw, uh, bd))
+    return cases
 
 
 def kernel_phase(torch, np, mc, mc_cuda, shapes):
-    """Each kernel against its plain version on the card, at the decode's
-    shapes, for bd 8/10/12 (and, for the V-pass, the four unit sizes,
-    put and prep). Returns the per-kernel rows of the JSON line."""
+    """Each kernel against its plain version on the card (torch.equal):
+    at the decode's shapes for bd 8/10/12 (and, for the V-pass, every
+    unit size of the decode, put and prep), and at the edge shapes.
+    Times each kernel warm and with a cold L2, and the empty-launch
+    floor. Returns the per-kernel rows of the JSON line."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
+    scratch = torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device=dev)
+    floor_ms = time_warm(torch, mc_cuda.empty_launch, 200)
+    print(f"  empty launch (floor): {floor_ms:.5f} ms warm")
     rows = []
 
-    # ---- H-plane kernel: the largest luma call of the decode ----
-    R, H, W, C, _ = max(shapes.hplanes, key=lambda s: (s[1] * s[2], s[3]))
-    hp_cases = []
-    max_err = 0
-    timed = None
-    for bd in (8, 10, 12):
-        refs = torch.from_numpy(rng.integers(
-            0, 1 << bd, (R, H, W), dtype=np.int32)).to(dev)
-        n_ref = max(1, min(R, 2))   # combos over a couple of references
-        combos = np.stack([rng.integers(0, n_ref, C),
-                           rng.integers(0, 6, C),
-                           rng.integers(1, 16, C)], 1).astype(np.int32)
-        combos_t = torch.from_numpy(combos).to(dev)
+    # ---- H-plane kernel ----
+    def check_hp(refs, combos_t, bd, label):
         got = mc_cuda.mc_hplanes(refs, combos_t, bd)
         want = mc.mc_hplanes(refs, combos_t, bd)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want), \
-            f"mc_hplanes differs from its plain version at bd {bd}"
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        max_err = max(max_err, err)
-        hp_cases.append(f"bd{bd} C={C} {R}x{H}x{W}")
-        if bd == 8:
-            timed = (refs, combos_t, combos)
-    refs, combos_t, combos = timed
-    k_ms = time_ms(torch, lambda: mc_cuda.mc_hplanes(refs, combos_t, 8),
-                   3, 20)
-    p_ms = time_ms(torch, lambda: mc.mc_hplanes(refs, combos_t, 8), 1, 5)
-    n_used = len(np.unique(combos[:, 0]))
-    hp_bytes = n_used * H * W * 4 + C * 3 * 4 + C * H * (W + 22) * 2
-    hp_ops = C * H * (W + 22) * 16
+            f"mc_hplanes differs from its plain version: {label}"
+        return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+    # the decode's largest luma call, and each plane size it used
+    R, H, W, C, _ = max(shapes.hplanes, key=lambda s: (s[1] * s[2], s[3]))
+    decode_cases = []
+    for bd in (8, 10, 12):
+        refs = torch.from_numpy(rng.integers(
+            0, 1 << bd, (R, H, W), dtype=np.int32)).to(dev)
+        n_ref = max(1, min(R, 2))   # combos over a couple of references
+        decode_cases.append((f"bd{bd} C={C} {R}x{H}x{W}", refs,
+                             _hp_combos(rng, np, n_ref, C, False), bd))
+    for r_, h_, w_, c_ in sorted({s[:4] for s in shapes.hplanes}):
+        if (h_, w_) != (H, W):
+            refs = torch.from_numpy(rng.integers(
+                0, 256, (r_, h_, w_), dtype=np.int32)).to(dev)
+            decode_cases.append((f"bd8 C={c_} {r_}x{h_}x{w_}", refs,
+                                 _hp_combos(rng, np, min(r_, 2), c_, True),
+                                 8))
+    # the timed case: combos sorted by reference, as the planner gives them
+    t_refs = decode_cases[0][1]
+    t_combos = _hp_combos(rng, np, max(1, min(R, 2)), C, True)
+    t_combos_d = torch.from_numpy(t_combos).to(dev)
+    decode_cases.append((f"bd8 C={C} {R}x{H}x{W} sorted (timed)", t_refs,
+                         t_combos, 8))
+    edge = [(lbl, torch.from_numpy(r).to(dev), c, bd)
+            for lbl, r, c, bd in hplanes_edge_cases(rng, np)]
+    # reference rows off the 16-byte grid: a view one element into its
+    # allocation
+    flat = torch.from_numpy(rng.integers(
+        0, 256, 2 * 6 * 1920 + 1, dtype=np.int32)).to(dev)
+    edge.append(("refs 4 bytes off 16-byte alignment",
+                 flat[1:].view(2, 6, 1920), _hp_combos(rng, np, 2, 9, True),
+                 8))
+    hp_all = [(lbl, r, torch.from_numpy(c).to(dev), bd)
+              for lbl, r, c, bd in decode_cases + edge]
+
+    max_err = 0
+    for lbl, refs, combos_t, bd in hp_all:
+        max_err = max(max_err, check_hp(refs, combos_t, bd, lbl))
+
+    def run_hp():
+        return mc_cuda.mc_hplanes(t_refs, t_combos_d, 8)
+    k_ms = time_warm(torch, run_hp, 50)
+    k_cold = time_cold(torch, run_hp, scratch, 20)
+    # the decode's own largest call: its reference planes and combos
+    own_refs, own_combos = shapes.hplanes_args
+    max_err = max(max_err, check_hp(own_refs, own_combos, 8,
+                                    "the decode's own largest call"))
+
+    def run_own_hp():
+        return mc_cuda.mc_hplanes(own_refs, own_combos, 8)
+    own_hp = (time_warm(torch, run_own_hp, 50),
+              time_cold(torch, run_own_hp, scratch, 20))
+    o_r, o_h, o_w = own_refs.shape
+    o_c = own_combos.shape[0]
+    n_own = len(torch.unique(own_combos[:, 0]))
+    b_own, _ = bound(n_own * o_h * o_w * 4 + o_c * 3 * 4 +
+                     o_c * o_h * (o_w + 22) * 2, o_c * o_h * (o_w + 22) * 16)
+    print(f"  mc_hplanes on the decode's own largest call (R={o_r} H={o_h} "
+          f"W={o_w} C={o_c}, {n_own} refs used): {own_hp[0]:.5f} ms warm, "
+          f"{own_hp[1]:.5f} ms cold, bound {b_own:.5f} ms")
+    p_ms = time_warm(torch, lambda: mc.mc_hplanes(t_refs, t_combos_d, 8), 5)
+    n_used = len(np.unique(t_combos[:, 0]))
+    b_ms, b_by = bound(n_used * H * W * 4 + C * 3 * 4 + C * H * (W + 22) * 2,
+                       C * H * (W + 22) * 16)
     rows.append(dict(
         name="mc_hplanes", route="cuda",
         source="dav1d_mirror_tpu_torch/csrc/mc_hplanes.cu",
         replaces="dav1d_mirror_tpu/ops/mc_pallas.py:226",
         launches=None, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=max(hp_bytes / HBM_BYTES_PER_S,
-                     hp_ops / CUDA_CORE_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if hp_bytes / HBM_BYTES_PER_S >=
-                  hp_ops / CUDA_CORE_OPS_PER_S else "operations"),
-        library_ms=None, cases=hp_cases,
-        shape=f"R={R} H={H} W={W} C={C} bd=8"))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, cold_ms=k_cold,
+        floor_ms=floor_ms,
+        cases=[c[0] for c in hp_all],
+        shape=f"R={R} H={H} W={W} C={C} sorted combos over {n_used} refs "
+              f"bd=8"))
 
     # ---- V-pass kernel: every unit size the decode used (and the four
-    # of 4 and 8 pixels) at its largest decode batch ----
+    # of 4 and 8 pixels) at its largest decode batch, then the edges ----
     by_unit = {}
     for B, uw, uh, Cs, Hs, w_mid, _ in shapes.vpass:
         if B > by_unit.get((uw, uh), (0,))[0]:
@@ -208,6 +394,17 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
     vp_cases = []
     max_err = 0
     main_unit = max(by_unit, key=lambda u: by_unit[u][0])
+
+    def check_vp(args, uw, uh, bd, prep, label):
+        got = mc_cuda.mc_unit_batch_hv(args, uw, uh, bd, prep)
+        want = mc.mc_unit_batch_hv(args, uw, uh, bd, prep)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (
+            f"mc_vpass differs from its plain version: {label} "
+            f"{'prep' if prep else 'put'}")
+        vp_cases.append(f"{label} {'prep' if prep else 'put'}")
+        return int((got - want).abs().max())
+
     timed = None
     for (uw, uh), (B, Cs, Hs, w_mid) in sorted(by_unit.items()):
         Wd = w_mid - 22
@@ -220,47 +417,58 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
                     rng.integers(0, 3, B)]
             cols = [torch.from_numpy(c.astype(np.int32)).to(dev)
                     for c in cols]
+            args = (hstack, *cols)
             for prep in (False, True):
-                args = (hstack, *cols)
-                got = mc_cuda.mc_unit_batch_hv(args, uw, uh, bd, prep)
-                want = mc.mc_unit_batch_hv(args, uw, uh, bd, prep)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), (
-                    f"mc_vpass differs from its plain version: unit "
-                    f"{uw}x{uh} bd {bd} prep {prep}")
-                max_err = max(max_err, int((got - want).abs().max()))
-                vp_cases.append(f"{uw}x{uh} bd{bd} "
-                                f"{'prep' if prep else 'put'} B={B}")
-                if bd == 8 and not prep:
-                    unit_ms = time_ms(torch, lambda: mc_cuda.mc_unit_batch_hv(
-                        args, uw, uh, 8, False), 3, 20)
-                    print(f"  mc_vpass {uw}x{uh} B={B} bd8 put: "
-                          f"{unit_ms:.4f} ms")
-                    if (uw, uh) == main_unit:
-                        timed = (args, uw, uh, B)
-    args, uw, uh, B = timed
-    k_ms = time_ms(torch, lambda: mc_cuda.mc_unit_batch_hv(
-        args, uw, uh, 8, False), 3, 50)
-    p_ms = time_ms(torch, lambda: mc.mc_unit_batch_hv(
-        args, uw, uh, 8, False), 2, 20)
-    vp_bytes = B * ((uh + 7) * uw * 2 + 5 * 4 + uh * uw * 4)
-    vp_ops = B * uh * uw * 16
+                max_err = max(max_err, check_vp(
+                    args, uw, uh, bd, prep, f"{uw}x{uh} bd{bd} B={B}"))
+            if bd == 8:
+                def run_vp(args=args, uw=uw, uh=uh):
+                    return mc_cuda.mc_unit_batch_hv(args, uw, uh, 8, False)
+                warm = time_warm(torch, run_vp, 100)
+                cold = time_cold(torch, run_vp, scratch, 20)
+                print(f"  mc_vpass {uw}x{uh} B={B} bd8 put: {warm:.5f} ms "
+                      f"warm, {cold:.5f} ms cold")
+                if (uw, uh) == main_unit:
+                    timed = (args, uw, uh, B, warm, cold)
+    for lbl, args, uw, uh, bd in vpass_edge_cases(rng, np, torch, dev):
+        for prep in (False, True):
+            max_err = max(max_err, check_vp(args, uw, uh, bd, prep, lbl))
+    args, uw, uh, B, k_ms, k_cold = timed
+    # the same bucket on the decode's own descriptors and H-planes (units
+    # of a block sit side by side, so their windows share sectors)
+    own = shapes.vpass_args[(uw, uh)]
+    max_err = max(max_err, check_vp(
+        own, uw, uh, 8, False, f"{uw}x{uh} decode's own B={own[1].shape[0]}"))
+
+    def run_own():
+        return mc_cuda.mc_unit_batch_hv(own, uw, uh, 8, False)
+    own_ms = (time_warm(torch, run_own, 100),
+              time_cold(torch, run_own, scratch, 20))
+    b_own, _ = bound(own[1].shape[0] * ((uh + 7) * uw * 2 + 5 * 4 +
+                                        uh * uw * 4),
+                     own[1].shape[0] * uh * uw * 16)
+    print(f"  mc_vpass {uw}x{uh} B={own[1].shape[0]} bd8 put, the decode's "
+          f"own descriptors: {own_ms[0]:.5f} ms warm, {own_ms[1]:.5f} ms "
+          f"cold, bound {b_own:.5f} ms")
+    p_ms = time_warm(torch, lambda: mc.mc_unit_batch_hv(
+        args, uw, uh, 8, False), 10)
+    b_ms, b_by = bound(B * ((uh + 7) * uw * 2 + 5 * 4 + uh * uw * 4),
+                       B * uh * uw * 16)
     rows.append(dict(
         name="mc_vpass", route="cuda",
         source="dav1d_mirror_tpu_torch/csrc/mc_vpass.cu",
         replaces="dav1d_mirror_tpu/ops/mc_pallas.py:41",
         launches=None, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=max(vp_bytes / HBM_BYTES_PER_S,
-                     vp_ops / CUDA_CORE_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if vp_bytes / HBM_BYTES_PER_S >=
-                  vp_ops / CUDA_CORE_OPS_PER_S else "operations"),
-        library_ms=None, cases=vp_cases,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, cold_ms=k_cold,
+        floor_ms=floor_ms, cases=vp_cases,
         shape=f"B={B} unit={uw}x{uh} C={args[0].shape[0]} bd=8 put"))
     return rows
 
 
 def profile_frames(torch, api, MD5Muxer, frames, out_dir):
-    """torch.profiler table over two steady inter frames."""
+    """torch.profiler table over two steady inter frames. Returns the
+    device ms per frame of each MC kernel and of all kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     dec = api.Decoder(api.Settings(device="cuda"))
@@ -278,12 +486,20 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
                 mux.write(pic)
         torch.cuda.synchronize()
     ka = prof.key_averages()
+
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    per_frame = {n: sum(e.self_device_time_total for e in kernels
+                        if f"{n}_kernel" in e.key) / 2e3
+                 for n in ("mc_hplanes", "mc_vpass")}
+    per_frame["all kernels"] = sum(e.self_device_time_total
+                                   for e in kernels) / 2e3
     for key in ("cuda_time_total", "cpu_time_total"):
         path = os.path.join(out_dir, f"profile_by_{key}.txt")
         with open(path, "w") as f:
             f.write(ka.table(sort_by=key, row_limit=60))
     print(f"profile: tables written to {out_dir}")
     print(ka.table(sort_by="cuda_time_total", row_limit=15))
+    return per_frame
 
 
 def main():
@@ -341,12 +557,15 @@ def main():
         r["launches"] = launches[r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
+              f"of bound), {r['cold_ms']:.5f} ms cold "
+              f"({100 * r['bound_ms'] / r['cold_ms']:.1f}% of bound), "
+              f"empty-launch floor {r['floor_ms']:.5f} ms, "
+              f"plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
               f"{r['launches']} launches in the decode")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
 
@@ -368,7 +587,13 @@ def main():
                     for k, v in sorted(split.items(),
                                        key=lambda kv: -kv[1])))
     if opts.profile:
-        profile_frames(torch, api, MD5Muxer, frames, opts.profile)
+        per_frame = profile_frames(torch, api, MD5Muxer, frames,
+                                   opts.profile)
+        frame_ms = 1e3 * sum(steady) / len(steady)
+        print(f"profile, device ms per steady frame (frames 3-4): " +
+              ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.3f}% of the "
+                        f"{frame_ms:.1f} ms steady frame)"
+                        for k, v in per_frame.items()))
 
     # ---- 4. result lines ----
     print(json.dumps({"kernels": table}))

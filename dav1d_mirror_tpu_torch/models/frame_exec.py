@@ -135,7 +135,10 @@ class FrameProgram:
         fit int16 — coefficient payloads at 8 bpc, filter level/edge
         maps, small taps. The executor widens slices back to int32.
         NEVER use for arrays carrying the PAD_OOB sentinel (1<<20)."""
-        a = np.ascontiguousarray(np.asarray(arr, dtype=np.int16))
+        a = np.asarray(arr)
+        assert a.size == 0 or (a.min() >= -32768 and a.max() <= 32767), \
+            "emit16 value out of int16 range"
+        a = np.ascontiguousarray(a.astype(np.int16))
         h = (self._off16, a.shape, 16)
         self._chunks16.append(a.reshape(-1))
         self._off16 += a.size

@@ -8,8 +8,10 @@ tensor on the CPU goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises. The kernels are compiled with ``nvcc`` for
 ``sm_90a`` at first use, one ``nvcc`` per source, run side by side, into
 ``build/kernels/`` beside this package, and bound through ctypes (plain C
-entry points, no PyTorch headers). ``HPLANES_LAUNCHES`` and
-``VPASS_LAUNCHES`` count the launches.
+entry points, no PyTorch headers). Each library keeps the subpel table in
+``__constant__`` memory, uploaded once per device from ``mc.SUBPEL``.
+``HPLANES_LAUNCHES`` and ``VPASS_LAUNCHES`` count the launches. Neither
+wrapper reads a device tensor back to the host.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs = {}
 _lock = threading.Lock()
+_table_on = set()    # (library, device index) with the subpel table set
 
 
 def _nvcc():
@@ -88,14 +91,31 @@ def _lib(name):
             fn = getattr(lib, f"{name}_launch")
             fn.restype = ct.c_int
             if name == "mc_hplanes":
-                fn.argtypes = [vp, vp, vp, vp] + [ct.c_int] * 4 + [vp]
+                fn.argtypes = [vp, vp, vp] + [ct.c_int] * 4 + [vp]
             else:
-                fn.argtypes = [vp] * 8 + [ct.c_int] * 9 + [vp]
+                fn.argtypes = [vp] * 7 + [ct.c_int] * 9 + [vp]
+                lib.mc_empty_launch.restype = ct.c_int
+                lib.mc_empty_launch.argtypes = [vp]
+            init = getattr(lib, f"{name}_init")
+            init.restype = ct.c_int
+            init.argtypes = [vp]
             err = getattr(lib, f"{name}_error_string")
             err.restype = ct.c_char_p
             err.argtypes = [ct.c_int]
             _libs[name] = lib
     return _libs[name]
+
+
+def _lib_on(name, dev):
+    """The kernel library, with its __constant__ subpel table set on
+    `dev` (the caller has made `dev` current)."""
+    lib = _lib(name)
+    key = (name, dev.index)
+    if key not in _table_on:
+        _raise_on(lib, name, getattr(lib, f"{name}_init")(
+            mc.SUBPEL.ctypes.data))
+        _table_on.add(key)
+    return lib
 
 
 def _check(t, name, dtype, ndim, device):
@@ -142,13 +162,12 @@ def mc_hplanes(ref_stack, combos, bitdepth):
     _, H, W = ref_stack.shape
     C = combos.shape[0]
     out = torch.empty((C, H, W + 22), dtype=torch.int16, device=dev)
-    lib = _lib("mc_hplanes")
     with torch.cuda.device(dev):
+        lib = _lib_on("mc_hplanes", dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mc_hplanes_launch(
-            ref_stack.data_ptr(), combos.data_ptr(),
-            mc.subpel_table(dev).data_ptr(), out.data_ptr(), H, W, C,
-            mc.ibits(bitdepth), stream)
+            ref_stack.data_ptr(), combos.data_ptr(), out.data_ptr(), H, W,
+            C, mc.ibits(bitdepth), stream)
     _raise_on(lib, "mc_hplanes", rc)
     HPLANES_LAUNCHES += 1
     return out
@@ -176,14 +195,22 @@ def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
         raise ValueError(f"bitdepth {bitdepth}")
     _, H, w_mid = hstack.shape
     out = torch.empty((B, uh, uw), dtype=torch.int32, device=dev)
-    lib = _lib("mc_vpass")
     with torch.cuda.device(dev):
+        lib = _lib_on("mc_vpass", dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mc_vpass_launch(
             hstack.data_ptr(), *(t.data_ptr() for t in cols),
-            mc.subpel_table(dev).data_ptr(), out.data_ptr(), B, H, w_mid,
+            out.data_ptr(), B, H, w_mid,
             uw, uh, mc.ibits(bitdepth), 0 if bitdepth == 8 else 8192,
             (1 << bitdepth) - 1, int(bool(prep)), stream)
     _raise_on(lib, "mc_vpass", rc)
     VPASS_LAUNCHES += 1
     return out
+
+
+def empty_launch():
+    """Launch an empty kernel on the current CUDA stream: the launch
+    floor that a V-pass time is set beside. Not counted."""
+    lib = _lib("mc_vpass")
+    _raise_on(lib, "mc_vpass", lib.mc_empty_launch(
+        torch.cuda.current_stream().cuda_stream))

@@ -4,7 +4,8 @@ frame_exec.py) against the JAX package's eager interpreter
 program: frame 1 (inter) of a miniature config 2 stream, as the port's
 planner packs it. Planes and host residuals must be equal.
 
-Also: every op kind outside this slice raises NotImplementedError."""
+Also: every op kind outside this slice raises NotImplementedError, and
+the int16 side buffer refuses values it would wrap."""
 import sys
 from pathlib import Path
 
@@ -104,3 +105,13 @@ def test_put_destinations_are_disjoint(mini_programs):
     for pl, chunks in covered.items():
         lin = np.concatenate(chunks)
         assert len(np.unique(lin)) == len(lin), f"plane {pl} overlaps"
+
+
+def test_emit16_refuses_values_outside_int16():
+    prog = tfe.FrameProgram(1, 8, ((8, 8),))
+    h = prog.emit16(np.array([-32768, 0, 32767], np.int64))
+    assert h == (0, (3,), 16)
+    assert prog.emit16([]) == (3, (0,), 16)
+    for bad in ([32768], [-32769], np.array([[0, 1 << 20]], np.int32)):
+        with pytest.raises(AssertionError, match="int16 range"):
+            prog.emit16(bad)

@@ -49,29 +49,75 @@ def test_mc_unit_batch_matches_jax(bd, hh, hv, prep):
         assert torch.equal(got, torch.from_numpy(np.array(want))), (uw, uh)
 
 
-@pytest.mark.parametrize("bd", [8, 10, 12])
-def test_mc_hplanes_matches_jax(bd):
+def _hp_case(rng, bd, case):
+    """(refs, combos) of an H-plane case: the base shape, or one of the
+    edge shapes the kernel's vector stores, row bands and combo runs can
+    get wrong."""
+    r, h, w, c = 3, H, W, 12
+    if case == "odd_w":          # odd row length, H off the row band
+        h, w = 13, 37
+    elif case == "h1":
+        h = 1
+    elif case == "c1":
+        c = 1
+    hi = 1 << (15 if case == "wrap12" else bd)
+    refs = rng.integers(0, hi, (r, h, w)).astype(np.int32)
+    combos = np.stack([rng.integers(0, r, c), rng.integers(0, 6, c),
+                       rng.integers(1, 16, c)], 1).astype(np.int32)
+    if case == "alternating":    # unsorted, references alternate
+        combos[:, 0] = np.arange(c) % 2 * 2
+    elif case == "dup":          # duplicate combos, as the planner pads
+        combos[c // 2:] = combos[:c - c // 2]
+    return refs, combos
+
+
+# "wrap12": reference values up to 2^15, beyond 12-bit pixels (whose mid
+# values peak at 23546), so the int16 store wraps.
+HP_CASES = [pytest.param(bd, "base", id=str(bd)) for bd in (8, 10, 12)] + [
+    pytest.param(bd, case, id=f"{case}-{bd}") for bd, case in (
+        (8, "odd_w"), (10, "h1"), (8, "c1"), (8, "alternating"),
+        (10, "dup"), (12, "wrap12"))]
+
+
+@pytest.mark.parametrize("bd,case", HP_CASES)
+def test_mc_hplanes_matches_jax(bd, case):
     rng = np.random.default_rng(bd)
-    refs = _refs(rng, bd)
-    combos = np.stack([rng.integers(0, 3, 12), rng.integers(0, 6, 12),
-                       rng.integers(1, 16, 12)], 1).astype(np.int32)
+    refs, combos = _hp_case(rng, bd, case)
     want = np.asarray(jmc.mc_hplanes(jnp.asarray(refs),
                                      jnp.asarray(combos), bd))
     got = mc.mc_hplanes(_t(refs), _t(combos), bd)
     assert got.dtype == torch.int16
     assert torch.equal(got, torch.from_numpy(np.array(want)))
+    if case == "wrap12":
+        assert np.abs(want.astype(np.int64)).max() > 16384
 
 
-@pytest.mark.parametrize("bd", [8, 10, 12])
-@pytest.mark.parametrize("unit", UNITS + [(2, 2), (2, 4), (4, 2)])
-@pytest.mark.parametrize("prep", [False, True])
-def test_mc_two_stage_matches_jax_and_window_kernel(bd, unit, prep):
+_TS_UNITS = UNITS + [(2, 2), (2, 4), (4, 2)]
+# "b1": one unit; "extreme": ox at -15 and W-1 after the clamp, oy far
+# above and below the plane; both over all nine unit sizes
+TS_CASES = [pytest.param(bd, unit, prep, "base", id=f"{prep}-unit{i}-{bd}")
+            for prep in (False, True) for i, unit in enumerate(_TS_UNITS)
+            for bd in (8, 10, 12)] + [
+    pytest.param(bd, (uw, uh), prep, case,
+                 id=f"{case}-{prep}-{uw}x{uh}-{bd}")
+    for case, bd in (("b1", 8), ("extreme", 12)) for prep in (False, True)
+    for uw in (2, 4, 8) for uh in (2, 4, 8)]
+
+
+@pytest.mark.parametrize("bd,unit,prep,case", TS_CASES)
+def test_mc_two_stage_matches_jax_and_window_kernel(bd, unit, prep, case):
     """Port two-stage (hplanes + hv) == JAX two-stage == JAX single-stage
     window kernel, on the packer's combo/slot mapping."""
     uw, uh = unit
     rng = np.random.default_rng(bd * 100 + uw * 10 + uh + prep)
     refs = _refs(rng, bd)
-    arr = _descs(rng, 45)
+    arr = _descs(rng, 1 if case == "b1" else 45)
+    if case == "extreme":
+        n = len(arr)
+        arr[:, 2] = np.where(np.arange(n) % 2, -10 ** 4, W + 10 ** 4)
+        arr[:, 1] = np.where(np.arange(n) % 3 == 0, -10 ** 4,
+                             np.where(np.arange(n) % 3 == 1, H + 10 ** 4,
+                                      arr[:, 1]))
     combos, slot, tv = mc.mc_hv_combos(arr, uw)
     j_combos, j_slot, j_tv = jmc.mc_hv_combos(arr, uw)
     for a, b in ((combos, j_combos), (slot, j_slot), (tv, j_tv)):
