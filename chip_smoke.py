@@ -7,23 +7,32 @@ Run from the root of a checkout. It
 
 1. builds the package's kernels (both CUDA sources, one nvcc each, side by
    side) and its native host library from the checkout's sources;
-2. decodes the 9-frame 1080p 8-bit inter + deblock + CDEF stream
-   (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf) through
-   ``Decoder(Settings(device="cuda"))``, asserts its md5, and asserts that
-   both kernel launch counters moved during that decode;
-3. runs each kernel's wrapper on the card at the shapes the decode gave
+2. drives two paths through ``Decoder(Settings(device="cuda"))``, each
+   with the kernel launch counters set to 0 just before it and read just
+   after, and asserts each stream's md5 and that both counters moved:
+   config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
+   (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
+   5-frame 1080p 10-bit stream with Wiener loop restoration and film
+   grain (bench_cache/e2e_1080p_10bit_grain_lr_6d42abf87190.ivf), with
+   grain and again without it (an LR fault and a grain fault give
+   different hashes). Each path also runs a staged pass for its stage
+   split. Two small corpus streams with self-guided and switchable
+   restoration (tests/streams) are decoded on the card as well, against
+   tests/streams/md5.txt;
+3. runs each kernel's wrapper on the card at the shapes config 2 gave
    it, for bit depths 8/10/12, every unit size, put and prep, and at the
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
-   combos, int16 wrap, one unit, extreme window origins), and requires
+   combos, int16 wrap, one unit, extreme window origins), and on each
+   decode's own largest calls (config 3's at bit depth 10), and requires
    ``torch.equal`` with the kernel's plain PyTorch version; then times
    kernel and plain version as device time with CUDA events: warm (many
    back-to-back launches queued while the card is busy, over their
    count) and with a cold L2 (a 256 MB write queued before each timed
    launch), beside an empty kernel's launch floor;
-4. prints the kernel table (ms in the JSON line is the warm time), the
-   decode's per-frame times and stage split, one JSON line of kernel
-   numbers, the card's name and power limit, and
-   as the last line the device JSON.
+4. prints the kernel table (ms in the JSON line is the warm time), each
+   path's per-frame times, op kinds per frame and stage split, one JSON
+   line of kernel numbers, the card's name and power limit, and as the
+   last line the device JSON.
 
 With ``--profile DIR`` it also writes a torch.profiler table of two
 steady inter frames to DIR. Any failure raises: the script then exits
@@ -44,6 +53,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 STREAM = os.path.join(HERE, "bench_cache",
                       "e2e_1080p_inter_cdef_727de0883e7e.ivf")
 STREAM_MD5 = "383c08fe120aef29ce8709efdab36187"
+STREAM3 = os.path.join(HERE, "bench_cache",
+                       "e2e_1080p_10bit_grain_lr_6d42abf87190.ivf")
+# config 3's md5 with grain and without (Settings.apply_grain), decoded by
+# the JAX package's host reference path
+CONFIG3_MD5 = {True: "76e6cf803e84aaf3a9089fe53894d4d4",
+               False: "6e6909b95f07928266f8c2157ff65a58"}
+# small corpus streams with self-guided and switchable restoration, which
+# the config 3 stream (Wiener only) does not carry; md5.txt is grain-free
+STREAMS = os.path.join(HERE, "tests", "streams")
+LR_STREAMS = ("inter_10bit_lr.ivf", "intra_sb128_lr.ivf")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
@@ -85,8 +104,8 @@ class ShapeLog:
         self.frame_exec = frame_exec
         self.hplanes = []   # (R, H, W, C, bd)
         self.vpass = []     # (B, uw, uh, C, H, w_mid, bd)
-        self.vpass_args = {}  # (uw, uh) -> args of its largest put call
-        self.hplanes_args = None  # args of the largest H-plane call
+        self.vpass_args = {}  # (uw, uh) -> (args, bd) of its largest put
+        self.hplanes_args = None  # (refs, combos, bd) of the largest call
         self.frame_ops = []  # per frame: {op kind: count}
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
                       frame_exec.execute_program)
@@ -106,21 +125,21 @@ class ShapeLog:
         def rec_hp(ref_stack, combos, bd):
             self.hplanes.append(tuple(ref_stack.shape) +
                                 (combos.shape[0], bd))
-            size = lambda r, c: (r.shape[1] * r.shape[2], c.shape[0])
+            size = lambda r, c, *_: (r.shape[1] * r.shape[2], c.shape[0])
             kept = self.hplanes_args
             if kept is None or size(ref_stack, combos) > size(*kept):
                 # the reference stack is never written after it is made
-                self.hplanes_args = (ref_stack, combos.clone())
+                self.hplanes_args = (ref_stack, combos.clone(), bd)
             return hp(ref_stack, combos, bd)
 
         def rec_vp(args, uw, uh, bd, prep):
             B = args[1].shape[0]
             self.vpass.append((B, uw, uh) + tuple(args[0].shape) + (bd,))
             kept = self.vpass_args.get((uw, uh))
-            if not prep and (kept is None or B > kept[1].shape[0]):
+            if not prep and (kept is None or B > kept[0][1].shape[0]):
                 # the H-plane stack is never written after it is made
-                self.vpass_args[(uw, uh)] = (args[0], *(
-                    c.clone() for c in args[1:]))
+                self.vpass_args[(uw, uh)] = ((args[0], *(
+                    c.clone() for c in args[1:])), bd)
             return vp(args, uw, uh, bd, prep)
 
         self.mc_cuda.mc_hplanes = rec_hp
@@ -133,8 +152,8 @@ class ShapeLog:
          self.frame_exec.execute_program) = self._orig
 
 
-def decode(api, MD5Muxer, frames, torch, on_frame=None):
-    dec = api.Decoder(api.Settings(device="cuda"))
+def decode(api, MD5Muxer, frames, torch, on_frame=None, **settings):
+    dec = api.Decoder(api.Settings(device="cuda", **settings))
     mux = MD5Muxer()
     times = []
     for i, fr in enumerate(frames):
@@ -351,12 +370,12 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
     k_ms = time_warm(torch, run_hp, 50)
     k_cold = time_cold(torch, run_hp, scratch, 20)
     # the decode's own largest call: its reference planes and combos
-    own_refs, own_combos = shapes.hplanes_args
-    max_err = max(max_err, check_hp(own_refs, own_combos, 8,
+    own_refs, own_combos, own_bd = shapes.hplanes_args
+    max_err = max(max_err, check_hp(own_refs, own_combos, own_bd,
                                     "the decode's own largest call"))
 
     def run_own_hp():
-        return mc_cuda.mc_hplanes(own_refs, own_combos, 8)
+        return mc_cuda.mc_hplanes(own_refs, own_combos, own_bd)
     own_hp = (time_warm(torch, run_own_hp, 50),
               time_cold(torch, run_own_hp, scratch, 20))
     o_r, o_h, o_w = own_refs.shape
@@ -436,12 +455,13 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
     args, uw, uh, B, k_ms, k_cold = timed
     # the same bucket on the decode's own descriptors and H-planes (units
     # of a block sit side by side, so their windows share sectors)
-    own = shapes.vpass_args[(uw, uh)]
+    own, own_bd = shapes.vpass_args[(uw, uh)]
     max_err = max(max_err, check_vp(
-        own, uw, uh, 8, False, f"{uw}x{uh} decode's own B={own[1].shape[0]}"))
+        own, uw, uh, own_bd, False,
+        f"{uw}x{uh} decode's own B={own[1].shape[0]}"))
 
     def run_own():
-        return mc_cuda.mc_unit_batch_hv(own, uw, uh, 8, False)
+        return mc_cuda.mc_unit_batch_hv(own, uw, uh, own_bd, False)
     own_ms = (time_warm(torch, run_own, 100),
               time_cold(torch, run_own, scratch, 20))
     b_own, _ = bound(own[1].shape[0] * ((uh + 7) * uw * 2 + 5 * 4 +
@@ -463,6 +483,68 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
         floor_ms=floor_ms, cases=vp_cases,
         shape=f"B={B} unit={uw}x{uh} C={args[0].shape[0]} bd=8 put"))
     return rows
+
+
+def own_calls_phase(torch, mc, mc_cuda, shapes, path, rows):
+    """Each kernel against its plain version (torch.equal) on a decode's
+    own calls, as the decode made them: its largest H-plane call and its
+    largest put V-pass call of each unit size. Adds the cases to the
+    kernel rows."""
+    by_name = {r["name"]: r for r in rows}
+    refs, combos, bd = shapes.hplanes_args
+    got = mc_cuda.mc_hplanes(refs, combos, bd)
+    want = mc.mc_hplanes(refs, combos, bd)
+    torch.cuda.synchronize()
+    label = (f"{path} own largest call R={refs.shape[0]} "
+             f"{refs.shape[1]}x{refs.shape[2]} C={combos.shape[0]} bd{bd}")
+    assert torch.equal(got, want), f"mc_hplanes differs: {label}"
+    row = by_name["mc_hplanes"]
+    row["cases"].append(label)
+    row["max_abs_err"] = max(row["max_abs_err"], int(
+        (got.to(torch.int32) - want.to(torch.int32)).abs().max()))
+    row = by_name["mc_vpass"]
+    for (uw, uh), (args, bd) in sorted(shapes.vpass_args.items()):
+        got = mc_cuda.mc_unit_batch_hv(args, uw, uh, bd, False)
+        want = mc.mc_unit_batch_hv(args, uw, uh, bd, False)
+        torch.cuda.synchronize()
+        label = f"{path} own {uw}x{uh} B={args[1].shape[0]} bd{bd} put"
+        assert torch.equal(got, want), f"mc_vpass differs: {label}"
+        row["cases"].append(label)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 int((got - want).abs().max()))
+
+
+def report_path(name, frames, times, shapes, launches, digests, split,
+                staged_s):
+    """Print one path's frame times, op kinds per frame and stage split."""
+    ms = [t * 1e3 for t in times]
+    steady = times[2:]
+    print(f"{name}: {len(frames)} frames, md5 {digests}, launches "
+          f"{launches}")
+    print(f"{name} frame ms: " + ", ".join(f"{t:.1f}" for t in ms))
+    for i, ops in enumerate(shapes.frame_ops):
+        print(f"{name} frame {i} ops: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(ops.items())))
+    print(f"{name}: frame 0 (keyframe, cold) {ms[0]:.1f} ms; frame 1 "
+          f"(first inter) {ms[1]:.1f} ms; steady fps over frames "
+          f"2-{len(frames) - 1}: {len(steady) / sum(steady):.3f}")
+    print(f"{name} stage split (staged pass, %.1f ms total): " %
+          (staged_s * 1e3) +
+          ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / staged_s:.1f}%)"
+                    for k, v in sorted(split.items(),
+                                       key=lambda kv: -kv[1])))
+
+
+def staged(stages, run):
+    """Run `run` with the stage split on (each stage synchronizes the
+    device on exit). Returns (run's result, {stage: seconds})."""
+    stages.reset()
+    stages.enabled = True
+    try:
+        out = run()
+    finally:
+        stages.enabled = False
+    return out, stages.seconds()
 
 
 def profile_frames(torch, api, MD5Muxer, frames, out_dir):
@@ -529,32 +611,68 @@ def main():
     from dav1d_mirror_tpu_torch.output import MD5Muxer
     from dav1d_mirror_tpu_torch.utils import stages
 
-    # ---- main path (run first: the kernel phase uses its shapes) ----
+    def counted(run):
+        """run() with both launch counters set to 0 just before it;
+        returns (run's result, {kernel: launches during it})."""
+        mc_cuda.HPLANES_LAUNCHES = 0
+        mc_cuda.VPASS_LAUNCHES = 0
+        out = run()
+        return out, {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
+                     "mc_vpass": mc_cuda.VPASS_LAUNCHES}
+
+    # ---- config 2 path (run first: the kernel phase uses its shapes) ----
     with open(STREAM, "rb") as f:
         _, _, _, frames = parse_ivf(f.read())
-    mc_cuda.HPLANES_LAUNCHES = 0
-    mc_cuda.VPASS_LAUNCHES = 0
     with ShapeLog(mc_cuda, frame_exec) as shapes:
-        digest, n_pics, times = decode(api, MD5Muxer, frames, torch,
-                                       shapes.on_frame)
-    launches = {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
-                "mc_vpass": mc_cuda.VPASS_LAUNCHES}
+        (digest, n_pics, times), launches = counted(lambda: decode(
+            api, MD5Muxer, frames, torch, shapes.on_frame))
     assert n_pics == len(frames) == 9, (n_pics, len(frames))
     assert digest == STREAM_MD5, f"md5 {digest} != {STREAM_MD5}"
     assert launches["mc_hplanes"] > 0 and launches["mc_vpass"] > 0, \
         launches
-    # second pass with the stage split on (it synchronizes per stage)
-    stages.reset()
-    stages.enabled = True
-    digest2, _, times2 = decode(api, MD5Muxer, frames, torch)
-    stages.enabled = False
+    (digest2, _, times2), split = staged(
+        stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
-    split = stages.seconds()
+
+    # ---- config 3 path: with grain, without grain, staged ----
+    with open(STREAM3, "rb") as f:
+        _, _, _, frames3 = parse_ivf(f.read())
+    with ShapeLog(mc_cuda, frame_exec) as shapes3:
+        (d3, n3, times3), launches3 = counted(lambda: decode(
+            api, MD5Muxer, frames3, torch, shapes3.on_frame))
+    d3_plain, n3_plain, _ = decode(api, MD5Muxer, frames3, torch,
+                                   apply_grain=False)
+    assert n3 == n3_plain == len(frames3) == 5, (n3, n3_plain)
+    assert (d3, d3_plain) == (CONFIG3_MD5[True], CONFIG3_MD5[False]), (
+        f"config 3 md5 with grain {d3}, without {d3_plain}; expected "
+        f"{CONFIG3_MD5}")
+    assert launches3["mc_hplanes"] > 0 and launches3["mc_vpass"] > 0, \
+        launches3
+    assert any("lrw" in ops for ops in shapes3.frame_ops), \
+        "config 3 ran no loop restoration op"
+    (d3_staged, _, times3s), split3 = staged(
+        stages, lambda: decode(api, MD5Muxer, frames3, torch))
+    assert d3_staged == CONFIG3_MD5[True], f"md5 {d3_staged} (staged pass)"
+    assert split3.get("grain", 0) > 0, split3
+    with open(os.path.join(STREAMS, "md5.txt")) as f:
+        corpus_md5 = dict(line.split()[::-1] for line in f if line.strip())
+    for name in LR_STREAMS:
+        with open(os.path.join(STREAMS, name), "rb") as f:
+            _, _, _, fr = parse_ivf(f.read())
+        with ShapeLog(mc_cuda, frame_exec) as lr_shapes:
+            d, _, _ = decode(api, MD5Muxer, fr, torch, lr_shapes.on_frame,
+                             apply_grain=False)
+        kinds = sorted({k for ops in lr_shapes.frame_ops for k in ops
+                        if k in ("lrw", "lrs")})
+        assert d == corpus_md5[name], f"{name}: md5 {d}"
+        print(f"{name}: md5 {d} as in md5.txt, LR ops {kinds}")
 
     # ---- 2. kernel phase ----
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
+    own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["launches_config3"] = launches3[r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -562,30 +680,23 @@ def main():
               f"({100 * r['bound_ms'] / r['cold_ms']:.1f}% of bound), "
               f"empty-launch floor {r['floor_ms']:.5f} ms, "
               f"plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
-              f"{r['launches']} launches in the decode")
+              f"{r['launches']} launches in the config 2 decode, "
+              f"{r['launches_config3']} in the config 3 decode")
+        for c in r["cases"]:
+            if c.startswith("config 3"):
+                print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "cold_ms", "floor_ms")
+            "launches_config3", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
 
-    # ---- 3. main path report ----
-    ms = [t * 1e3 for t in times]
+    # ---- 3. path reports ----
+    report_path("config 2", frames, times, shapes, launches,
+                {"expected": STREAM_MD5, "got": digest}, split, sum(times2))
+    report_path("config 3", frames3, times3, shapes3, launches3,
+                {"grain": d3, "no grain": d3_plain}, split3, sum(times3s))
     steady = times[2:]
-    print(f"main path: {len(frames)} frames, md5 {digest} (expected "
-          f"{STREAM_MD5}), launches {launches}")
-    print("frame ms: " + ", ".join(f"{t:.1f}" for t in ms))
-    for i, ops in enumerate(shapes.frame_ops):
-        print(f"frame {i} ops: " + ", ".join(
-            f"{k} {v}" for k, v in sorted(ops.items())))
-    print(f"frame 0 (keyframe, cold) {ms[0]:.1f} ms; frame 1 (first "
-          f"inter, kernel load) {ms[1]:.1f} ms; steady fps over frames "
-          f"2-{len(frames) - 1}: {len(steady) / sum(steady):.3f}")
-    total = sum(times2)
-    print("stage split (staged pass, %.1f ms total): " % (total * 1e3) +
-          ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)"
-                    for k, v in sorted(split.items(),
-                                       key=lambda kv: -kv[1])))
     if opts.profile:
         per_frame = profile_frames(torch, api, MD5Muxer, frames,
                                    opts.profile)

@@ -5,10 +5,12 @@ Port of ``dav1d_mirror_tpu/api.py``. A `Decoder` is opened with
 from `get_picture`; `flush` resets in-flight state for seeking. Every
 frame takes the hybrid device route: native entropy decode on the host,
 the frame's pixel program on the device (models/inter), the intra blocks
-in the native host walk, then deblock and CDEF on the device
-(models/filters). Frames decode in order, synchronously; the reference's
-entropy-vs-pixels pipelining (``n_threads``, ``max_frame_delay``) is not
-ported yet.
+in the native host walk, then deblock, CDEF and loop restoration on the
+device (models/filters). With ``Settings.apply_grain`` (the default) a
+frame that carries film grain is grained on the device on its way out
+(ops/filmgrain); the reference planes stay grain-free. Frames decode in
+order, synchronously; the reference's entropy-vs-pixels pipelining
+(``n_threads``, ``max_frame_delay``) is not ported yet.
 
 The device is `Settings.device` ("cuda" by default). Asking for CUDA
 where PyTorch has none raises; nothing falls back to the CPU.
@@ -34,6 +36,7 @@ from .host.tilecoder import TileCoder, DecodeSide
 from .models.filters import apply_inloop_filters
 from .models.frame_buffers import FrameBuffers, _tile_payload
 from .models.inter import build_frame_program, execute_frame_program
+from .ops.filmgrain import apply_film_grain
 from .utils import stages
 
 INLOOPFILTER_NONE = 0
@@ -189,20 +192,24 @@ class Decoder:
     def _emit(self, bufs, fhdr):
         seq = self._st.seq_hdr
         st = self._st
-        if self.s.apply_grain and fhdr.film_grain_present:
-            raise NotImplementedError(
-                "film grain: ROADMAP queue 1, item 6 (config 3)")
         t35 = tuple(st.itut_t35)
         st.itut_t35 = []
         new_tu = st.new_temporal_unit
         st.new_temporal_unit = False
         w, hgt = bufs.width, bufs.height
-        planes = bufs.planes
-        vis = [planes[0][:hgt, :w]]
-        if len(planes) > 1:
-            cw = (w + bufs.ss_hor) >> bufs.ss_hor
-            ch = (hgt + bufs.ss_ver) >> bufs.ss_ver
-            vis += [p[:ch, :cw] for p in planes[1:]]
+        cw = (w + bufs.ss_hor) >> bufs.ss_hor
+        ch = (hgt + bufs.ss_ver) >> bufs.ss_ver
+        sizes = [(hgt, w)] + [(ch, cw)] * (len(bufs.planes) - 1)
+        if self.s.apply_grain and fhdr.film_grain_present:
+            # grain device copies of the frame's planes; bufs keeps the
+            # grain-free planes that later frames predict from
+            with stages.scope("grain", self.device):
+                grained = apply_film_grain(bufs.dev_planes, seq, fhdr, w,
+                                           hgt)
+                vis = [g[:y, :x].cpu().numpy().astype(p.dtype)
+                       for g, p, (y, x) in zip(grained, bufs.planes, sizes)]
+        else:
+            vis = [p[:y, :x] for p, (y, x) in zip(bufs.planes, sizes)]
         pic = Picture(tuple(vis), width=w, height=hgt,
                       bitdepth=seq.bitdepth, layout=seq.layout,
                       frame_hdr=fhdr, seq_hdr=seq,
@@ -285,7 +292,8 @@ class Decoder:
             raise DecodeError("frame size over limit")
         if fhdr.width[0] != fhdr.width[1]:
             raise NotImplementedError(
-                "super-resolution: ROADMAP queue 1, item 6 (config 3)")
+                "super-resolution: ROADMAP queue 1, item 1a (beside scaled "
+                "MC)")
         keyframe = fhdr.frame_type in (0, 2)
         # strict mode: frames referencing error-poisoned slots are
         # themselves in error (dav1d decode.c:3296-3304)

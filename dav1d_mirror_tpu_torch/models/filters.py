@@ -1,21 +1,24 @@
-"""Device in-loop filter chain: deblock -> CDEF.
+"""Device in-loop filter chain: deblock -> CDEF -> loop restoration.
 
-Port of the deblock and CDEF part of ``dav1d_mirror_tpu/models/
-tpu_filters.py`` (``build_cdef_plan`` :39, ``apply_inloop_filters_tpu``
-:136-211 and its ``out`` op :292). The host builds small integer plan
-arrays (edge/level maps, the CDEF index map) from the parsed headers and
-entropy state; the pixels stay device tensors across both stages, packed
-into one program (models/frame_exec, plane-input mode).
+Port of ``dav1d_mirror_tpu/models/tpu_filters.py`` (``build_cdef_plan``
+:39, ``_lr_stripe_plan`` :63, ``apply_inloop_filters_tpu`` :136 without
+super-res). The host builds small integer plan arrays (edge/level maps,
+the CDEF index map, the LR stripe-unit batches) from the parsed headers
+and entropy state; the pixels stay device tensors across the stages,
+packed into one program (models/frame_exec, plane-input mode).
 
-Super-resolution and loop restoration raise NotImplementedError: they
-are config 3's slice (ROADMAP queue 1, item 6).
+Super-resolution raises NotImplementedError (ROADMAP queue 1, item 1a).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..host.lf import build_lf_arrays
-from ..ops.spec_consts import calc_eih
+from ..ops.mc import PAD_OOB
+from ..ops.spec_consts import (LR_HAVE_BOTTOM, LR_HAVE_LEFT, LR_HAVE_RIGHT,
+                               LR_HAVE_TOP, RESTORATION_WIENER, SGR_PARAMS,
+                               calc_eih)
+from .inter import _p2
 
 
 def build_cdef_plan(fhdr, coders):
@@ -41,21 +44,122 @@ def build_cdef_plan(fhdr, coders):
     return cdef_idx_map, noskip
 
 
+def _lr_stripe_plan(fhdr, coders, bufs, p):
+    """Enumerate LR stripe-units for plane p exactly as the reference
+    decoder's stripe loop (models.ref_decoder.apply_lr); yields dicts
+    with geometry + params."""
+    lr_units = {}
+    for coder in coders:
+        lr_units.update(coder.lr_units)
+    ss_ver = bufs.ss_ver if p else 0
+    ss_hor = bufs.ss_hor if p else 0
+    hh = (bufs.height + ss_ver) >> ss_ver
+    ww = (bufs.width + ss_hor) >> ss_hor
+    us_log2 = fhdr.restoration_unit_size[1 if p else 0]
+    unit_size = 1 << us_log2
+    half = unit_size >> 1
+    max_unit = unit_size + half
+
+    y = 0
+    while y < hh:
+        stripe_h = min((64 - 8 * (y == 0)) >> ss_ver, hh - y)
+        row_y = y + ((8 >> ss_ver) if y else 0)
+        aligned = row_y & ~(unit_size - 1)
+        if aligned and aligned + half > hh:
+            aligned -= unit_size
+        urow64 = (aligned << ss_ver) >> 6
+        edges_base = ((LR_HAVE_TOP if y > 0 else 0) |
+                      (LR_HAVE_BOTTOM if y + stripe_h < hh else 0))
+        x = 0
+        while x < ww:
+            if x + max_unit <= ww:
+                uw = unit_size
+                last = False
+            else:
+                uw = ww - x
+                last = True
+            ucol64 = (x << ss_hor) >> 6
+            lr = lr_units.get((p, urow64, ucol64))
+            if lr is not None and lr["type"] != 0:
+                edges = edges_base | \
+                    (LR_HAVE_LEFT if x > 0 else 0) | \
+                    (0 if last else LR_HAVE_RIGHT)
+                yield dict(x=x, y=y, w=uw, h=stripe_h, edges=edges, lr=lr)
+            x += uw
+        y += stripe_h
+
+
+def _emit_lr_plane(prog, fhdr, coders, bufs, p):
+    """Snapshot plane p before its restoration and emit one ``lrw`` or
+    ``lrs`` op per bucket of stripe-units of one geometry (and SGR kind),
+    each padded to a power of two: pad rows repeat the last unit for the
+    window gather and carry PAD_OOB destinations, which the scatter
+    drops."""
+    def sgr(u):
+        """(s0, s1) strengths of an SGR unit's parameter set."""
+        s0, s1 = SGR_PARAMS[u["lr"]["type"] - 3]
+        return int(s0), int(s1)
+
+    prog.op("snap", ("prelr", p))
+    groups = {}
+    for u in _lr_stripe_plan(fhdr, coders, bufs, p):
+        if u["lr"]["type"] == RESTORATION_WIENER:
+            key = ("wiener", u["w"], u["h"])
+        else:
+            s0, s1 = sgr(u)
+            kind = 2 if (s0 and s1) else (0 if s0 else 1)
+            key = ("sgr", kind, u["w"], u["h"])
+        groups.setdefault(key, []).append(u)
+
+    for key, units in sorted(groups.items()):
+        B = len(units)
+        P = _p2(B)
+        w, h = key[-2], key[-1]
+
+        def col(f, pad=None):
+            v = np.asarray([f(u) for u in units], np.int32)
+            if P != B:
+                fill = v[-1] if pad is None else pad
+                v = np.concatenate([v, np.full(P - B, fill, np.int32)])
+            return prog.emit(v)
+
+        h_xs = col(lambda u: u["x"])
+        h_ysin = col(lambda u: u["y"])               # gather: in bounds
+        h_ysout = col(lambda u: u["y"], pad=PAD_OOB)  # scatter: dropped
+        h_eg = col(lambda u: u["edges"])
+        if key[0] == "wiener":
+            def taps(name):
+                f = np.zeros((P, 7), np.int32)
+                for i, u in enumerate(units):
+                    f3 = u["lr"][name]
+                    f[i, :3] = f3
+                    f[i, 4:] = f3[::-1]
+                    f[i, 3] = 128 - 2 * (f3[0] + f3[1] + f3[2])
+                f[B:] = f[B - 1]
+                return prog.emit(f)
+            prog.op("lrw", p, "precdef", w, h, h_xs, h_ysin, h_ysout, h_eg,
+                    taps("filter_h"), taps("filter_v"))
+        else:
+            h_s0 = col(lambda u: sgr(u)[0])
+            h_s1 = col(lambda u: sgr(u)[1])
+            h_w0 = col(lambda u: u["lr"]["sgr_weights"][0])
+            h_w1 = col(lambda u: 128 - (u["lr"]["sgr_weights"][0] +
+                                        u["lr"]["sgr_weights"][1]))
+            prog.op("lrs", p, "precdef", key[1], w, h, h_xs, h_ysin,
+                    h_ysout, h_eg, h_s0, h_s1, h_w0, h_w1)
+
+
 def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
-    """Deblock and CDEF over the frame's planes on `device`, starting from
-    the device planes the reconstruction left (bufs.dev_planes) or from
-    an upload of bufs.planes. Publishes the filtered device planes on
-    bufs.dev_planes (later frames read them as references) and downloads
-    them into bufs.planes. Returns bufs."""
+    """Deblock, CDEF and loop restoration over the frame's planes on
+    `device`, starting from the device planes the reconstruction left
+    (bufs.dev_planes) or from an upload of bufs.planes. Publishes the
+    filtered device planes on bufs.dev_planes (later frames read them as
+    references) and downloads them into bufs.planes. Returns bufs."""
     from .frame_exec import FrameProgram, plane_to_torch, run_frame_program
 
     if fhdr.width[0] != fhdr.width[1]:
         raise NotImplementedError(
-            "super-resolution: ROADMAP queue 1, item 6 (config 3)")
-    if (filters_mask & 4) and any(fhdr.restoration_type[p] != 0
-                                  for p in range(len(bufs.planes))):
-        raise NotImplementedError(
-            "loop restoration: ROADMAP queue 1, item 6 (config 3)")
+            "super-resolution: ROADMAP queue 1, item 1a (beside scaled MC)")
     if bufs.dev_planes is not None:
         planes_in = list(bufs.dev_planes)
     else:
@@ -93,6 +197,11 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
                 prog.op("dbk", 1 + pl, False, sb_step4 >> bufs.ss_ver,
                         h_ev, h_eh, h_lvc, h_lvc, h_el, h_il)
 
+    restore = [(filters_mask & 4) and fhdr.restoration_type[p] != 0
+               for p in range(len(planes_in))]
+    if any(restore):
+        prog.op("snap", "precdef")   # boundary-row source for LR
+
     # ---- CDEF ----
     if (filters_mask & 2) and seq.cdef and \
             (any(fhdr.cdef_y_strength[:1 << fhdr.cdef_n_bits]) or
@@ -104,6 +213,11 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
                 prog.emit8(np.asarray(fhdr.cdef_uv_strength, np.int8)),
                 fhdr.cdef_damping + (bd - 8), bufs.ss_hor, bufs.ss_ver,
                 seq.layout == 0)
+
+    # ---- loop restoration ----
+    for p in range(len(planes_in)):
+        if restore[p]:
+            _emit_lr_plane(prog, fhdr, coders, bufs, p)
 
     prog.op("out")   # native-dtype planes for the download and the refs
     planes, _ = run_frame_program(prog, tuple(planes_in), device)

@@ -8,9 +8,10 @@ executor uploads the three buffers ONCE per frame and replays the ops on
 device tensors, slicing each op's inputs out of the uploaded buffers.
 
 The executor implements the op kinds of the hybrid inter path with
-deblock and CDEF: ``hpx``, ``puthv_x``, ``put``, ``residmc``, ``hresmc``,
-``dbk``, ``cdef`` and ``out``. Every other kind raises
-``NotImplementedError`` naming its ROADMAP item, before any op runs.
+deblock, CDEF and loop restoration: ``hpx``, ``puthv_x``, ``put``,
+``residmc``, ``hresmc``, ``dbk``, ``snap``, ``cdef``, ``lrw``, ``lrs`` and
+``out``. Every other kind raises ``NotImplementedError`` naming its
+ROADMAP item, before any op runs.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from ..ops import mc_cuda
 from ..ops.cdef import cdef_frame
 from ..ops.itx import _residual_multi_core, itx_residual_multi
 from ..ops.loopfilter import deblock_plane
-from ..ops.mc import (HPAD_L, PAD_OOB, mc_hv_combos, mc_unit_batch,
-                      scatter_units, unit_index)
+from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
+from ..ops.mc import (HPAD_L, PAD_OOB, gather_units, mc_hv_combos,
+                      mc_unit_batch, scatter_units, unit_index)
 
 
 # int16 OOB sentinel for destination rows: PAD_OOB (1 << 20) marks
@@ -207,8 +209,8 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("hpx", "puthv_x", "put", "residmc", "hresmc", "dbk", "cdef",
-           "out")
+HANDLED = ("hpx", "puthv_x", "put", "residmc", "hresmc", "dbk", "snap",
+           "cdef", "lrw", "lrs", "out")
 
 # op kinds outside this slice -> where they stand in ROADMAP.md
 LATER = {
@@ -225,10 +227,7 @@ LATER = {
     "hresm": "ROADMAP queue 1, item 1a (dense residual forms)",
     "residc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
     "hresc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
-    "snap": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
-    "sres": "ROADMAP queue 1, item 6 (config 3: super-res)",
-    "lrw": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
-    "lrs": "ROADMAP queue 1, item 6 (config 3: loop restoration)",
+    "sres": "ROADMAP queue 1, item 1a (super-res, beside scaled MC)",
     "setplane": "ROADMAP queue 1, item 8 (device intra engine)",
     "newres": "ROADMAP queue 1, item 8 (device intra engine)",
     "resraw": "ROADMAP queue 1, item 8 (device intra engine)",
@@ -284,6 +283,7 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         planes = [torch.zeros(s, dtype=torch.int32, device=dev)
                   for s in plane_shapes]
     hp = {}       # cache id -> H-plane stack
+    snap = {}     # filter-chain plane snapshots (pre-CDEF, pre-LR)
     hres = []
 
     def hres_out(x):
@@ -332,6 +332,28 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             planes[pl] = deblock_plane(
                 planes[pl], get(h_ev), get(h_eh), lv, lvp, lh, lhp,
                 get(h_el), get(h_il), luma=luma, bitdepth=bd)
+        elif kind == "snap":
+            # copies: the LR ops below scatter into the planes in place,
+            # and a later bucket's windows read the snapshot
+            snap[rec[1]] = [p.clone() for p in planes]
+        elif kind == "lrw":
+            (_, pl, snapid, w, h, h_xs, h_ysin, h_ysout, h_eg, h_fh,
+             h_fv) = rec
+            xs = get(h_xs)
+            padded = pad_stripes(snap[("prelr", pl)][pl], snap[snapid][pl],
+                                 xs, get(h_ysin), get(h_eg), w, h)
+            res = wiener_batch(padded, get(h_fh), get(h_fv), w, h, bd)
+            scatter_units(planes[pl], res, get(h_ysout), xs, h, w)
+        elif kind == "lrs":
+            (_, pl, snapid, skind, w, h, h_xs, h_ysin, h_ysout, h_eg,
+             h_s0, h_s1, h_w0, h_w1) = rec
+            xs, ysin = get(h_xs), get(h_ysin)
+            padded = pad_stripes(snap[("prelr", pl)][pl], snap[snapid][pl],
+                                 xs, ysin, get(h_eg), w, h)
+            cur = gather_units(planes[pl], ysin, xs, h, w)
+            res = sgr_batch(padded, cur, get(h_s0), get(h_s1), get(h_w0),
+                            get(h_w1), w, h, bd, skind)
+            scatter_units(planes[pl], res, get(h_ysout), xs, h, w)
         elif kind == "cdef":
             (_, h_idx, h_ns, h_ystr, h_uvstr, damping, ssh, ssv,
              mono) = rec

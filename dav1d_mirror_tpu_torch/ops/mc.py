@@ -10,7 +10,8 @@ phase each; these functions run one bucket:
 - ``mc_hplanes`` + ``mc_unit_batch_hv``: the two-stage form of the
   has_h & has_v buckets. They are the plain versions of the two CUDA
   kernels in ``csrc/`` (wrappers in ``ops/mc_cuda.py``);
-- ``scatter_units``: writes unit batches into a plane.
+- ``gather_units`` / ``scatter_units``: read / write unit batches of a
+  plane.
 
 Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224.
 """
@@ -218,6 +219,19 @@ def unit_index(ys, xs, uh, uw, shape):
     yy, xx = torch.broadcast_tensors(yy, xx)
     ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
     return yy, xx, ok
+
+
+def gather_units(plane, ys, xs, uh, uw):
+    """Read (B, uh, uw) units from plane at top-left (ys, xs). Indices
+    are clamped into the plane, as the reference's gather clamps them
+    (the callers' origins lie inside it; pad rows repeat a real unit)."""
+    dev = ys.device
+    H, W = plane.shape
+    yy = (ys[:, None, None] + torch.arange(
+        uh, device=dev, dtype=ys.dtype)[None, :, None]).clamp(0, H - 1)
+    xx = (xs[:, None, None] + torch.arange(
+        uw, device=dev, dtype=xs.dtype)[None, None, :]).clamp(0, W - 1)
+    return plane[yy.long(), xx.long()]
 
 
 def scatter_units(plane, units, ys, xs, uh, uw):

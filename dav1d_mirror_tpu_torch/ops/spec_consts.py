@@ -4,7 +4,9 @@ references (``dav1d_mirror_tpu/ops/ref/``), copied name by name:
 - ``clip_ranges`` from ``ops/ref/itx.py``;
 - ``FILTER_INTRA_TAPS`` from ``ops/ref/ipred.py``;
 - ``calc_eih`` from ``ops/ref/loopfilter.py``;
-- ``CDEF_DIRECTIONS`` from ``ops/ref/cdef.py``.
+- ``CDEF_DIRECTIONS`` from ``ops/ref/cdef.py``;
+- the loop restoration constants (``LR_HAVE_*``, ``RESTORATION_*``,
+  ``SGR_PARAMS``, ``SGR_X_BY_X``) from ``ops/ref/looprestoration.py``.
 """
 from __future__ import annotations
 
@@ -65,3 +67,13 @@ for _k in range(12):
         _dy = (_off + 6) // 12
         _pair.append((_dy, _off - 12 * _dy))
     CDEF_DIRECTIONS.append(_pair)
+
+
+SGR_PARAMS = TABLES["sgr_params"]        # [16][2]
+SGR_X_BY_X = TABLES["sgr_x_by_x"]        # [256]
+
+LR_HAVE_LEFT, LR_HAVE_RIGHT, LR_HAVE_TOP, LR_HAVE_BOTTOM = 1, 2, 4, 8
+
+RESTORATION_NONE = 0
+RESTORATION_WIENER = 2
+RESTORATION_SGRPROJ = 3
