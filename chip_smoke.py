@@ -7,7 +7,7 @@ Run from the root of a checkout. It
 
 1. builds the package's kernels (both CUDA sources, one nvcc each, side by
    side) and its native host library from the checkout's sources;
-2. drives two paths through ``Decoder(Settings(device="cuda"))``, each
+2. drives four paths through ``Decoder(Settings(device="cuda"))``, each
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that both counters moved:
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
@@ -15,17 +15,26 @@ Run from the root of a checkout. It
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
    grain (bench_cache/e2e_1080p_10bit_grain_lr_6d42abf87190.ivf), with
    grain and again without it (an LR fault and a grain fault give
-   different hashes). Each path also runs a staged pass for its stage
-   split. Two small corpus streams with self-guided and switchable
-   restoration (tests/streams) are decoded on the card as well, against
-   tests/streams/md5.txt;
+   different hashes); the tools path, the 5-frame 1080p stream of
+   config 2's parameters with compound references, local and global
+   warp, OBMC and inter-intra (tests/streams_torch/
+   e2e_1080p_inter_tools.ivf), where comp, warp and obmc ops and
+   inter-intra blocks must run; config 4, the 3-frame 4K 10-bit stream
+   with 2x2 tiles (bench_cache/e2e_4k_10bit_multitile_479aaf4a51e3.ivf).
+   Each path also runs a staged pass for its stage split (the tools
+   stream's hash a second time). Small streams are decoded on the card
+   as well: two corpus streams with self-guided and switchable
+   restoration and five with compound, warp and OBMC blocks
+   (tests/streams, against tests/streams/md5.txt), and a lossless one
+   (tests/streams_torch/lossless_128x64.ivf);
 3. runs each kernel's wrapper on the card at the shapes config 2 gave
    it, for bit depths 8/10/12, every unit size, put and prep, and at the
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
    combos, int16 wrap, one unit, extreme window origins), and on each
-   decode's own largest calls (config 3's at bit depth 10), and requires
-   ``torch.equal`` with the kernel's plain PyTorch version; then times
-   kernel and plain version as device time with CUDA events: warm (many
+   decode's own largest calls (config 3's at bit depth 10, and the tools
+   path's), and requires ``torch.equal`` with the kernel's plain PyTorch
+   version; then times kernel and plain version as device time with
+   CUDA events: warm (many
    back-to-back launches queued while the card is busy, over their
    count) and with a cold L2 (a 256 MB write queued before each timed
    launch), beside an empty kernel's launch floor;
@@ -63,6 +72,22 @@ CONFIG3_MD5 = {True: "76e6cf803e84aaf3a9089fe53894d4d4",
 # the config 3 stream (Wiener only) does not carry; md5.txt is grain-free
 STREAMS = os.path.join(HERE, "tests", "streams")
 LR_STREAMS = ("inter_10bit_lr.ivf", "intra_sb128_lr.ivf")
+# the tools path: streams of config 2's parameters with compound, warp,
+# OBMC and inter-intra blocks, and a lossless one; md5 and frame count
+# from the JAX package's host reference path
+TOOLS_DIR = os.path.join(HERE, "tests", "streams_torch")
+TOOLS_STREAM = "e2e_1080p_inter_tools.ivf"
+TOOLS_STREAMS = {TOOLS_STREAM: ("8e678ba92fc156763dac7dcfaae2e727", 5),
+                 "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5",
+                                         4)}
+# corpus streams with compound, warp and OBMC blocks (tests/streams)
+TOOLS_CORPUS = ("inter_compound_oh.ivf", "inter_warp_obmc.ivf",
+                "inter_masked.ivf", "inter_444_masked.ivf",
+                "inter_tmvs_skip.ivf")
+# config 4: 4K 10-bit, 2x2 tiles, 3 frames
+STREAM4 = os.path.join(HERE, "bench_cache",
+                       "e2e_4k_10bit_multitile_479aaf4a51e3.ivf")
+CONFIG4_MD5 = "c00e0479951b96933a8284c9b4ab0366"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
@@ -96,31 +121,40 @@ def build_all():
 
 class ShapeLog:
     """Wraps the two kernel wrappers during the decode to record the
-    shapes the main path gives them (counts stay the wrappers' own), and
-    the program executor to tally the op kinds of each frame."""
+    shapes the main path gives them (counts stay the wrappers' own), the
+    program executor to tally the op kinds of each frame, and the
+    decoder's frame execution to count the inter-intra blocks (dd == 2:
+    device put, host blend) it finished."""
 
-    def __init__(self, mc_cuda, frame_exec):
+    def __init__(self, mc_cuda, frame_exec, api):
         self.mc_cuda = mc_cuda
         self.frame_exec = frame_exec
+        self.api = api
         self.hplanes = []   # (R, H, W, C, bd)
         self.vpass = []     # (B, uw, uh, C, H, w_mid, bd)
         self.vpass_args = {}  # (uw, uh) -> (args, bd) of its largest put
         self.hplanes_args = None  # (refs, combos, bd) of the largest call
         self.frame_ops = []  # per frame: {op kind: count}
+        self.ii_blocks = 0   # inter-intra blocks of the decode
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
-                      frame_exec.execute_program)
+                      frame_exec.execute_program, api.execute_frame_program)
 
     def on_frame(self, i):
         self.frame_ops.append({})
 
     def __enter__(self):
-        hp, vp, ex = self._orig
+        hp, vp, ex, ef = self._orig
 
         def rec_ex(sig, *args):
             ops = self.frame_ops[-1]
             for rec in sig[0]:
                 ops[rec[0]] = ops.get(rec[0], 0) + 1
             return ex(sig, *args)
+
+        def rec_ef(built, *args):
+            self.ii_blocks += sum(int((dd == 2).sum())
+                                  for dd in built.dd_per)
+            return ef(built, *args)
 
         def rec_hp(ref_stack, combos, bd):
             self.hplanes.append(tuple(ref_stack.shape) +
@@ -145,11 +179,13 @@ class ShapeLog:
         self.mc_cuda.mc_hplanes = rec_hp
         self.mc_cuda.mc_unit_batch_hv = rec_vp
         self.frame_exec.execute_program = rec_ex
+        self.api.execute_frame_program = rec_ef
         return self
 
     def __exit__(self, *exc):
         (self.mc_cuda.mc_hplanes, self.mc_cuda.mc_unit_batch_hv,
-         self.frame_exec.execute_program) = self._orig
+         self.frame_exec.execute_program,
+         self.api.execute_frame_program) = self._orig
 
 
 def decode(api, MD5Muxer, frames, torch, on_frame=None, **settings):
@@ -623,7 +659,7 @@ def main():
     # ---- config 2 path (run first: the kernel phase uses its shapes) ----
     with open(STREAM, "rb") as f:
         _, _, _, frames = parse_ivf(f.read())
-    with ShapeLog(mc_cuda, frame_exec) as shapes:
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes:
         (digest, n_pics, times), launches = counted(lambda: decode(
             api, MD5Muxer, frames, torch, shapes.on_frame))
     assert n_pics == len(frames) == 9, (n_pics, len(frames))
@@ -637,7 +673,7 @@ def main():
     # ---- config 3 path: with grain, without grain, staged ----
     with open(STREAM3, "rb") as f:
         _, _, _, frames3 = parse_ivf(f.read())
-    with ShapeLog(mc_cuda, frame_exec) as shapes3:
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes3:
         (d3, n3, times3), launches3 = counted(lambda: decode(
             api, MD5Muxer, frames3, torch, shapes3.on_frame))
     d3_plain, n3_plain, _ = decode(api, MD5Muxer, frames3, torch,
@@ -659,7 +695,7 @@ def main():
     for name in LR_STREAMS:
         with open(os.path.join(STREAMS, name), "rb") as f:
             _, _, _, fr = parse_ivf(f.read())
-        with ShapeLog(mc_cuda, frame_exec) as lr_shapes:
+        with ShapeLog(mc_cuda, frame_exec, api) as lr_shapes:
             d, _, _ = decode(api, MD5Muxer, fr, torch, lr_shapes.on_frame,
                              apply_grain=False)
         kinds = sorted({k for ops in lr_shapes.frame_ops for k in ops
@@ -667,12 +703,65 @@ def main():
         assert d == corpus_md5[name], f"{name}: md5 {d}"
         print(f"{name}: md5 {d} as in md5.txt, LR ops {kinds}")
 
+    # ---- tools path: compound, warp, OBMC, inter-intra; twice ----
+    with open(os.path.join(TOOLS_DIR, TOOLS_STREAM), "rb") as f:
+        _, _, _, frames_t = parse_ivf(f.read())
+    tools_md5, tools_n = TOOLS_STREAMS[TOOLS_STREAM]
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes_t:
+        (d_t, n_t, times_t), launches_t = counted(lambda: decode(
+            api, MD5Muxer, frames_t, torch, shapes_t.on_frame))
+    assert n_t == len(frames_t) == tools_n, (n_t, len(frames_t))
+    assert d_t == tools_md5, f"tools md5 {d_t} != {tools_md5}"
+    assert launches_t["mc_hplanes"] > 0 and launches_t["mc_vpass"] > 0, \
+        launches_t
+    tools_kinds = {k for ops in shapes_t.frame_ops for k in ops}
+    assert {"comp", "warp", "obmc"} <= tools_kinds, tools_kinds
+    assert shapes_t.ii_blocks > 0, "the tools path ran no inter-intra block"
+    # the staged pass: the same hash again (CUDA applies duplicate writes
+    # in any order; the planner keeps duplicates equal or sacrificial)
+    (d_ts, _, times_ts), split_t = staged(
+        stages, lambda: decode(api, MD5Muxer, frames_t, torch))
+    assert d_ts == tools_md5, f"tools md5 {d_ts} (staged pass)"
+    for name in TOOLS_CORPUS + ("lossless_128x64.ivf",):
+        lossless = name.startswith("lossless")
+        path = os.path.join(TOOLS_DIR if lossless else STREAMS, name)
+        with open(path, "rb") as f:
+            _, _, _, fr = parse_ivf(f.read())
+        with ShapeLog(mc_cuda, frame_exec, api) as s_shapes:
+            d, n, _ = decode(api, MD5Muxer, fr, torch, s_shapes.on_frame,
+                             apply_grain=False)
+        want = TOOLS_STREAMS[name][0] if lossless else corpus_md5[name]
+        kinds = sorted({k for ops in s_shapes.frame_ops for k in ops
+                        if k in ("comp", "warp", "obmc", "residc",
+                                 "hresc")})
+        assert d == want, f"{name}: md5 {d} != {want}"
+        assert not lossless or "residc" in kinds, kinds
+        print(f"{name}: md5 {d} as recorded, {n} frames, ops {kinds}, "
+              f"{s_shapes.ii_blocks} inter-intra blocks")
+
+    # ---- config 4: 4K 10-bit, 2x2 tiles ----
+    with open(STREAM4, "rb") as f:
+        _, _, _, frames4 = parse_ivf(f.read())
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes4:
+        (d4, n4, times4), launches4 = counted(lambda: decode(
+            api, MD5Muxer, frames4, torch, shapes4.on_frame))
+    assert n4 == len(frames4) == 3, (n4, len(frames4))
+    assert d4 == CONFIG4_MD5, f"config 4 md5 {d4} != {CONFIG4_MD5}"
+    assert launches4["mc_hplanes"] > 0 and launches4["mc_vpass"] > 0, \
+        launches4
+    (d4s, _, times4s), split4 = staged(
+        stages, lambda: decode(api, MD5Muxer, frames4, torch))
+    assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"
+
     # ---- 2. kernel phase ----
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
     own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
+    own_calls_phase(torch, mc, mc_cuda, shapes_t, "tools", rows)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
+        r["launches_tools"] = launches_t[r["name"]]
+        r["launches_config4"] = launches4[r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -681,13 +770,16 @@ def main():
               f"empty-launch floor {r['floor_ms']:.5f} ms, "
               f"plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
               f"{r['launches']} launches in the config 2 decode, "
-              f"{r['launches_config3']} in the config 3 decode")
+              f"{r['launches_config3']} in the config 3 decode, "
+              f"{r['launches_tools']} in the tools decode, "
+              f"{r['launches_config4']} in the config 4 decode")
         for c in r["cases"]:
-            if c.startswith("config 3"):
+            if c.startswith(("config 3", "tools")):
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_config3", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "cold_ms", "floor_ms")
+            "launches_config3", "launches_tools", "launches_config4",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
 
@@ -696,6 +788,12 @@ def main():
                 {"expected": STREAM_MD5, "got": digest}, split, sum(times2))
     report_path("config 3", frames3, times3, shapes3, launches3,
                 {"grain": d3, "no grain": d3_plain}, split3, sum(times3s))
+    report_path("tools", frames_t, times_t, shapes_t, launches_t,
+                {"expected": tools_md5, "got": d_t, "staged": d_ts},
+                split_t, sum(times_ts))
+    print(f"tools: {shapes_t.ii_blocks} inter-intra blocks")
+    report_path("config 4", frames4, times4, shapes4, launches4,
+                {"expected": CONFIG4_MD5, "got": d4}, split4, sum(times4s))
     steady = times[2:]
     if opts.profile:
         per_frame = profile_frames(torch, api, MD5Muxer, frames,

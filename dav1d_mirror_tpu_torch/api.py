@@ -292,8 +292,8 @@ class Decoder:
             raise DecodeError("frame size over limit")
         if fhdr.width[0] != fhdr.width[1]:
             raise NotImplementedError(
-                "super-resolution: ROADMAP queue 1, item 1a (beside scaled "
-                "MC)")
+                "super-resolution: ROADMAP queue 1, item 1b (scaled MC and "
+                "super-res)")
         keyframe = fhdr.frame_type in (0, 2)
         # strict mode: frames referencing error-poisoned slots are
         # themselves in error (dav1d decode.c:3296-3304)
@@ -306,6 +306,7 @@ class Decoder:
         rf = None
         ref_poc = None
         ref_scaled = None
+        jnt_weights = None
         cur_w = fhdr.width[0]
         if keyframe and fhdr.allow_intrabc:
             from .host.refmvs import RefmvsFrame
@@ -324,6 +325,9 @@ class Decoder:
                 seq, fhdr, ref_poc,
                 [self._ref_refpoc[fhdr.refidx[i]] for i in range(7)],
                 [self._ref_tmvs[fhdr.refidx[i]] for i in range(7)])
+            if fhdr.switchable_comp_refs:
+                jnt_weights = obu_mod.compute_jnt_weights(seq, fhdr,
+                                                          ref_poc)
             ref_scaled = [
                 refs[fhdr.refidx[i]] is not None and
                 (refs[fhdr.refidx[i]].width != cur_w or
@@ -365,7 +369,8 @@ class Decoder:
 
         bufs = FrameBuffers(seq, fhdr, width=fhdr.width[1])
         with stages.scope("plan"):
-            built = build_frame_program(seq, fhdr, coders, bufs, refs)
+            built = build_frame_program(seq, fhdr, coders, bufs, refs,
+                                        jnt_weights)
         execute_frame_program(built, seq, fhdr, coders, bufs, self.device)
         with stages.scope("filters", self.device):
             apply_inloop_filters(seq, fhdr, coders, bufs, self.device,

@@ -7,8 +7,9 @@ walk already produced (``coder.native_arrays``) plus the device-computed
 residual buffers, and performs edge prep + all intra predictors + CFL +
 palette + residual add in C++ (dav1d src/recon_tmpl.c:1195-1596 and
 src/ipred_tmpl.c:93-720 equivalents). It refuses — before touching any
-pixel — when a tile contains host inter work (intrabc / inter-intra);
-this package has no Python walk, so callers raise then.
+pixel — when a tile contains intrabc blocks; this package has no Python
+walk, so callers raise then. Inter-intra blocks (flagged 2) get their
+inter prediction from the device and their intra blend here.
 
 The RC_* config layout and return codes mirror native/recon.cpp.
 """
@@ -20,6 +21,8 @@ import numpy as np
 
 from ..data.tables import TABLES
 from .native import LIB
+from .native_tile import (B_BS, B_INTERINTRA_MODE, B_INTERINTRA_TYPE,
+                          B_WEDGE_IDX)
 
 _checked = False
 _TABS = None
@@ -85,14 +88,39 @@ _II_EMPTY = (np.zeros(1, np.uint8), np.full(1, -1, np.int64))
 
 
 def _pack_ii_masks(coder, blk, device_done, ss_hor, ss_ver, has_chroma):
-    """Inter-intra blend masks for blocks flagged 2 in device_done. This
-    slice decodes no inter-intra block, so a flagged block raises
-    instead of reaching mask code the package does not carry."""
+    """Flatten inter-intra blend masks (ops/wedge.ii_mask) for blocks
+    flagged 2 in device_done. Returns (mask_buf u8, offsets
+    (n_blocks, 2) int64 with -1 = none)."""
     if not (device_done == 2).any():
         return _II_EMPTY
-    raise NotImplementedError(
-        "inter-intra blend masks: ROADMAP queue 1, compound/OBMC/warp "
-        "slice")
+    from ..ops.wedge import ii_mask
+    T_BD = TABLES["block_dimensions"]
+    offs = np.full((len(device_done), 2), -1, np.int64)
+    chunks = []
+    base = 0
+    for bi in np.nonzero(device_done == 2)[0]:
+        r = blk[bi]
+        bs = int(r[B_BS])
+        itype = int(r[B_INTERINTRA_TYPE])
+        imode = int(r[B_INTERINTRA_MODE])
+        widx = int(r[B_WEDGE_IDX])
+        bw4, bh4 = int(T_BD[bs][0]), int(T_BD[bs][1])
+        m = np.ascontiguousarray(
+            ii_mask(0, bs, itype, imode, widx)[:bh4 * 4, :bw4 * 4],
+            np.uint8)
+        chunks.append(m.reshape(-1))
+        offs[bi, 0] = base
+        base += m.size
+        if has_chroma:
+            cbw4 = (bw4 + ss_hor) >> ss_hor
+            cbh4 = (bh4 + ss_ver) >> ss_ver
+            cm = np.ascontiguousarray(
+                ii_mask(ss_hor + ss_ver, bs, itype, imode, widx)
+                [:cbh4 * 4, :cbw4 * 4], np.uint8)
+            chunks.append(cm.reshape(-1))
+            offs[bi, 1] = base
+            base += cm.size
+    return np.concatenate(chunks), offs
 
 
 def recon_tile_native(seq, fhdr, coder, bufs, device_done, res_buf,

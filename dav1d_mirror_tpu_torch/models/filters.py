@@ -7,7 +7,7 @@ the CDEF index map, the LR stripe-unit batches) from the parsed headers
 and entropy state; the pixels stay device tensors across the stages,
 packed into one program (models/frame_exec, plane-input mode).
 
-Super-resolution raises NotImplementedError (ROADMAP queue 1, item 1a).
+Super-resolution raises NotImplementedError (ROADMAP queue 1, item 1b).
 """
 from __future__ import annotations
 
@@ -159,7 +159,8 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
 
     if fhdr.width[0] != fhdr.width[1]:
         raise NotImplementedError(
-            "super-resolution: ROADMAP queue 1, item 1a (beside scaled MC)")
+            "super-resolution: ROADMAP queue 1, item 1b (scaled MC and "
+            "super-res)")
     if bufs.dev_planes is not None:
         planes_in = list(bufs.dev_planes)
     else:

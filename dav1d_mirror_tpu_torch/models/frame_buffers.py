@@ -50,8 +50,11 @@ def _gmv_warp_params(fhdr, ref_i, scaled):
     Returns a WarpParams or None if warp is not allowed for this gmv."""
     from ..host.warpmv import WarpParams, get_shear_params
     key = (id(fhdr), ref_i, scaled)
-    if key in _GMV_WARP_CACHE:
-        return _GMV_WARP_CACHE[key]
+    hit = _GMV_WARP_CACHE.get(key)
+    # an entry holds its header: Python reuses the id of a freed header
+    # (a later frame, or another decode's), so only the same object hits
+    if hit is not None and hit[0] is fhdr:
+        return hit[1]
     g = fhdr.gmv[ref_i]
     out = None
     if g.type > 1 and not fhdr.force_integer_mv and not scaled:
@@ -60,7 +63,7 @@ def _gmv_warp_params(fhdr, ref_i, scaled):
         if not get_shear_params(wm):
             wm.type = g.type
             out = wm
-    _GMV_WARP_CACHE[key] = out
+    _GMV_WARP_CACHE[key] = (fhdr, out)
     if len(_GMV_WARP_CACHE) > 256:
         _GMV_WARP_CACHE.clear()
     return out

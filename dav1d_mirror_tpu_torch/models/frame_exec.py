@@ -9,9 +9,16 @@ device tensors, slicing each op's inputs out of the uploaded buffers.
 
 The executor implements the op kinds of the hybrid inter path with
 deblock, CDEF and loop restoration: ``hpx``, ``puthv_x``, ``put``,
-``residmc``, ``hresmc``, ``dbk``, ``snap``, ``cdef``, ``lrw``, ``lrs`` and
-``out``. Every other kind raises ``NotImplementedError`` naming its
-ROADMAP item, before any op runs.
+``warp``, ``comp`` (average, distance-weighted, wedge and seg joins),
+``obmc``, ``residmc``, ``residc`` and ``hresc`` (lossless WHT),
+``hresmc``, ``dbk``, ``snap``, ``cdef``, ``lrw``, ``lrs`` and ``out``.
+Every other kind raises ``NotImplementedError`` naming its ROADMAP item,
+before any op runs.
+
+Ops update the planes in place, in the reference's op order: puts and
+warps, compound blocks, OBMC laps (top, then left), then residuals. An op
+that reads the plane it writes (OBMC, residuals) reads its whole batch
+before it writes any of it.
 """
 from __future__ import annotations
 
@@ -20,11 +27,14 @@ import torch
 
 from ..ops import mc_cuda
 from ..ops.cdef import cdef_frame
-from ..ops.itx import _residual_multi_core, itx_residual_multi
+from ..ops.itx import (_residual_core, _residual_multi_core, itx_residual,
+                       itx_residual_multi)
 from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
-from ..ops.mc import (HPAD_L, PAD_OOB, gather_units, mc_hv_combos,
-                      mc_unit_batch, scatter_units, unit_index)
+from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
+                      comp_join_wmask, gather_units, mc_hv_combos,
+                      mc_unit_batch, obmc_blend_batch, scatter_slot_units,
+                      scatter_units, set_slots, unit_index, warp8x8_batch)
 
 
 # int16 OOB sentinel for destination rows: PAD_OOB (1 << 20) marks
@@ -84,7 +94,19 @@ def _resid_scatter_multi(plane, cfs, rsel, csel, ys, xs, tx: int,
     (ys, xs). Pad rows carry PAD_OOB ys: masked out of both the read and
     the write. Updates the plane IN PLACE (one bucket touches a sliver
     of it) and returns it."""
-    res = _residual_multi_core(cfs, rsel, csel, tx, bitdepth)
+    return _add_units(plane, _residual_multi_core(cfs, rsel, csel, tx,
+                                                  bitdepth), ys, xs, bitdepth)
+
+
+def _resid_scatter(plane, cfs, ys, xs, tx: int, txtp: int, bitdepth: int):
+    """One-type bucket (the lossless WHT buckets): inverse-transform and
+    clip-add onto the plane at (ys, xs), in place, as
+    _resid_scatter_multi."""
+    return _add_units(plane, _residual_core(cfs, tx, txtp, bitdepth), ys, xs,
+                      bitdepth)
+
+
+def _add_units(plane, res, ys, xs, bitdepth: int):
     uh, uw = res.shape[1], res.shape[2]
     yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
     yy, xx = yy[ok].long(), xx[ok].long()
@@ -123,6 +145,7 @@ class FrameProgram:
         self._chunks8 = []
         self._off8 = 0
         self._hp_ids = {}      # (pl, combos-bytes) -> cache id
+        self._n_cm = 0         # seg-mask registry counter
 
     # -- packing ----------------------------------------------------
     def emit(self, arr):
@@ -173,6 +196,13 @@ class FrameProgram:
             self.op("hpx", pl, cid, self.emit(combos))
         return cid
 
+    def new_cm(self):
+        """Id of a new entry of the frame's seg-mask registry: a luma seg
+        join registers its chroma masks there, the chroma joins read
+        them."""
+        self._n_cm += 1
+        return self._n_cm - 1
+
     def finalize(self):
         desc = np.concatenate(self._chunks) if self._chunks else \
             np.zeros(1, np.int32)
@@ -209,25 +239,21 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("hpx", "puthv_x", "put", "residmc", "hresmc", "dbk", "snap",
-           "cdef", "lrw", "lrs", "out")
+HANDLED = ("hpx", "puthv_x", "put", "warp", "comp", "obmc", "residmc",
+           "residc", "hresmc", "hresc", "dbk", "snap", "cdef", "lrw", "lrs",
+           "out")
 
 # op kinds outside this slice -> where they stand in ROADMAP.md
 LATER = {
     "hpp": "Pallas-only form (the port's planner emits hpx)",
     "puthv_p": "Pallas-only form (the port's planner emits puthv_x)",
     "outpack": "TPU tunnel download form, not ported",
-    "warp": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
-    "scaled": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
-    "comp": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
-    "obmc": "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)",
-    "resid": "ROADMAP queue 1, item 1a (dense residual forms)",
-    "residm": "ROADMAP queue 1, item 1a (dense residual forms)",
-    "hres": "ROADMAP queue 1, item 1a (dense residual forms)",
-    "hresm": "ROADMAP queue 1, item 1a (dense residual forms)",
-    "residc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
-    "hresc": "ROADMAP queue 1, item 1a (lossless WHT buckets)",
-    "sres": "ROADMAP queue 1, item 1a (super-res, beside scaled MC)",
+    "scaled": "ROADMAP queue 1, item 1b (scaled MC and super-res)",
+    "sres": "ROADMAP queue 1, item 1b (scaled MC and super-res)",
+    "resid": "dense residual form (the port's planner emits residmc)",
+    "residm": "dense residual form (the port's planner emits residmc)",
+    "hres": "dense residual form (the port's planner emits hresmc)",
+    "hresm": "dense residual form (the port's planner emits hresmc)",
     "setplane": "ROADMAP queue 1, item 8 (device intra engine)",
     "newres": "ROADMAP queue 1, item 8 (device intra engine)",
     "resraw": "ROADMAP queue 1, item 8 (device intra engine)",
@@ -283,12 +309,35 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         planes = [torch.zeros(s, dtype=torch.int32, device=dev)
                   for s in plane_shapes]
     hp = {}       # cache id -> H-plane stack
+    cms = {}      # seg-mask registry (chroma masks of the luma seg joins)
     snap = {}     # filter-chain plane snapshots (pre-CDEF, pre-LR)
     hres = []
 
     def hres_out(x):
         # residuals fit int16 at 8 bpc (dav1d's own coef type)
         hres.append(x.to(torch.int16) if bd == 8 else x)
+
+    def side_tmp(pl, bwp, bhp, N, subops, prep):
+        """(N, bhp, bwp) slot batch of one compound side or one OBMC lap
+        bucket: whole-block translational units ("t") and 8x8 warp units
+        ("w")."""
+        tmp = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
+        for s in subops:
+            if s[0] == "t":
+                _, hh, hv, h_arr, h_sl = s
+                a = get(h_arr)
+                out = mc_unit_batch(
+                    (refs[pl], a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4],
+                     a[:, 5]), bwp, bhp, hh, hv, bd, prep)
+                set_slots(tmp, get(h_sl), out)
+            elif s[0] == "w":
+                _, h_rows, h_base = s
+                out = warp8x8_batch(refs[pl], get(h_rows), bd, prep)
+                scatter_slot_units(tmp, get(h_base), out, 8, 8, bwp)
+            else:   # "s": a scaled reference
+                raise NotImplementedError(f"frame op {s[0]!r} sub-op: "
+                                          f"{LATER['scaled']}")
+        return tmp
 
     for rec in ops:
         kind = rec[0]
@@ -311,6 +360,54 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                  get(h_tv)), uw, uh, bd, False)
             scatter_units(planes[pl], out, _ys_oob(get(h_ys)), get(h_xs),
                           uh, uw)
+        elif kind == "warp":
+            _, pl, h_rows, h_ys, h_xs = rec
+            out = warp8x8_batch(refs[pl], get(h_rows), bd, False)
+            scatter_units(planes[pl], out, get(h_ys), get(h_xs), 8, 8)
+        elif kind == "comp":
+            (_, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx) = rec
+            tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True)
+                    for i in (0, 1)]
+            out = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
+            for j in joins:
+                if j[0] == "wavg":
+                    _, h_sl, h_w = j
+                    comp_join_wavg(out, tmps[0], tmps[1], get(h_sl),
+                                   get(h_w)[:, None, None], bd)
+                elif j[0] == "segl":
+                    _, h_sl, h_sgn, cmid = j
+                    _, cms[cmid] = comp_join_wmask(
+                        out, tmps[0], tmps[1], get(h_sl), get(h_sgn), ssh,
+                        ssv, bd)
+                elif j[0] == "segc":
+                    _, h_sl, h_sgn, spec = j
+                    if spec[0] == "one":
+                        m = cms[spec[1]].index_select(
+                            0, get(spec[2]).long())
+                    else:   # slots span several luma batches
+                        m = torch.stack([cms[cmid][jj]
+                                         for cmid, jj in spec[1]])
+                    comp_join_mask(out, tmps[0], tmps[1], get(h_sl),
+                                   get(h_sgn), m, bd)
+                else:       # wedge
+                    _, h_sl, h_sgn, h_masks = j
+                    comp_join_mask(out, tmps[0], tmps[1], get(h_sl),
+                                   get(h_sgn), get(h_masks), bd)
+            scatter_units(planes[pl], out, get(h_dy), get(h_dx), bhp, bwp)
+        elif kind == "obmc":
+            _, pl, lh, lw, region, vert, nL, subops, h_ys, h_xs = rec
+            lap = side_tmp(pl, lw, lh, nL, subops, False)
+            obmc_blend_batch(planes[pl], lap, get(h_ys), get(h_xs), lh, lw,
+                             region, vert)
+        elif kind == "residc":
+            _, pl, sh, sw, tx, txtp, h_v, h_p, h_ys, h_xs = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            _resid_scatter(planes[pl], cf, get(h_ys), get(h_xs), tx, txtp,
+                           bd)
+        elif kind == "hresc":
+            _, tx, txtp, sh, sw, h_v, h_p = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            hres_out(itx_residual(cf, tx, txtp, bd))
         elif kind == "residmc":
             _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
             cf = _expand_cf(get(h_v), get(h_p), sh, sw)

@@ -8,27 +8,36 @@ frame program (models/frame_exec), which runs on the device:
 
   * translational MC as fixed-size unit batches over stacked reference
     planes (ops/mc, ops/mc_cuda),
+  * affine warp (local and global motion) as 8x8 unit batches,
+  * compound blocks as whole-block prep batches per side, joined by
+    average, distance weights, wedge or difference-weighted (seg) masks,
+  * OBMC laps from the neighbours' motion, blended top then left,
   * residual inverse transforms bucketed by tx size with scatter-add
-    (ops/itx).
+    (ops/itx), lossless WHT in buckets of their own.
 
 Intra blocks (sequential neighbour dependency) run on the host
 afterwards, in decode order, in the native walk (native/recon.cpp) —
-valid because inter prediction never reads current-frame pixels.
+valid because inter prediction never reads current-frame pixels. So do
+the intra halves of inter-intra blocks: their inter prediction is put on
+the device, the native walk blends it with the intra prediction
+(dd == 2 in ``BuiltFrame.dd_per``).
 
-This slice plans single-reference translational MC. Compound, warp,
-OBMC, inter-intra and scaled references raise NotImplementedError
-(ROADMAP queue 1, item 1a); the planner always runs the vectorized path
-(models/plan_vec), which the native entropy walk always feeds.
+Scaled references raise NotImplementedError (ROADMAP queue 1, item 1b).
+The planner always runs the vectorized path (models/plan_vec), which the
+native entropy walk always feeds, and packs without the reference's
+ProgramSchema: every batch is padded to a power of two on its own.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..host.tilecoder import T_BLOCK_DIM
+from ..host.tilecoder import (COMP_INTER_AVG, COMP_INTER_SEG,
+                              COMP_INTER_WEDGE, COMP_INTER_WEIGHTED_AVG,
+                              T_BLOCK_DIM)
 from ..ops.mc import PAD_OOB
 from .frame_buffers import _gmv_warp_params
 
-_LATER_MC = "ROADMAP queue 1, item 1a (compound, OBMC, warp, scaled MC)"
+_LATER_MC = "ROADMAP queue 1, item 1b (scaled MC and super-res)"
 
 
 def _p2(n: int, floor: int = 8) -> int:
@@ -49,6 +58,16 @@ def _pad_rows(arr: np.ndarray, ycol: int | None, P: int | None = None):
     if ycol is not None:
         pad[:, ycol] = PAD_OOB
     return np.concatenate([arr, pad], axis=0)
+
+
+def _pad_vec(vec: np.ndarray, oob: bool, P: int | None = None):
+    """Pad a (B,) vector to pow2 (or P) (dup last, or PAD_OOB)."""
+    b = vec.shape[0]
+    p = P if P is not None else _p2(b)
+    if p == b:
+        return vec
+    fill = np.full(p - b, PAD_OOB if oob else vec[-1], vec.dtype)
+    return np.concatenate([vec, fill])
 
 
 def _block_device_class(fhdr, coder, b, refs, cur_w, cur_h):
@@ -96,11 +115,42 @@ def _units_for_block_raw(plan, pl, ss_hor, ss_ver, b_dims, bx, by, mv,
                         mx, my, f2d, dst_y + oy, dst_x + ox))
 
 
+def _warp_rows(ss_hor, ss_ver, wm, bx, by, bw4, bh4, ref_slot):
+    """8x8 warp sub-unit descriptor rows (dav1d recon_tmpl.c
+    warp_affine:1134 loop). Returns [(row10, sub_y, sub_x)] with sub
+    offsets in plane pixels."""
+    h_mul, v_mul = 4 >> ss_hor, 4 >> ss_ver
+    mat = wm.matrix
+    out = []
+    for y in range(0, bh4 * v_mul, 8):
+        src_y = by * 4 + ((y + 4) << ss_ver)
+        mat3_y = mat[3] * src_y + mat[0]
+        mat5_y = mat[5] * src_y + mat[1]
+        for x in range(0, bw4 * h_mul, 8):
+            src_x = bx * 4 + ((x + 4) << ss_hor)
+            mvx = (mat[2] * src_x + mat3_y) >> ss_hor
+            mvy = (mat[4] * src_x + mat5_y) >> ss_ver
+            dx = (mvx >> 16) - 4
+            mx = ((mvx & 0xFFFF) - wm.alpha * 4 - wm.beta * 7) & ~0x3F
+            dy = (mvy >> 16) - 4
+            my = ((mvy & 0xFFFF) - wm.gamma * 4 - wm.delta * 4) & ~0x3F
+            out.append(((ref_slot, dy - 3, dx - 3, mx, my, wm.alpha,
+                         wm.beta, wm.gamma, wm.delta, 0), y, x))
+    return out
+
+
 class _FramePlan:
     """All device MC work for one frame, bucketed for batching."""
 
     def __init__(self, n_planes):
         self.put = [dict() for _ in range(n_planes)]       # translational
+        self.warp_put = [[] for _ in range(n_planes)]      # (row, y, x)
+        # OBMC laps, applied after all puts: phase 0 = top, 1 = left;
+        # bucket (phase, lap_h, lap_w, region_dim); entries
+        # (kind, row, (dst_y, dst_x))
+        self.laps = [dict() for _ in range(n_planes)]
+        # compound: bucket (bw_px, bh_px) -> list of block entry dicts
+        self.comp = [dict() for _ in range(n_planes)]
         # vector-planned translational puts (models/plan_vec): per-plane
         # {(uw, uh, hh, hv): (B, 8) int32}; merged with self.put at pack
         self.put_vec = [dict() for _ in range(n_planes)]
@@ -111,8 +161,8 @@ def _vec_plan(fhdr, coders, refs, plan, n_planes, ss_hor, ss_ver,
     """Vectorized bulk planning (models/plan_vec): plans every plain
     translational put as numpy array programs, precomputes the decode-
     order filter state, and returns the per-coder special-block indices
-    the per-block loop still has to visit (here: sub-8x8 chroma). Raises
-    for the block families this slice does not plan."""
+    the per-block loop still has to visit (warp / scaled / OBMC laps /
+    sub-8x8 chroma / compound)."""
     from . import plan_vec as pv
     ref_ok = np.zeros(7, bool)
     ref_scaled = np.zeros(7, bool)
@@ -135,10 +185,6 @@ def _vec_plan(fhdr, coders, refs, plan, n_planes, ss_hor, ss_ver,
         blk = coder.native_arrays[0]
         nb = blk.shape[0]
         cl = pv.classify(blk, ref_ok, gm_warp, ref_scaled)
-        for fam in ("comp", "use_warp", "scaled0", "obmc", "ii"):
-            if cl[fam].any():
-                raise NotImplementedError(
-                    f"{fam} blocks in an inter frame: {_LATER_MC}")
         bw4, bh4 = cl["bw4"], cl["bh4"]
         bx, by = blk[:, pv.B_BX], blk[:, pv.B_BY]
         has_chroma = np.zeros(nb, bool) if n_planes == 1 else (
@@ -197,6 +243,71 @@ def _sub8x8_refined_vec(blk, bw4, bh4, ssh, ssv, has_chroma, rf):
     return out
 
 
+def _plan_obmc(plan, pl, ssh, ssv, coder, fhdr, refs, rf, f2d_map, b,
+               scaled_of):
+    """OBMC lap planning (dav1d recon_tmpl.c obmc:1071)."""
+    b_dim = T_BLOCK_DIM[b.bs]
+    bw4, bh4 = int(b_dim[0]), int(b_dim[1])
+    bx, by = b.bx, b.by
+    w4 = min(bw4, coder.bw - bx)
+    h4 = min(bh4, coder.bh - by)
+    h_mul, v_mul = 4 >> ssh, 4 >> ssv
+    dst_y = (by * 4) >> ssv
+    dst_x = (bx * 4) >> ssh
+
+    def emit(phase, ow4, mc_h4, cy, cx, src_bx, src_by, d):
+        """one lap: MC of (ow4, mc_h4) at (src_bx, src_by) with the
+        neighbour's mv/ref, blended at d."""
+        rref = int(rf.ref[cy, cx, 0]) - 1
+        rmv = (int(rf.mv[cy, cx, 0, 0]), int(rf.mv[cy, cx, 0, 1]))
+        f2d = int(f2d_map[cy, cx])
+        lw = ow4 * h_mul
+        lh = mc_h4 * v_mul
+        # top laps blend d[2] = v_mul * oh4 rows (the mask covers 3/4 of
+        # them); left laps use the full lap width
+        region = d[2] if phase == 0 else lw
+        key = (phase, lh, lw, region)
+        lst = plan.laps[pl].setdefault(key, [])
+        if scaled_of(rref):
+            raise NotImplementedError(f"OBMC lap from a scaled reference: "
+                                      f"{_LATER_MC}")
+        tmp = {}
+        _units_for_block_raw(tmp, pl, ssh, ssv, (ow4, mc_h4), src_bx,
+                             src_by, rmv, rref, f2d, dst=(d[0], d[1]),
+                             whole=True)
+        (k2, l2), = tmp.items()
+        lst.append(("t", l2[0][:6] + k2[2:4], (d[0], d[1])))
+
+    if by > coder.row_start and (pl == 0 or
+                                 bw4 * h_mul + bh4 * v_mul >= 16):
+        i = 0
+        x = 0
+        while x < w4 and i < min(int(b_dim[2]), 4):
+            cy, cx = by - 1, bx + x + 1
+            step4 = max(2, min(16, int(T_BLOCK_DIM[rf.bs[cy, cx]][0])))
+            if rf.ref[cy, cx, 0] > 0:
+                ow4 = min(step4, bw4)
+                oh4 = min(bh4, 16) >> 1
+                mc_h4 = (oh4 * 3 + 3) >> 2
+                emit(0, ow4, mc_h4, cy, cx, bx + x, by,
+                     (dst_y, dst_x + x * h_mul, v_mul * oh4))
+                i += 1
+            x += step4
+    if bx > coder.col_start:
+        i = 0
+        y = 0
+        while y < h4 and i < min(int(b_dim[3]), 4):
+            cy, cx = by + y + 1, bx - 1
+            step4 = max(2, min(16, int(T_BLOCK_DIM[rf.bs[cy, cx]][1])))
+            if rf.ref[cy, cx, 0] > 0:
+                ow4 = min(bw4, 16) >> 1
+                oh4 = min(step4, bh4)
+                emit(1, ow4, oh4, cy, cx, bx, by + y,
+                     (dst_y + y * v_mul, dst_x, 0))
+                i += 1
+            y += step4
+
+
 class BuiltFrame:
     """Output of build_frame_program: the frame's packed device program
     plus everything execute_frame_program needs. Holds only entropy-
@@ -205,10 +316,13 @@ class BuiltFrame:
                  "full_device", "dd_per")
 
 
-def build_frame_program(seq, fhdr, coders, bufs, refs):
+def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
     """Plan + pack the whole per-frame device pixel stage. Reads only
     entropy products (blocks/coefs/refmvs) and reference METADATA
-    (dims/slots) — reference pixels are bound by execute_frame_program."""
+    (dims/slots) — reference pixels are bound by execute_frame_program.
+    jnt_weights: the frame's distance weights (host/obu.
+    compute_jnt_weights), needed when it has distance-weighted compound
+    blocks."""
     bd = seq.bitdepth
     cur_w, cur_h = fhdr.width[0], fhdr.height
     ss_hor, ss_ver = bufs.ss_hor, bufs.ss_ver
@@ -218,12 +332,16 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
                for c in coders):
         raise ValueError("frame planning needs the native tile walk's "
                          "dense records")
+    from ..ops.wedge import wedge_mask
 
     plan = _FramePlan(n_planes)
 
+    def scaled_of(i):
+        rb = refs[fhdr.refidx[i]]
+        return rb.width != cur_w or rb.height != cur_h
+
     def plan_put(pl, b_dims, bx, by, mv, f2d, ref_i, ssh, ssv, dst=None):
-        rb = refs[fhdr.refidx[ref_i]]
-        if rb.width != cur_w or rb.height != cur_h:
+        if scaled_of(ref_i):
             raise NotImplementedError(f"scaled reference: {_LATER_MC}")
         _units_for_block_raw(plan.put[pl], pl, ssh, ssv, b_dims, bx,
                              by, mv, ref_i, f2d, dst=dst)
@@ -235,8 +353,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
                         ss_ver, cur_w, cur_h)
         f2d_map = vec["f2d_map"]
 
-    # per-block loop over the special shapes: _vec_plan leaves only
-    # single-reference translational blocks with sub-8x8 chroma here
+    # per-block loop over the special shapes _vec_plan leaves: warp,
+    # scaled references, OBMC laps, sub-8x8 chroma and compound blocks
     for ci, coder in enumerate(coders):
         if intra_frame:
             break
@@ -245,61 +363,148 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
             bi = int(bi)
             b = coder.blocks[bi]
             cls = _block_device_class(fhdr, coder, b, refs, cur_w, cur_h)
-            if cls != "single":
-                raise NotImplementedError(f"{cls} block: {_LATER_MC}")
             b_dim = T_BLOCK_DIM[b.bs]
             bw4, bh4 = int(b_dim[0]), int(b_dim[1])
             bx, by = b.bx, b.by
-            if min(bw4, bh4) > 1 and (
-                    (b.motion_mode == 2 and b.warp is not None and
-                     b.warp.type > 1) or
-                    (b.inter_mode == 2 and
-                     _gmv_warp_params(fhdr, b.ref[0], False) is not None)):
-                raise NotImplementedError(f"warped block: {_LATER_MC}")
-            if b.motion_mode == 1:
-                raise NotImplementedError(f"OBMC block: {_LATER_MC}")
             has_chroma = (n_planes > 1 and
                           (bw4 > ss_hor or bx & 1) and
                           (bh4 > ss_ver or by & 1))
-            if not has_chroma:
-                continue
-            is_sub8x8 = bw4 == ss_hor or bh4 == ss_ver
-            if is_sub8x8:
-                if bw4 == 1:
-                    is_sub8x8 &= rf.ref[by, bx - 1, 0] > 0
-                if bh4 == ss_ver:
-                    is_sub8x8 &= rf.ref[by - 1, bx, 0] > 0
-                if bw4 == 1 and bh4 == ss_ver:
-                    is_sub8x8 &= rf.ref[by - 1, bx - 1, 0] > 0
-            if not is_sub8x8:
-                continue
-            # neighbour-MV chroma MC quadrants (dav1d
-            # recon_tmpl.c:1703-1747)
-            uvx = (bx >> ss_hor) * 4
-            uvy = (by >> ss_ver) * 4
-            h_off = v_off = 0
 
-            def sub_mc(cy, cx, dyo, dxo, f2d_val):
-                rref = int(rf.ref[cy, cx, 0]) - 1
-                rmv = (int(rf.mv[cy, cx, 0, 0]), int(rf.mv[cy, cx, 0, 1]))
-                for pl in (1, 2):
-                    plan_put(pl, (bw4, bh4), cx, cy, rmv, f2d_val, rref,
-                             ss_hor, ss_ver, dst=(uvy + dyo, uvx + dxo))
+            if cls == "single":
+                scaled = scaled_of(b.ref[0])
+                warp_wm = None
+                if min(bw4, bh4) > 1:
+                    if b.motion_mode == 2 and b.warp is not None and \
+                            b.warp.type > 1:
+                        warp_wm = b.warp
+                    elif b.inter_mode == 2:  # GLOBALMV
+                        warp_wm = _gmv_warp_params(fhdr, b.ref[0], scaled)
+                use_warp = warp_wm is not None
 
-            tl_val = int(vec["tl"][ci][bi])
-            if bw4 == 1 and bh4 == ss_ver:
-                sub_mc(by - 1, bx - 1, 0, 0, tl_val)
-                v_off, h_off = 2, 2
-            if bw4 == 1:
-                sub_mc(by, bx - 1, v_off, 0, int(f2d_map[by, bx - 1]))
-                h_off = 2
-            if bh4 == ss_ver:
-                sub_mc(by - 1, bx, 0, h_off, int(f2d_map[by - 1, bx]))
-                v_off = 2
-            for pl in (1, 2):
-                plan_put(pl, (bw4, bh4), bx, by, b.mv[0], b.filter2d,
-                         b.ref[0], ss_hor, ss_ver,
-                         dst=(uvy + v_off, uvx + h_off))
+                if use_warp:
+                    for row, sy, sx in _warp_rows(0, 0, warp_wm, bx, by,
+                                                  bw4, bh4, b.ref[0]):
+                        plan.warp_put[0].append(
+                            (row, by * 4 + sy, bx * 4 + sx))
+                else:
+                    if scaled:
+                        # plain translational luma is vector-planned
+                        plan_put(0, (bw4, bh4), bx, by, b.mv[0],
+                                 b.filter2d, b.ref[0], 0, 0)
+                    if b.motion_mode == 1:  # OBMC
+                        _plan_obmc(plan, 0, 0, 0, coder, fhdr, refs, rf,
+                                   f2d_map, b, scaled_of)
+
+                if has_chroma:
+                    cbw4 = (bw4 + ss_hor) >> ss_hor
+                    cbh4 = (bh4 + ss_ver) >> ss_ver
+                    is_sub8x8 = bw4 == ss_hor or bh4 == ss_ver
+                    if is_sub8x8:
+                        if bw4 == 1:
+                            is_sub8x8 &= rf.ref[by, bx - 1, 0] > 0
+                        if bh4 == ss_ver:
+                            is_sub8x8 &= rf.ref[by - 1, bx, 0] > 0
+                        if bw4 == 1 and bh4 == ss_ver:
+                            is_sub8x8 &= rf.ref[by - 1, bx - 1, 0] > 0
+                    if is_sub8x8:
+                        # neighbour-MV chroma MC quadrants (dav1d
+                        # recon_tmpl.c:1703-1747)
+                        uvx = (bx >> ss_hor) * 4
+                        uvy = (by >> ss_ver) * 4
+                        h_off = v_off = 0
+
+                        def sub_mc(cy, cx, dyo, dxo, f2d_val):
+                            rref = int(rf.ref[cy, cx, 0]) - 1
+                            rmv = (int(rf.mv[cy, cx, 0, 0]),
+                                   int(rf.mv[cy, cx, 0, 1]))
+                            for pl in (1, 2):
+                                plan_put(pl, (bw4, bh4), cx, cy, rmv,
+                                         f2d_val, rref, ss_hor, ss_ver,
+                                         dst=(uvy + dyo, uvx + dxo))
+
+                        tl_val = int(vec["tl"][ci][bi])
+                        if bw4 == 1 and bh4 == ss_ver:
+                            sub_mc(by - 1, bx - 1, 0, 0, tl_val)
+                            v_off, h_off = 2, 2
+                        if bw4 == 1:
+                            sub_mc(by, bx - 1, v_off, 0,
+                                   int(f2d_map[by, bx - 1]))
+                            h_off = 2
+                        if bh4 == ss_ver:
+                            sub_mc(by - 1, bx, 0, h_off,
+                                   int(f2d_map[by - 1, bx]))
+                            v_off = 2
+                        for pl in (1, 2):
+                            plan_put(pl, (bw4, bh4), bx, by, b.mv[0],
+                                     b.filter2d, b.ref[0], ss_hor,
+                                     ss_ver, dst=(uvy + v_off,
+                                                  uvx + h_off))
+                    elif use_warp and min(cbw4, cbh4) > 1:
+                        for pl in (1, 2):
+                            for row, sy, sx in _warp_rows(
+                                    ss_hor, ss_ver, warp_wm, bx, by, bw4,
+                                    bh4, b.ref[0]):
+                                plan.warp_put[pl].append(
+                                    (row, ((by * 4) >> ss_ver) + sy,
+                                     ((bx * 4) >> ss_hor) + sx))
+                    else:
+                        for pl in (1, 2):
+                            if use_warp or scaled:
+                                # plain translational chroma is
+                                # vector-planned
+                                plan_put(pl, (bw4 << (bw4 == ss_hor),
+                                              bh4 << (bh4 == ss_ver)),
+                                         bx & ~ss_hor, by & ~ss_ver,
+                                         b.mv[0], b.filter2d, b.ref[0],
+                                         ss_hor, ss_ver)
+                            if not use_warp and b.motion_mode == 1:
+                                _plan_obmc(plan, pl, ss_hor, ss_ver,
+                                           coder, fhdr, refs, rf,
+                                           f2d_map, b, scaled_of)
+            else:
+                # compound (dav1d recon_tmpl.c:1822-1907)
+                def side(i, pl, ssh, ssv):
+                    wm = _gmv_warp_params(fhdr, b.ref[i],
+                                          scaled_of(b.ref[i])) \
+                        if b.inter_mode == 6 else None   # GLOBALMV x2
+                    cbw4c = (bw4 + ssh) >> ssh
+                    cbh4c = (bh4 + ssv) >> ssv
+                    if wm is not None and (pl == 0 or
+                                           min(cbw4c, cbh4c) > 1):
+                        return ("w", _warp_rows(ssh, ssv, wm, bx, by,
+                                                bw4, bh4, b.ref[i]))
+                    if scaled_of(b.ref[i]):
+                        raise NotImplementedError(
+                            f"compound block with a scaled reference: "
+                            f"{_LATER_MC}")
+                    return ("t", (b.ref[i], b.mv[i], b.filter2d))
+
+                jw = 8
+                if b.comp_type == COMP_INTER_WEIGHTED_AVG:
+                    jw = jnt_weights[b.ref[0]][b.ref[1]]
+                join = {COMP_INTER_AVG: ("avg", 8),
+                        COMP_INTER_WEIGHTED_AVG: ("wavg", jw),
+                        COMP_INTER_SEG: ("seg", 0),
+                        COMP_INTER_WEDGE: ("wedge", b.wedge_idx)}[
+                            b.comp_type]
+                entry = dict(sides=[side(0, 0, 0, 0), side(1, 0, 0, 0)],
+                             join=join, sign=b.mask_sign,
+                             dst=(by * 4, bx * 4), bs=b.bs,
+                             dims=(bw4, bh4), pos=(bx, by))
+                plan.comp[0].setdefault((bw4 * 4, bh4 * 4),
+                                        []).append(entry)
+                if has_chroma:
+                    for pl in (1, 2):
+                        centry = dict(
+                            sides=[side(0, pl, ss_hor, ss_ver),
+                                   side(1, pl, ss_hor, ss_ver)],
+                            join=join, sign=b.mask_sign,
+                            dst=((by * 4) >> ss_ver, (bx * 4) >> ss_hor),
+                            bs=b.bs, dims=(bw4, bh4), pos=(bx, by),
+                            luma=entry)
+                        plan.comp[pl].setdefault(
+                            ((bw4 * 4) >> ss_hor, (bh4 * 4) >> ss_ver),
+                            []).append(centry)
 
     # --- reference sources ---
     # A source is the device copy a previous frame's filter chain left
@@ -349,15 +554,161 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
             arr = np.asarray(merged_put[key], np.int32).reshape(-1, 8)
             pack_put_case(prog, pl, key, _pad_rows(arr, 6))
 
+    # warp put batches
+    for pl in range(0 if intra_frame else n_planes):
+        wl = plan.warp_put[pl]
+        if not wl:
+            continue
+        P = _p2(len(wl))
+        rows = _pad_rows(np.asarray([r for r, _, _ in wl], np.int32),
+                         None, P)
+        ys = _pad_vec(np.asarray([y for _, y, _ in wl], np.int32), True, P)
+        xs = _pad_vec(np.asarray([x for _, _, x in wl], np.int32), False, P)
+        prog.op("warp", pl, prog.emit(rows), prog.emit(ys), prog.emit(xs))
+
+    # compound batches (luma first: seg chroma masks derive from the
+    # luma preps)
+    def _pack_side(pl, bwp, bhp, group, i, ssh, ssv):
+        tcases, wunits = {}, []
+        for slot, e in enumerate(group):
+            kind, payload = e["sides"][i]
+            if kind == "t":
+                ref_i, mv, f2d = payload
+                tmp2 = {}
+                _units_for_block_raw(tmp2, pl, ssh, ssv, e["dims"],
+                                     e["pos"][0], e["pos"][1], mv,
+                                     ref_i, f2d, whole=True)
+                (k2, l2), = tmp2.items()
+                tcases.setdefault(k2[2:4], []).append((slot, l2[0]))
+            else:   # "w"
+                for row, sy, sx in payload:
+                    wunits.append((slot, row, sy, sx))
+        subops = []
+        for (hh, hv), lst in sorted(tcases.items()):
+            P = _p2(len(lst))
+            arr = _pad_rows(np.asarray([u[:6] for _, u in lst], np.int32),
+                            None, P)
+            slots = _pad_vec(np.asarray([s for s, _ in lst], np.int32),
+                             False, P)
+            subops.append(("t", bool(hh), bool(hv), prog.emit(arr),
+                           prog.emit(slots)))
+        if wunits:
+            P = _p2(len(wunits))
+            rows = _pad_rows(np.asarray([r for _, r, _, _ in wunits],
+                                        np.int32), None, P)
+            base = _pad_vec(np.asarray(
+                [s * bhp * bwp + sy * bwp + sx
+                 for s, _, sy, sx in wunits], np.int32), False, P)
+            subops.append(("w", prog.emit(rows), prog.emit(base)))
+        return tuple(subops)
+
+    for pl in range(0 if intra_frame else n_planes):
+        ssh = ss_hor if pl else 0
+        ssv = ss_ver if pl else 0
+        for key in sorted(plan.comp[pl]):
+            group = plan.comp[pl][key]
+            bwp, bhp = key
+            # shape-stabilize: pad the group with copies of the last
+            # entry whose destination is OOB (the scatter drops them);
+            # always reserve >= 1 pad, so slot N-1 is sacrificial
+            npad = _p2(len(group) + 1) - len(group)
+            last = group[-1]
+            group = group + [dict(last, dst=(PAD_OOB, 0))
+                             for _ in range(npad)]
+            N = len(group)
+            sides = tuple(_pack_side(pl, bwp, bhp, group, i, ssh, ssv)
+                          for i in (0, 1))
+
+            joins = []
+            idx_by_kind = {}
+            for slot, e in enumerate(group):
+                idx_by_kind.setdefault(e["join"][0], []).append(slot)
+            for kind, slots in sorted(idx_by_kind.items()):
+                P = _p2(len(slots))
+                slots = slots + [slots[-1]] * (P - len(slots))
+                h_sl = prog.emit(np.asarray(slots, np.int32))
+                h_sgn = prog.emit(np.asarray(
+                    [group[s]["sign"] for s in slots], np.int32))
+                if kind in ("avg", "wavg"):
+                    h_w = prog.emit(np.asarray(
+                        [group[s]["join"][1] for s in slots], np.int32))
+                    joins.append(("wavg", h_sl, h_w))
+                elif kind == "seg":
+                    if pl == 0:
+                        cmid = prog.new_cm()
+                        joins.append(("segl", h_sl, h_sgn, cmid))
+                        # chroma gathers its rows from the registered
+                        # luma mask batch
+                        for j, s in enumerate(slots):
+                            group[s]["cmask"] = (cmid, j)
+                    else:
+                        crefs = [group[s]["luma"]["cmask"]
+                                 for s in slots]
+                        if all(r[0] == crefs[0][0] for r in crefs):
+                            spec = ("one", crefs[0][0], prog.emit(
+                                np.asarray([r[1] for r in crefs],
+                                           np.int32)))
+                        else:   # slots span several luma batches
+                            spec = ("mix", tuple(crefs))
+                        joins.append(("segc", h_sl, h_sgn, spec))
+                else:  # wedge
+                    chr_idx = 0 if pl == 0 else ss_hor + ss_ver
+                    masks = np.stack([
+                        wedge_mask(chr_idx, group[s]["bs"],
+                                   group[s]["sign"] if pl else 0,
+                                   group[s]["join"][1])[:bhp, :bwp]
+                        for s in slots]).astype(np.int32)
+                    joins.append(("wedge", h_sl, h_sgn, prog.emit(masks)))
+
+            h_dy = prog.emit(np.asarray([e["dst"][0] for e in group],
+                                        np.int32))
+            h_dx = prog.emit(np.asarray([e["dst"][1] for e in group],
+                                        np.int32))
+            prog.op("comp", pl, bwp, bhp, N, sides, tuple(joins),
+                    ss_hor, ss_ver, h_dy, h_dx)
+
+    # OBMC lap batches (after ALL puts; top phase, then left)
+    for phase in (0, 1):
+        for pl in range(0 if intra_frame else n_planes):
+            for (ph_, lh, lw, region), lst in sorted(plan.laps[pl].items()):
+                if ph_ != phase:
+                    continue
+                lk, lr, _ = lst[-1]
+                # extra=1 reserves a sacrificial pad: slot nL-1 is never
+                # a real lap
+                nL = _p2(len(lst) + 1)
+                lst = lst + [(lk, lr, (PAD_OOB, 0))] * (nL - len(lst))
+                tcases = {}
+                for slot, (_, row, _) in enumerate(lst):
+                    tcases.setdefault(tuple(row[6:8]), []).append(
+                        (slot, row[:6]))
+                subops = []
+                for (hh, hv), l2 in sorted(tcases.items()):
+                    P = _p2(len(l2))
+                    arr = _pad_rows(np.asarray([u for _, u in l2],
+                                               np.int32), None, P)
+                    slots = _pad_vec(np.asarray([s for s, _ in l2],
+                                                np.int32), False, P)
+                    subops.append(("t", bool(hh), bool(hv),
+                                   prog.emit(arr), prog.emit(slots)))
+                h_ys = prog.emit(np.asarray([d[0] for _, _, d in lst],
+                                            np.int32))
+                h_xs = prog.emit(np.asarray([d[1] for _, _, d in lst],
+                                            np.int32))
+                prog.op("obmc", pl, lh, lw,
+                        region if phase == 0 else lw, phase == 1, nL,
+                        tuple(subops), h_ys, h_xs)
+
     # --- residual inverse transforms, ALL blocks ---
     # Device-covered inter blocks scatter-add straight onto the plane
     # (their prediction is already there). Every other block (intra,
-    # intrabc) gets its residual computed on device too and handed to
-    # the host walk via a (plane, y, x) map: prediction needs
+    # intrabc, inter-intra) gets its residual computed on device too and
+    # handed to the host walk via a (plane, y, x) map: prediction needs
     # reconstructed neighbours (sequential), but the inverse transforms
     # depend only on coefficients. Buckets are keyed by (plane, tx SIZE);
     # the transform TYPE is per-block data (ops/itx.itx_residual_multi).
-    from ..ops.itx_meta import TX_INFO as _TXI
+    # Lossless WHT keeps buckets of its own (residc / hresc).
+    from ..ops.itx_meta import TX_INFO as _TXI, WHT_WHT
     from .plan_vec import ResidBucket, plan_residuals_vec
     if intra_frame:
         dd_per = [np.zeros(c.native_arrays[0].shape[0], np.uint8)
@@ -368,10 +719,6 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
     if rv is None:
         raise ValueError("coefficient records are not in decode order")
     rplans, hplans, _ = rv
-    for (_, _, is_wht) in list(rplans) + list(hplans):
-        if is_wht:
-            raise NotImplementedError(
-                "lossless WHT residuals: ROADMAP queue 1, item 1a")
 
     # Sparse/dense split threshold: blocks with <= KS nonzeros ride the
     # K=KS lanes; the rare dense tail gets its own sub-bucket.
@@ -400,7 +747,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
             return [("s", np.arange(cf_real.shape[0]))]
         return [("s", np.nonzero(sp)[0]), ("d", np.nonzero(~sp)[0])]
 
-    for (pl, tx, _), lst in sorted(rplans.items()):
+    for (pl, tx, is_wht), lst in sorted(rplans.items()):
         w_t, h_t, _ = _TXI[tx]
         sh, sw = min(h_t, 32), min(w_t, 32)
         for _, idx in _split_sparse(lst.cf):
@@ -415,13 +762,17 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
             xss[:Bs] = lst.xs[idx]
             sels[:Bs] = lst.sel[idx]
             h_vals, h_pos = _emit_compact_cf(cfs)
-            prog.op("residmc", pl, sh, sw, tx, h_vals, h_pos,
-                    prog.emit(sels[:, 0]), prog.emit(sels[:, 1]),
-                    prog.emit(yss), prog.emit(xss))
+            if is_wht:
+                prog.op("residc", pl, sh, sw, tx, WHT_WHT, h_vals, h_pos,
+                        prog.emit(yss), prog.emit(xss))
+            else:
+                prog.op("residmc", pl, sh, sw, tx, h_vals, h_pos,
+                        prog.emit(sels[:, 0]), prog.emit(sels[:, 1]),
+                        prog.emit(yss), prog.emit(xss))
     # host-map buckets: residuals computed in the same program, fetched
     # after execution for the decode-order host pass
     hres_meta = []
-    for (pl, tx, _), lst in sorted(hplans.items()):
+    for (pl, tx, is_wht), lst in sorted(hplans.items()):
         w_t, h_t, _ = _TXI[tx]
         sh, sw = min(h_t, 32), min(w_t, 32)
         for _, idx in _split_sparse(lst.cf):
@@ -432,8 +783,11 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
             cfs[:Bs] = lst.cf[idx]
             sel[:Bs] = lst.sel[idx]
             h_vals, h_pos = _emit_compact_cf(cfs)
-            prog.op("hresmc", tx, sh, sw, h_vals, h_pos,
-                    prog.emit(sel[:, 0]), prog.emit(sel[:, 1]))
+            if is_wht:
+                prog.op("hresc", tx, WHT_WHT, sh, sw, h_vals, h_pos)
+            else:
+                prog.op("hresmc", tx, sh, sw, h_vals, h_pos,
+                        prog.emit(sel[:, 0]), prog.emit(sel[:, 1]))
             hres_meta.append((pl, ResidBucket(
                 lst.cf[idx], lst.ys[idx], lst.xs[idx], lst.sel[idx],
                 lst.ci[idx], lst.cj[idx])))
@@ -457,8 +811,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs):
 def execute_frame_program(built, seq, fhdr, coders, bufs, device):
     """Bind reference planes (built.ref_desc), run the packed frame
     program on `device`, and finish the frame on the host (download +
-    decode-order native pass 2). Mutates bufs.planes and sets
-    bufs.dev_planes."""
+    decode-order native pass 2: intra blocks, and the intra blend of
+    inter-intra blocks). Mutates bufs.planes and sets bufs.dev_planes."""
     from ..host import native_recon
     from ..utils import stages
     from .frame_exec import plane_to_torch, run_frame_program
@@ -490,8 +844,7 @@ def execute_frame_program(built, seq, fhdr, coders, bufs, device):
                 if rc != 0:
                     raise NotImplementedError(
                         f"native pass 2 refused tile {ci} (rc {rc}): "
-                        "intrabc / inter-intra blocks, ROADMAP queue 1, "
-                        "item 1a")
+                        "intrabc blocks, ROADMAP queue 1, item 1c")
             if not intra_frame:
                 # the host pass touched the planes: upload them again
                 dev_planes = [plane_to_torch(p, device)

@@ -1,9 +1,9 @@
 """Batched motion compensation as PyTorch ops on int32 tensors.
 
-Port of ``dav1d_mirror_tpu/ops/mc_tpu.py`` (the translational part). The
-host planner decomposes every translational MC block into fixed-size
-units (8x8, with 4-wide/4-tall remainder buckets) that share one subpel
-phase each; these functions run one bucket:
+Port of ``dav1d_mirror_tpu/ops/mc_tpu.py`` (all but scaled MC and
+super-res). The host planner decomposes every translational MC block into
+fixed-size units (8x8, with 4-wide/4-tall remainder buckets) that share
+one subpel phase each; these functions run one bucket:
 
 - ``mc_unit_batch``: single-stage put/prep over clamped (uh+7, uw+7)
   windows (edge emulation == clamped gather, dav1d mc:986-999);
@@ -13,7 +13,15 @@ phase each; these functions run one bucket:
 - ``gather_units`` / ``scatter_units``: read / write unit batches of a
   plane.
 
-Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224.
+The rest of the inter toolset runs on whole-block batches: the compound
+joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``
+and the ``comp_join_*`` slot forms over ``set_slots`` /
+``scatter_slot_units``), the affine warp (``warp8x8_batch``) and the OBMC
+blend (``obmc_blend_batch``).
+
+Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224, avg:589,
+w_avg:604, mask:620, w_mask:683, warp_affine_8x8:758 / 8x8t:793,
+blend_v:655 / blend_h:668.
 """
 from __future__ import annotations
 
@@ -242,3 +250,203 @@ def scatter_units(plane, units, ys, xs, uh, uw):
     yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
     plane[yy[ok].long(), xx[ok].long()] = units[ok].to(plane.dtype)
     return plane
+
+
+# ---------------------------------------------------------------------
+# compound joins (dav1d mc_tmpl.c avg:589, w_avg:604, mask:620,
+# w_mask:683) on (B, h, w) int32 prep-domain pairs
+# ---------------------------------------------------------------------
+def avg_batch(tmp1, tmp2, bitdepth):
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    rnd = (1 << ib) + bias * 2
+    return ((tmp1 + tmp2 + rnd) >> (ib + 1)).clamp(0, (1 << bitdepth) - 1)
+
+
+def w_avg_batch(tmp1, tmp2, weight, bitdepth):
+    """weight: (B, 1, 1) int32."""
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    rnd = (8 << ib) + bias * 16
+    return ((tmp1 * weight + tmp2 * (16 - weight) + rnd) >> (ib + 4)).clamp(
+        0, (1 << bitdepth) - 1)
+
+
+def mask_batch(tmp1, tmp2, m, bitdepth):
+    """m: (B, h, w) int32 in [0, 64]."""
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    rnd = (32 << ib) + bias * 64
+    return ((tmp1 * m + tmp2 * (64 - m) + rnd) >> (ib + 6)).clamp(
+        0, (1 << bitdepth) - 1)
+
+
+def w_mask_batch(tmp1, tmp2, sign, ss_hor: int, ss_ver: int, bitdepth: int):
+    """tmp1/tmp2: (B, h, w) prep-domain (tmp1 = mask_sign side); sign:
+    (B,). Returns (pixels (B, h, w), chroma mask (B, h>>ssv, w>>ssh))."""
+    ib = ibits(bitdepth)
+    sh = ib + 6
+    bias = 0 if bitdepth == 8 else 8192
+    rnd = (32 << ib) + bias * 64
+    mask_sh = bitdepth + ib - 4
+    mask_rnd = 1 << (mask_sh - 5)
+    t1 = tmp1.to(torch.int32)
+    t2 = tmp2.to(torch.int32)
+    m = (38 + (((t1 - t2).abs() + mask_rnd) >> mask_sh)).clamp(max=64)
+    dst = ((t1 * m + t2 * (64 - m) + rnd) >> sh).clamp(
+        0, (1 << bitdepth) - 1)
+    if ss_hor:
+        mpair = m[:, :, 0::2] + m[:, :, 1::2]
+        sgn = sign[:, None, None]
+        if ss_ver:
+            mm = (mpair[:, 0::2] + mpair[:, 1::2] + 2 - sgn) >> 2
+        else:
+            mm = (mpair + 1 - sgn) >> 1
+    else:
+        mm = m
+    return dst, mm.to(torch.int32)
+
+
+# ---------------------------------------------------------------------
+# slot buffers of the compound / OBMC side batches. Every write below is
+# in place on a buffer the caller made for this op. Duplicate indices
+# (pad rows) always carry identical values, or aim at the group's
+# sacrificial pad slot, whose destination is PAD_OOB: so the order in
+# which a CUDA index_put_ applies duplicates cannot change the result.
+# ---------------------------------------------------------------------
+def set_slots(buf, slots, vals):
+    """buf[slots] = vals."""
+    buf[slots.long()] = vals.to(buf.dtype)
+    return buf
+
+
+def scatter_slot_units(buf, base, vals, uh: int, uw: int, row_w: int):
+    """Write (B, uh, uw) vals at flat offsets `base` into the flattened
+    (N, bhp, bwp) slot buffer (sub-rect writes within compound slots)."""
+    dev = base.device
+    fi = (base[:, None, None].long() +
+          torch.arange(uh, device=dev)[None, :, None] * row_w +
+          torch.arange(uw, device=dev)[None, None, :])
+    buf.view(-1)[fi.reshape(-1)] = vals.reshape(-1).to(buf.dtype)
+    return buf
+
+
+def comp_join_wavg(out, tmp0, tmp1, sl, w, bitdepth: int):
+    """(weighted-)average join for slots sl; w: (B, 1, 1) distance weights
+    (8 = plain avg: the same rounding, dav1d mc_tmpl.c avg:585)."""
+    idx = sl.long()
+    return set_slots(out, sl, w_avg_batch(tmp0[idx], tmp1[idx], w,
+                                          bitdepth))
+
+
+def _signed_pair(tmp0, tmp1, sl, sgn):
+    """The slots' operand pair, mask side first (sgn == 0: side 0)."""
+    t0, t1 = tmp0[sl.long()], tmp1[sl.long()]
+    s = (sgn == 0)[:, None, None]
+    return torch.where(s, t0, t1), torch.where(s, t1, t0)
+
+
+def comp_join_wmask(out, tmp0, tmp1, sl, sgn, ss_hor: int, ss_ver: int,
+                    bitdepth: int):
+    """Seg-mask join, luma: the sign-ordered operands, the w_mask, and the
+    chroma-subsampled masks. Returns (out, masks)."""
+    a, b = _signed_pair(tmp0, tmp1, sl, sgn)
+    res, cm = w_mask_batch(a, b, sgn, ss_hor, ss_ver, bitdepth)
+    return set_slots(out, sl, res), cm
+
+
+def comp_join_mask(out, tmp0, tmp1, sl, sgn, masks, bitdepth: int):
+    """Wedge / seg-chroma masked join for slots sl."""
+    a, b = _signed_pair(tmp0, tmp1, sl, sgn)
+    return set_slots(out, sl, mask_batch(a, b, masks, bitdepth))
+
+
+# ---------------------------------------------------------------------
+# affine warp: batched 8x8 sub-blocks (dav1d mc_tmpl.c
+# warp_affine_8x8:758 / warp_affine_8x8t:793). Each unit gathers a
+# clamped (15, 15) source window; the per-pixel filter rows come from the
+# warp filter table at the affine phase (tmx / tmy).
+# ---------------------------------------------------------------------
+WARP_FILTER = np.asarray(TABLES["mc_warp_filter"], np.int32)  # (193, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_table(device) -> torch.Tensor:
+    return torch.as_tensor(WARP_FILTER, device=device).contiguous()
+
+
+def _warp_filters(wf, phase):
+    """Filter rows of the warp phases: table row 64 + ((phase+512) >> 10),
+    clamped into the table as the reference's gather clamps it."""
+    idx = (64 + ((phase + 512) >> 10)).clamp(0, wf.shape[0] - 1)
+    return wf[idx.long()]
+
+
+def warp8x8_batch(ref_stack, args, bitdepth: int, prep: bool):
+    """args: (B, 10) int32 rows [ref, oy, ox, mx, my, alpha, beta, gamma,
+    delta, pad] where (oy, ox) is the window origin (dy-3, dx-3) and
+    mx/my the per-unit phase bases. Returns (B, 8, 8) int32: pixels or
+    prep tmp."""
+    dev = ref_stack.device
+    ref_idx = args[:, 0].long()
+    oy, ox = args[:, 1], args[:, 2]
+    mx, my = args[:, 3], args[:, 4]
+    al, be, ga, de = (args[:, k, None, None] for k in (5, 6, 7, 8))
+    H, W = ref_stack.shape[1], ref_stack.shape[2]
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    wf = _warp_table(dev)
+
+    ar15 = torch.arange(15, device=dev, dtype=torch.int32)
+    ys = (oy[:, None] + ar15[None, :]).clamp(0, H - 1).long()
+    xs = (ox[:, None] + ar15[None, :]).clamp(0, W - 1).long()
+    win = ref_stack[ref_idx[:, None, None], ys[:, :, None],
+                    xs[:, None, :]].to(torch.int32)
+
+    xv = torch.arange(8, device=dev, dtype=torch.int32)[None, None, :]
+    # horizontal: tmx(y, x) = mx + x*alpha + y*beta, 15 rows
+    tmx = mx[:, None, None] + xv * al + ar15[None, :, None] * be
+    fh = _warp_filters(wf, tmx)                     # (B, 15, 8, 8)
+    hsum = fh[..., 0] * win[:, :, 0:8]
+    for k in range(1, 8):
+        hsum = hsum + fh[..., k] * win[:, :, k:k + 8]
+    mid = (hsum + ((1 << (7 - ib)) >> 1)) >> (7 - ib)   # (B, 15, 8)
+
+    yv8 = torch.arange(8, device=dev, dtype=torch.int32)[None, :, None]
+    tmy = my[:, None, None] + xv * ga + yv8 * de
+    fv = _warp_filters(wf, tmy)                     # (B, 8, 8, 8)
+    vsum = fv[..., 0] * mid[:, 0:8]
+    for k in range(1, 8):
+        vsum = vsum + fv[..., k] * mid[:, k:k + 8]
+    if prep:
+        return ((vsum + 64) >> 7) - bias
+    return ((vsum + ((1 << (7 + ib)) >> 1)) >> (7 + ib)).clamp(
+        0, (1 << bitdepth) - 1)
+
+
+# ---------------------------------------------------------------------
+# OBMC blends (dav1d mc_tmpl.c blend_v:655 / blend_h:668)
+# ---------------------------------------------------------------------
+OBMC_MASKS = np.asarray(TABLES["obmc_masks"], np.int32)  # (64,)
+
+
+def obmc_blend_batch(plane, laps, ys, xs, lap_h: int, lap_w: int,
+                     region: int, vert: bool):
+    """Blend (B, lap_h, lap_w) lap predictions into the plane at (ys, xs).
+    vert=True: left-neighbour laps, mask over the first 3*region/4
+    columns (region == lap_w); else top-neighbour laps, mask over the
+    first 3*region/4 rows (region == the blend area height). The whole
+    batch is read before any of it is written; the laps of one batch are
+    disjoint. Updates the plane IN PLACE and returns it."""
+    if vert:
+        ww = (region * 3) >> 2
+        m = np.zeros((1, 1, lap_w), np.int32)
+        m[0, 0, :ww] = OBMC_MASKS[region:region + ww]
+    else:
+        hh = (region * 3) >> 2
+        m = np.zeros((1, lap_h, 1), np.int32)
+        m[0, :hh, 0] = OBMC_MASKS[region:region + hh]
+    m = torch.from_numpy(m).to(plane.device)
+    reg = gather_units(plane, ys, xs, lap_h, lap_w).to(torch.int32)
+    out = (reg * (64 - m) + laps * m + 32) >> 6
+    return scatter_units(plane, out, ys, xs, lap_h, lap_w)

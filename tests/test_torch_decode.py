@@ -10,7 +10,8 @@
   with grain, the JAX package's.
 
 The full-size config 3 stream's hashes (decoded by the JAX package's host
-reference path) are asserted on the GPU by ``chip_smoke.py``."""
+reference path) and config 4's hash are asserted on the GPU by
+``chip_smoke.py``."""
 import sys
 from pathlib import Path
 
@@ -32,6 +33,10 @@ CONFIG3 = bench.E2E_CONFIGS["e2e_1080p_10bit_grain_lr"]
 # bench_cache/e2e_1080p_10bit_grain_lr_6d42abf87190.ivf, 5 frames
 CONFIG3_MD5 = {True: "76e6cf803e84aaf3a9089fe53894d4d4",
                False: "6e6909b95f07928266f8c2157ff65a58"}
+# bench_cache/e2e_4k_10bit_multitile_479aaf4a51e3.ivf (4K 10-bit, 2x2
+# tiles), 3 frames: ROADMAP queue 1, item 0's hash, which the port's CPU
+# decode gives too
+CONFIG4_MD5 = "c00e0479951b96933a8284c9b4ab0366"
 MINI = {
     "config2": dict(CONFIG2, w=128, h=64, n_inter=3),
     # the same stream shape at 10 bit: uint16 planes through the port
@@ -119,3 +124,11 @@ def test_chip_smoke_asserts_the_recorded_config3_hashes():
     assert Path(chip_smoke.STREAM3).name == \
         "e2e_1080p_10bit_grain_lr_6d42abf87190.ivf"
     assert Path(chip_smoke.STREAM3).is_file()
+
+
+def test_chip_smoke_asserts_the_recorded_config4_hash():
+    import chip_smoke
+    assert chip_smoke.CONFIG4_MD5 == CONFIG4_MD5
+    assert Path(chip_smoke.STREAM4).name == \
+        "e2e_4k_10bit_multitile_479aaf4a51e3.ivf"
+    assert Path(chip_smoke.STREAM4).is_file()

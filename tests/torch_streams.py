@@ -1,0 +1,69 @@
+"""Streams of the PyTorch port's tests (tests/streams_torch/): their
+configurations and the function that makes them.
+
+Both streams take config 2's own parameters (bench.E2E_CONFIGS
+["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80, switchable tx, deblock and
+CDEF). ``build_tools_stream`` is test_e2e_inter.build_stream with global
+motion added: that function codes none, so each inter frame's header gets
+random global-motion parameters (streamgen.make_random_gmv, as
+test_e2e_features does) for the references of GMV_TYPES. Written, with
+their md5, by tools_dev/gen_torch_streams.py.
+"""
+from __future__ import annotations
+
+import contextlib
+from pathlib import Path
+
+import numpy as np
+
+import bench
+import test_e2e_inter
+from dav1d_mirror_tpu.host import headers as h
+from dav1d_mirror_tpu.testing.streamgen import make_random_gmv
+
+DIR = Path(__file__).parent / "streams_torch"
+CONFIG2 = bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]
+# compound references with distance weights, wedge and seg masks; local
+# warp, OBMC and inter-intra; a keyframe and 4 inter frames
+TOOLS = dict(CONFIG2, n_inter=4, order_hint=1, comp=True, jnt=1, masked=1,
+             warp=True, swmotion=True, interintra=1)
+TOOLS_SEED = 9
+LOSSLESS = dict(CONFIG2, w=128, h=64, n_inter=3, q=0)
+LOSSLESS_SEED = 9
+# global-motion type of each reference (LAST .. ALTREF)
+GMV_TYPES = (h.WM_TYPE_ROT_ZOOM, h.WM_TYPE_TRANSLATION, h.WM_TYPE_AFFINE,
+             h.WM_TYPE_ROT_ZOOM, h.WM_TYPE_AFFINE, 0, h.WM_TYPE_ROT_ZOOM)
+
+STREAMS = {
+    # name: (md5 from the JAX package's host reference path, frames)
+    "e2e_1080p_inter_tools.ivf": ("8e678ba92fc156763dac7dcfaae2e727", 5),
+    "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5", 4),
+}
+
+
+@contextlib.contextmanager
+def _global_motion(seed):
+    rng = np.random.default_rng(seed * 3 + 1)
+    orig = test_e2e_inter.make_inter_frame_hdr
+
+    def with_gmv(*args, **kw):
+        fi = orig(*args, **kw)
+        for ri, typ in enumerate(GMV_TYPES):
+            if typ:
+                fi.gmv[ri] = make_random_gmv(rng, typ, fi.hp)
+        return fi
+
+    test_e2e_inter.make_inter_frame_hdr = with_gmv
+    try:
+        yield
+    finally:
+        test_e2e_inter.make_inter_frame_hdr = orig
+
+
+def build_tools_stream(cfg, seed, gmv=True):
+    """test_e2e_inter.build_stream(cfg, seed), with global motion on every
+    inter frame when gmv. Returns (seq, ivf bytes, frames)."""
+    if not gmv:
+        return test_e2e_inter.build_stream(cfg, seed)
+    with _global_motion(seed):
+        return test_e2e_inter.build_stream(cfg, seed)
