@@ -20,19 +20,25 @@ Run from the root of a checkout. It
    warp, OBMC and inter-intra (tests/streams_torch/
    e2e_1080p_inter_tools.ivf), where comp, warp and obmc ops and
    inter-intra blocks must run; config 4, the 3-frame 4K 10-bit stream
-   with 2x2 tiles (bench_cache/e2e_4k_10bit_multitile_479aaf4a51e3.ivf).
-   Each path also runs a staged pass for its stage split (the tools
-   stream's hash a second time). Small streams are decoded on the card
-   as well: two corpus streams with self-guided and switchable
-   restoration and five with compound, warp and OBMC blocks
-   (tests/streams, against tests/streams/md5.txt), and a lossless one
-   (tests/streams_torch/lossless_128x64.ivf);
+   with 2x2 tiles (bench_cache/e2e_4k_10bit_multitile_479aaf4a51e3.ivf);
+   the super-res path, the 5-frame 1080p stream of config 2's parameters
+   whose frames switch super-res denominators (16, 16, 12, none, 9) with
+   compound, OBMC and inter-intra blocks (tests/streams_torch/
+   e2e_1080p_superres.ivf), where scaled and sres ops and scaled compound
+   sides and OBMC laps must run. Each path also runs a staged pass for
+   its stage split (the tools and super-res streams' hash a second
+   time). Config 3 is decoded once more without grain, each picture then
+   grained by ``Decoder.apply_grain``. Small streams are decoded on the
+   card as well: two corpus streams with self-guided and switchable
+   restoration, five with compound, warp and OBMC blocks and one with
+   super-res (tests/streams, against tests/streams/md5.txt), and a
+   lossless one (tests/streams_torch/lossless_128x64.ivf);
 3. runs each kernel's wrapper on the card at the shapes config 2 gave
    it, for bit depths 8/10/12, every unit size, put and prep, and at the
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
    combos, int16 wrap, one unit, extreme window origins), and on each
-   decode's own largest calls (config 3's at bit depth 10, and the tools
-   path's), and requires ``torch.equal`` with the kernel's plain PyTorch
+   decode's own largest calls (config 3's at bit depth 10, the tools
+   path's and the super-res path's), and requires ``torch.equal`` with the kernel's plain PyTorch
    version; then times kernel and plain version as device time with
    CUDA events: warm (many
    back-to-back launches queued while the card is busy, over their
@@ -68,6 +74,9 @@ STREAM3 = os.path.join(HERE, "bench_cache",
 # the JAX package's host reference path
 CONFIG3_MD5 = {True: "76e6cf803e84aaf3a9089fe53894d4d4",
                False: "6e6909b95f07928266f8c2157ff65a58"}
+# config 3 decoded without grain, each picture through the JAX package's
+# Decoder.apply_grain (its host reference path)
+CONFIG3_APPLY_GRAIN_MD5 = "76e6cf803e84aaf3a9089fe53894d4d4"
 # small corpus streams with self-guided and switchable restoration, which
 # the config 3 stream (Wiener only) does not carry; md5.txt is grain-free
 STREAMS = os.path.join(HERE, "tests", "streams")
@@ -77,9 +86,13 @@ LR_STREAMS = ("inter_10bit_lr.ivf", "intra_sb128_lr.ivf")
 # from the JAX package's host reference path
 TOOLS_DIR = os.path.join(HERE, "tests", "streams_torch")
 TOOLS_STREAM = "e2e_1080p_inter_tools.ivf"
+SUPERRES_STREAM = "e2e_1080p_superres.ivf"
 TOOLS_STREAMS = {TOOLS_STREAM: ("8e678ba92fc156763dac7dcfaae2e727", 5),
                  "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5",
-                                         4)}
+                                         4),
+                 SUPERRES_STREAM: ("c365d81ab907f53467bd0ae7762cb0ce", 5)}
+# corpus stream with super-res frames (tests/streams)
+SUPERRES_CORPUS = ("inter_superres.ivf",)
 # corpus streams with compound, warp and OBMC blocks (tests/streams)
 TOOLS_CORPUS = ("inter_compound_oh.ivf", "inter_warp_obmc.ivf",
                 "inter_masked.ivf", "inter_444_masked.ivf",
@@ -122,9 +135,11 @@ def build_all():
 class ShapeLog:
     """Wraps the two kernel wrappers during the decode to record the
     shapes the main path gives them (counts stay the wrappers' own), the
-    program executor to tally the op kinds of each frame, and the
+    program executor to tally the op kinds of each frame (and the "s"
+    sub-ops of comp and obmc ops, as "comp s" and "obmc s"), and the
     decoder's frame execution to count the inter-intra blocks (dd == 2:
-    device put, host blend) it finished."""
+    device put, host blend) it finished and to record each frame's coded
+    and output widths."""
 
     def __init__(self, mc_cuda, frame_exec, api):
         self.mc_cuda = mc_cuda
@@ -136,6 +151,7 @@ class ShapeLog:
         self.hplanes_args = None  # (refs, combos, bd) of the largest call
         self.frame_ops = []  # per frame: {op kind: count}
         self.ii_blocks = 0   # inter-intra blocks of the decode
+        self.widths = []     # per frame: (coded width, output width)
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
                       frame_exec.execute_program, api.execute_frame_program)
 
@@ -149,12 +165,23 @@ class ShapeLog:
             ops = self.frame_ops[-1]
             for rec in sig[0]:
                 ops[rec[0]] = ops.get(rec[0], 0) + 1
+                if rec[0] == "comp":     # the two sides' sub-ops
+                    subs = rec[5][0] + rec[5][1]
+                elif rec[0] == "obmc":
+                    subs = rec[7]
+                else:
+                    subs = ()
+                n_s = sum(sub[0] == "s" for sub in subs)
+                if n_s:
+                    k = f"{rec[0]} s"
+                    ops[k] = ops.get(k, 0) + n_s
             return ex(sig, *args)
 
-        def rec_ef(built, *args):
+        def rec_ef(built, seq, fhdr, *args):
+            self.widths.append(tuple(fhdr.width))
             self.ii_blocks += sum(int((dd == 2).sum())
                                   for dd in built.dd_per)
-            return ef(built, *args)
+            return ef(built, seq, fhdr, *args)
 
         def rec_hp(ref_stack, combos, bd):
             self.hplanes.append(tuple(ref_stack.shape) +
@@ -558,6 +585,9 @@ def report_path(name, frames, times, shapes, launches, digests, split,
     print(f"{name}: {len(frames)} frames, md5 {digests}, launches "
           f"{launches}")
     print(f"{name} frame ms: " + ", ".join(f"{t:.1f}" for t in ms))
+    if any(w0 != w1 for w0, w1 in shapes.widths):
+        print(f"{name} coded/output widths: " + ", ".join(
+            f"{w0}/{w1}" for w0, w1 in shapes.widths))
     for i, ops in enumerate(shapes.frame_ops):
         print(f"{name} frame {i} ops: " + ", ".join(
             f"{k} {v}" for k, v in sorted(ops.items())))
@@ -739,6 +769,58 @@ def main():
         print(f"{name}: md5 {d} as recorded, {n} frames, ops {kinds}, "
               f"{s_shapes.ii_blocks} inter-intra blocks")
 
+    # ---- Decoder.apply_grain: config 3 decoded without grain, each
+    # picture grained on its own ----
+    dec = api.Decoder(api.Settings(device="cuda", apply_grain=False))
+    mux = MD5Muxer()
+    for fr in frames3:
+        dec.send_data(fr.data)
+        while (pic := dec.get_picture()) is not None:
+            mux.write(dec.apply_grain(pic))
+    torch.cuda.synchronize()
+    assert (mux.digest(), mux.n) == (CONFIG3_APPLY_GRAIN_MD5, 5), (
+        f"config 3 through Decoder.apply_grain: md5 {mux.digest()}")
+    print(f"config 3 through Decoder.apply_grain: md5 {mux.digest()} as "
+          f"recorded, {mux.n} frames")
+
+    # ---- super-res path: scaled MC and super-res; twice ----
+    with open(os.path.join(TOOLS_DIR, SUPERRES_STREAM), "rb") as f:
+        _, _, _, frames_s = parse_ivf(f.read())
+    sr_md5, sr_n = TOOLS_STREAMS[SUPERRES_STREAM]
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes_s:
+        (d_s, n_s, times_s), launches_s = counted(lambda: decode(
+            api, MD5Muxer, frames_s, torch, shapes_s.on_frame))
+    assert n_s == len(frames_s) == sr_n, (n_s, len(frames_s))
+    assert d_s == sr_md5, f"super-res md5 {d_s} != {sr_md5}"
+    assert launches_s["mc_hplanes"] > 0 and launches_s["mc_vpass"] > 0, \
+        launches_s
+    sr_kinds = {k for ops in shapes_s.frame_ops for k in ops}
+    assert {"scaled", "sres", "comp s", "obmc s"} <= sr_kinds, sr_kinds
+    assert any(w0 == w1 for w0, w1 in shapes_s.widths) and \
+        len({w0 for w0, _ in shapes_s.widths}) == 4, shapes_s.widths
+    # the staged pass, with the split of each frame (every inter block of
+    # a super-res frame goes through the planner's per-block loop)
+    snaps = []
+    (d_ss, _, times_ss), split_s = staged(
+        stages, lambda: decode(api, MD5Muxer, frames_s, torch,
+                               lambda i: snaps.append(stages.seconds())))
+    assert d_ss == sr_md5, f"super-res md5 {d_ss} (staged pass)"
+    snaps.append(split_s)
+    split_s_frames = [{k: b[k] - a.get(k, 0) for k in b}
+                      for a, b in zip(snaps, snaps[1:])]
+    for name in SUPERRES_CORPUS:
+        with open(os.path.join(STREAMS, name), "rb") as f:
+            _, _, _, fr = parse_ivf(f.read())
+        with ShapeLog(mc_cuda, frame_exec, api) as c_shapes:
+            d, n, _ = decode(api, MD5Muxer, fr, torch, c_shapes.on_frame,
+                             apply_grain=False)
+        kinds = sorted({k for ops in c_shapes.frame_ops for k in ops
+                        if k in ("scaled", "sres", "comp s", "obmc s")})
+        assert d == corpus_md5[name], f"{name}: md5 {d}"
+        assert "sres" in kinds, kinds
+        print(f"{name}: md5 {d} as in md5.txt, {n} frames, ops {kinds}, "
+              f"coded/output widths {c_shapes.widths}")
+
     # ---- config 4: 4K 10-bit, 2x2 tiles ----
     with open(STREAM4, "rb") as f:
         _, _, _, frames4 = parse_ivf(f.read())
@@ -757,11 +839,13 @@ def main():
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
     own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
     own_calls_phase(torch, mc, mc_cuda, shapes_t, "tools", rows)
+    own_calls_phase(torch, mc, mc_cuda, shapes_s, "superres", rows)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
         r["launches_tools"] = launches_t[r["name"]]
         r["launches_config4"] = launches4[r["name"]]
+        r["launches_superres"] = launches_s[r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -772,13 +856,14 @@ def main():
               f"{r['launches']} launches in the config 2 decode, "
               f"{r['launches_config3']} in the config 3 decode, "
               f"{r['launches_tools']} in the tools decode, "
-              f"{r['launches_config4']} in the config 4 decode")
+              f"{r['launches_config4']} in the config 4 decode, "
+              f"{r['launches_superres']} in the super-res decode")
         for c in r["cases"]:
-            if c.startswith(("config 3", "tools")):
+            if c.startswith(("config 3", "tools", "superres")):
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_config3", "launches_tools", "launches_config4",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_superres", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
@@ -794,6 +879,14 @@ def main():
     print(f"tools: {shapes_t.ii_blocks} inter-intra blocks")
     report_path("config 4", frames4, times4, shapes4, launches4,
                 {"expected": CONFIG4_MD5, "got": d4}, split4, sum(times4s))
+    report_path("superres", frames_s, times_s, shapes_s, launches_s,
+                {"expected": sr_md5, "got": d_s, "staged": d_ss},
+                split_s, sum(times_ss))
+    for i, (sp, t) in enumerate(zip(split_s_frames, times_ss)):
+        print(f"superres frame {i} stage split (staged pass, "
+              f"{t * 1e3:.1f} ms): " + ", ".join(
+                  f"{k} {v * 1e3:.1f} ms ({100 * v / t:.1f}%)"
+                  for k, v in sorted(sp.items(), key=lambda kv: -kv[1])))
     steady = times[2:]
     if opts.profile:
         per_frame = profile_frames(torch, api, MD5Muxer, frames,

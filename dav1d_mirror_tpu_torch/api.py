@@ -5,10 +5,14 @@ Port of ``dav1d_mirror_tpu/api.py``. A `Decoder` is opened with
 from `get_picture`; `flush` resets in-flight state for seeking. Every
 frame takes the hybrid device route: native entropy decode on the host,
 the frame's pixel program on the device (models/inter), the intra blocks
-in the native host walk, then deblock, CDEF and loop restoration on the
-device (models/filters). With ``Settings.apply_grain`` (the default) a
-frame that carries film grain is grained on the device on its way out
-(ops/filmgrain); the reference planes stay grain-free. Frames decode in
+in the native host walk, then deblock, CDEF, super-resolution and loop
+restoration on the device (models/filters). A super-res frame is
+reconstructed at its coded width and leaves the filter chain upscaled;
+references, outputs and grain see the upscaled planes. With
+``Settings.apply_grain`` (the default) a frame that carries film grain is
+grained on the device on its way out (ops/filmgrain); the reference
+planes stay grain-free. ``Decoder.apply_grain`` grains a decoded picture
+on its own (dav1d_apply_grain). Frames decode in
 order, synchronously; the reference's entropy-vs-pixels pipelining
 (``n_threads``, ``max_frame_delay``) is not ported yet.
 
@@ -16,13 +20,16 @@ The device is `Settings.device` ("cuda" by default). Asking for CUDA
 where PyTorch has none raises; nothing falls back to the CPU.
 
 Reference parity: dav1d_open src/lib.c:138, dav1d_send_data :437,
-dav1d_get_picture :457, dav1d_flush :525, show-existing handling
+dav1d_get_picture :457, dav1d_flush :525, dav1d_apply_grain
+include/dav1d/dav1d.h:235, dav1d_get_event_flags :268-295, show-existing
+handling
 src/obu.c:1572-1682, inloop-filter debug mask include/dav1d/dav1d.h:66-74.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from .data.tables import new_cdf_context, qcat_from_qidx, cdf_thread_update
@@ -35,6 +42,7 @@ from .host.native import NativeMsac
 from .host.tilecoder import TileCoder, DecodeSide
 from .models.filters import apply_inloop_filters
 from .models.frame_buffers import FrameBuffers, _tile_payload
+from .models.frame_exec import plane_to_torch
 from .models.inter import build_frame_program, execute_frame_program
 from .ops.filmgrain import apply_film_grain
 from .utils import stages
@@ -50,6 +58,10 @@ DECODEFRAMETYPE_ALL = 0
 DECODEFRAMETYPE_REFERENCE = 1
 DECODEFRAMETYPE_INTRA = 2
 DECODEFRAMETYPE_KEY = 3
+
+# Dav1dEventFlags (include/dav1d/dav1d.h:268-295)
+EVENT_FLAG_NEW_SEQUENCE = 1
+EVENT_FLAG_NEW_OP_PARAMS_INFO = 2
 
 
 @dataclass
@@ -125,11 +137,18 @@ class Decoder:
         self._out = []                # decoded Picture queue
         self._sl_cache = None         # spatial-layer candidate (lib.c:331)
         self._errored_slots = set()   # refs poisoned by decode errors
+        self._event_flags = 0
         self.last_error = None        # dav1d_get_decode_error_data_props
 
     def close(self):
         self._out = []
         self._refs = [None] * 8
+
+    def get_event_flags(self) -> int:
+        """dav1d_get_event_flags: returns and clears accumulated flags."""
+        f = self._event_flags
+        self._event_flags = 0
+        return f
 
     def _log(self, msg: str):
         lg = self.s.logger
@@ -153,11 +172,16 @@ class Decoder:
         refreshed and raises DecodeError, but the decoder object stays
         consistent. A stream feature this package does not decode yet
         raises NotImplementedError as it is."""
+        prev_seq = self._st.seq_hdr
         for obu_data in obus:
             try:
                 obu_mod.parse_obus(self._st, obu_data)
             except Exception as e:
                 self._contain_error(e)
+            if self._st.seq_hdr is not prev_seq:
+                prev_seq = self._st.seq_hdr
+                self._event_flags |= (EVENT_FLAG_NEW_SEQUENCE |
+                                      EVENT_FLAG_NEW_OP_PARAMS_INFO)
             if self._st.frame_ready:
                 self._st.frame_ready = False
                 try:
@@ -187,6 +211,32 @@ class Decoder:
         if not self._out:
             return None
         return self._out.pop(0)
+
+    def apply_grain(self, pic: Picture) -> Picture:
+        """dav1d_apply_grain (include/dav1d/dav1d.h:235): synthesize film
+        grain onto an already-decoded picture, on the decoder's device,
+        for callers who opened the decoder with apply_grain=False.
+        Returns a new Picture (the input is left untouched)."""
+        fhdr, seq = pic.frame_hdr, pic.seq_hdr
+        if fhdr is None or not getattr(fhdr, "film_grain_present", 0):
+            return pic
+        # the grain pass reads luma column `width` / row `height` on odd
+        # dimensions (the in-decoder pass grains the padded planes); a
+        # Picture holds the cropped planes, so edge-replicate that pad
+        planes = pic.planes
+        pw, ph = pic.width & 1, pic.height & 1
+        if pw or ph:
+            planes = (np.pad(planes[0], ((0, ph), (0, pw)), mode="edge"),
+                      ) + tuple(planes[1:])
+        with stages.scope("grain", self.device):
+            grained = apply_film_grain(
+                [plane_to_torch(p, self.device) for p in planes], seq,
+                fhdr, pic.width, pic.height)
+            out = tuple(g.cpu().numpy().astype(p.dtype)
+                        for g, p in zip(grained, pic.planes))
+        if pw or ph:
+            out = (out[0][:pic.height, :pic.width],) + out[1:]
+        return replace(pic, planes=out)
 
     # -- internals ---------------------------------------------------------
     def _emit(self, bufs, fhdr):
@@ -290,10 +340,6 @@ class Decoder:
         if self.s.frame_size_limit and \
                 fhdr.width[1] * fhdr.height > self.s.frame_size_limit:
             raise DecodeError("frame size over limit")
-        if fhdr.width[0] != fhdr.width[1]:
-            raise NotImplementedError(
-                "super-resolution: ROADMAP queue 1, item 1b (scaled MC and "
-                "super-res)")
         keyframe = fhdr.frame_type in (0, 2)
         # strict mode: frames referencing error-poisoned slots are
         # themselves in error (dav1d decode.c:3296-3304)
@@ -367,14 +413,17 @@ class Decoder:
                     native_tile.code_tile_native(coder)
                     coders.append(coder)
 
-        bufs = FrameBuffers(seq, fhdr, width=fhdr.width[1])
+        # work buffers at the coded width (fhdr.width[0]); the filter
+        # chain returns the final ones, upscaled on a super-res frame
+        bufs = FrameBuffers(seq, fhdr)
         with stages.scope("plan"):
             built = build_frame_program(seq, fhdr, coders, bufs, refs,
                                         jnt_weights)
         execute_frame_program(built, seq, fhdr, coders, bufs, self.device)
         with stages.scope("filters", self.device):
-            apply_inloop_filters(seq, fhdr, coders, bufs, self.device,
-                                 filters_mask=self.s.inloop_filters)
+            bufs = apply_inloop_filters(seq, fhdr, coders, bufs,
+                                        self.device,
+                                        filters_mask=self.s.inloop_filters)
 
         # reference slot updates (entropy-stage products)
         out_cdf = cdf_thread_update(cdf_in,

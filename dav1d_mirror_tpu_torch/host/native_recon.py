@@ -6,10 +6,12 @@ The native walk consumes the dense block/coef records the native tile
 walk already produced (``coder.native_arrays``) plus the device-computed
 residual buffers, and performs edge prep + all intra predictors + CFL +
 palette + residual add in C++ (dav1d src/recon_tmpl.c:1195-1596 and
-src/ipred_tmpl.c:93-720 equivalents). It refuses — before touching any
-pixel — when a tile contains intrabc blocks; this package has no Python
-walk, so callers raise then. Inter-intra blocks (flagged 2) get their
-inter prediction from the device and their intra blend here.
+src/ipred_tmpl.c:93-720 equivalents), keyframe intrabc blocks
+included. It refuses (rc -1), before touching any pixel, when a block of
+an inter frame needs host inter work, i.e. the planner did not send its
+prediction to the device; this package has no Python walk, so callers
+raise then. Inter-intra blocks (flagged 2) get their inter prediction
+from the device and their intra blend here.
 
 The RC_* config layout and return codes mirror native/recon.cpp.
 """
@@ -126,7 +128,8 @@ def _pack_ii_masks(coder, blk, device_done, ss_hor, ss_ver, has_chroma):
 def recon_tile_native(seq, fhdr, coder, bufs, device_done, res_buf,
                       offs) -> int:
     """Run the native pass-2 walk for one tile. Returns the native rc:
-    0 ok; -1 tile has unsupported host-inter blocks (nothing written);
+    0 ok; -1 an inter block's prediction was not sent to the device
+    (nothing written);
     -2/-3/-4 internal ordering/residual/mask errors (callers must fall
     back)."""
     blk, coef, pal, palidx = coder.native_arrays

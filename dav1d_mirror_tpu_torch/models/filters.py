@@ -1,13 +1,14 @@
-"""Device in-loop filter chain: deblock -> CDEF -> loop restoration.
+"""Device in-loop filter chain: deblock -> CDEF -> super-resolution ->
+loop restoration.
 
 Port of ``dav1d_mirror_tpu/models/tpu_filters.py`` (``build_cdef_plan``
-:39, ``_lr_stripe_plan`` :63, ``apply_inloop_filters_tpu`` :136 without
-super-res). The host builds small integer plan arrays (edge/level maps,
-the CDEF index map, the LR stripe-unit batches) from the parsed headers
-and entropy state; the pixels stay device tensors across the stages,
-packed into one program (models/frame_exec, plane-input mode).
-
-Super-resolution raises NotImplementedError (ROADMAP queue 1, item 1b).
+:39, ``_lr_stripe_plan`` :63, ``apply_inloop_filters_tpu`` :136). The
+host builds small integer plan arrays (edge/level maps, the CDEF index
+map, the LR stripe-unit batches) from the parsed headers and entropy
+state; the pixels stay device tensors across the stages, packed into one
+program (models/frame_exec, plane-input mode). A super-res frame is
+deblocked and CDEF-filtered at its coded width, upscaled (``sres``), and
+loop-restored at the upscaled width.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from ..ops.mc import PAD_OOB
 from ..ops.spec_consts import (LR_HAVE_BOTTOM, LR_HAVE_LEFT, LR_HAVE_RIGHT,
                                LR_HAVE_TOP, RESTORATION_WIENER, SGR_PARAMS,
                                calc_eih)
-from .inter import _p2
+from .frame_buffers import FrameBuffers
+from .inter import _p2, _resize_params
 
 
 def build_cdef_plan(fhdr, coders):
@@ -150,17 +152,15 @@ def _emit_lr_plane(prog, fhdr, coders, bufs, p):
 
 
 def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
-    """Deblock, CDEF and loop restoration over the frame's planes on
-    `device`, starting from the device planes the reconstruction left
-    (bufs.dev_planes) or from an upload of bufs.planes. Publishes the
-    filtered device planes on bufs.dev_planes (later frames read them as
-    references) and downloads them into bufs.planes. Returns bufs."""
+    """Deblock, CDEF, super-resolution and loop restoration over the
+    frame's planes on `device`, starting from the device planes the
+    reconstruction left (bufs.dev_planes) or from an upload of
+    bufs.planes. Returns the frame's final buffers: `bufs`, or for a
+    super-res frame new buffers of the upscaled width (fhdr.width[1]).
+    Publishes the filtered device planes on their dev_planes (later frames
+    read them as references) and downloads them into their planes."""
     from .frame_exec import FrameProgram, plane_to_torch, run_frame_program
 
-    if fhdr.width[0] != fhdr.width[1]:
-        raise NotImplementedError(
-            "super-resolution: ROADMAP queue 1, item 1b (scaled MC and "
-            "super-res)")
     if bufs.dev_planes is not None:
         planes_in = list(bufs.dev_planes)
     else:
@@ -214,6 +214,28 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
                 prog.emit8(np.asarray(fhdr.cdef_uv_strength, np.int8)),
                 fhdr.cdef_damping + (bd - 8), bufs.ss_hor, bufs.ss_ver,
                 seq.layout == 0)
+
+    # ---- super-resolution: the planes, and the pre-CDEF snapshot that
+    # LR reads its stripe boundaries from ----
+    if fhdr.width[0] != fhdr.width[1]:
+        new_bufs = FrameBuffers(seq, fhdr, width=fhdr.width[1])
+        bw4f = ((fhdr.width[0] + 7) >> 3) << 1
+        for pl in range(len(planes_in)):
+            ss_hor = bufs.ss_hor if pl else 0
+            ss_ver = bufs.ss_ver if pl else 0
+            in_w = (fhdr.width[0] + ss_hor) >> ss_hor
+            out_w = (fhdr.width[1] + ss_hor) >> ss_hor
+            step, start = _resize_params(in_w, out_w)
+            src_w = (4 * bw4f + ss_hor) >> ss_hor
+            h_vis = (fhdr.height + ss_ver) >> ss_ver
+            oshape = tuple(new_bufs.planes[pl].shape)
+            prog.op("sres", None, pl, out_w, src_w, step, start, h_vis,
+                    oshape)
+            if any(restore):
+                prog.op("sres", "precdef", pl, out_w, src_w, step, start,
+                        h_vis, oshape)
+        bufs.dev_planes = None   # the coded-width planes are dead now
+        bufs = new_bufs
 
     # ---- loop restoration ----
     for p in range(len(planes_in)):

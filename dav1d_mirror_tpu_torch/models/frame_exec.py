@@ -7,13 +7,13 @@ copied from the reference with its Pallas-only forms left out). The
 executor uploads the three buffers ONCE per frame and replays the ops on
 device tensors, slicing each op's inputs out of the uploaded buffers.
 
-The executor implements the op kinds of the hybrid inter path with
-deblock, CDEF and loop restoration: ``hpx``, ``puthv_x``, ``put``,
-``warp``, ``comp`` (average, distance-weighted, wedge and seg joins),
-``obmc``, ``residmc``, ``residc`` and ``hresc`` (lossless WHT),
-``hresmc``, ``dbk``, ``snap``, ``cdef``, ``lrw``, ``lrs`` and ``out``.
-Every other kind raises ``NotImplementedError`` naming its ROADMAP item,
-before any op runs.
+The executor implements the op kinds of the hybrid inter path and the
+filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
+from a reference of another size), ``comp`` (average, distance-weighted,
+wedge and seg joins), ``obmc``, ``residmc``, ``residc`` and ``hresc``
+(lossless WHT), ``hresmc``, ``dbk``, ``snap``, ``cdef``, ``sres``
+(super-resolution), ``lrw``, ``lrs`` and ``out``. Every other kind raises
+``NotImplementedError`` naming its ROADMAP item, before any op runs.
 
 Ops update the planes in place, in the reference's op order: puts and
 warps, compound blocks, OBMC laps (top, then left), then residuals. An op
@@ -33,8 +33,9 @@ from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
 from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
                       comp_join_wmask, gather_units, mc_hv_combos,
-                      mc_unit_batch, obmc_blend_batch, scatter_slot_units,
-                      scatter_units, set_slots, unit_index, warp8x8_batch)
+                      mc_scaled_batch, mc_unit_batch, obmc_blend_batch,
+                      resize_plane, scatter_slot_units, scatter_units,
+                      set_slots, unit_index, warp8x8_batch)
 
 
 # int16 OOB sentinel for destination rows: PAD_OOB (1 << 20) marks
@@ -121,16 +122,15 @@ class FrameProgram:
     lives in the buffers."""
 
     def __init__(self, n_planes, bitdepth, plane_shapes, refspec=(),
-                 plane_inputs=False, out_dtype=None):
+                 srefspec=(), plane_inputs=False, out_dtype=None):
         """refspec: per plane ((h_vis, w_vis), 7-tuple of refsrc index
-        or -1 for an absent/mismatched slot)."""
+        or -1 for an absent/mismatched slot); srefspec: per view of a
+        scaled reference (refsrc index, h_vis, w_vis)."""
         self.n_planes = n_planes
         self.bd = bitdepth
         self.plane_shapes = tuple(tuple(s) for s in plane_shapes)
         self.refspec = tuple(refspec)
-        # views of scaled references: none in this slice; the field keeps
-        # the signature layout the reference interpreter reads
-        self.srefspec = ()
+        self.srefspec = tuple(srefspec)
         self.ref_shapes = tuple(s for s, _ in self.refspec)
         self.plane_inputs = bool(plane_inputs)
         # plane pixel values fit the frame's native dtype; the "out" op
@@ -239,17 +239,15 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("hpx", "puthv_x", "put", "warp", "comp", "obmc", "residmc",
-           "residc", "hresmc", "hresc", "dbk", "snap", "cdef", "lrw", "lrs",
-           "out")
+HANDLED = ("hpx", "puthv_x", "put", "warp", "scaled", "comp", "obmc",
+           "residmc", "residc", "hresmc", "hresc", "dbk", "snap", "cdef",
+           "sres", "lrw", "lrs", "out")
 
 # op kinds outside this slice -> where they stand in ROADMAP.md
 LATER = {
     "hpp": "Pallas-only form (the port's planner emits hpx)",
     "puthv_p": "Pallas-only form (the port's planner emits puthv_x)",
     "outpack": "TPU tunnel download form, not ported",
-    "scaled": "ROADMAP queue 1, item 1b (scaled MC and super-res)",
-    "sres": "ROADMAP queue 1, item 1b (scaled MC and super-res)",
     "resid": "dense residual form (the port's planner emits residmc)",
     "residm": "dense residual form (the port's planner emits residmc)",
     "hres": "dense residual form (the port's planner emits hresmc)",
@@ -301,6 +299,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         refs.append(torch.stack(
             [torch.zeros((hv, wv), dtype=torch.int32, device=dev) if i < 0
              else refsrc[i][:hv, :wv].to(torch.int32) for i in slots]))
+    srefs = [refsrc[i][:h, :w][None].to(torch.int32)
+             for i, h, w in srefspec]
     if plane_inputs:
         # a copy: the ops below update planes in place, and the inputs
         # are reference planes later frames still read
@@ -319,8 +319,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
 
     def side_tmp(pl, bwp, bhp, N, subops, prep):
         """(N, bhp, bwp) slot batch of one compound side or one OBMC lap
-        bucket: whole-block translational units ("t") and 8x8 warp units
-        ("w")."""
+        bucket: whole-block translational units ("t"), 8x8 warp units
+        ("w") and units from a scaled reference ("s")."""
         tmp = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
         for s in subops:
             if s[0] == "t":
@@ -334,9 +334,11 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                 _, h_rows, h_base = s
                 out = warp8x8_batch(refs[pl], get(h_rows), bd, prep)
                 scatter_slot_units(tmp, get(h_base), out, 8, 8, bwp)
-            else:   # "s": a scaled reference
-                raise NotImplementedError(f"frame op {s[0]!r} sub-op: "
-                                          f"{LATER['scaled']}")
+            else:   # "s"
+                _, sid, uw, uh, h_rows, h_base = s
+                out = mc_scaled_batch(srefs[sid], get(h_rows), uw, uh,
+                                      2 * uw + 10, 2 * uh + 10, bd, prep)
+                scatter_slot_units(tmp, get(h_base), out, uh, uw, bwp)
         return tmp
 
     for rec in ops:
@@ -364,6 +366,11 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             _, pl, h_rows, h_ys, h_xs = rec
             out = warp8x8_batch(refs[pl], get(h_rows), bd, False)
             scatter_units(planes[pl], out, get(h_ys), get(h_xs), 8, 8)
+        elif kind == "scaled":
+            _, pl, sid, uw, uh, h_rows, h_ys, h_xs = rec
+            out = mc_scaled_batch(srefs[sid], get(h_rows), uw, uh,
+                                  2 * uw + 10, 2 * uh + 10, bd, False)
+            scatter_units(planes[pl], out, get(h_ys), get(h_xs), uh, uw)
         elif kind == "comp":
             (_, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx) = rec
             tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True)
@@ -458,6 +465,18 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                 tuple(planes), get(h_idx), get(h_ns) != 0, get(h_ystr),
                 get(h_uvstr), damping=damping, bitdepth=bd, ss_hor=ssh,
                 ss_ver=ssv, monochrome=mono))
+        elif kind == "sres":
+            # a new plane of the upscaled shape: nothing aliases the
+            # coded-width one it reads
+            _, tgt, pl, out_w, src_w, step, mx0, h_vis, oshape = rec
+            src = planes[pl] if tgt is None else snap[tgt][pl]
+            new = torch.zeros(oshape, dtype=torch.int32, device=dev)
+            new[:h_vis, :out_w] = resize_plane(src[:h_vis], out_w, src_w,
+                                               step, mx0, bd)
+            if tgt is None:
+                planes[pl] = new
+            else:
+                snap[tgt][pl] = new
         else:  # "out"
             planes = [p.to(_OUT_DTYPES[out_dtype]) for p in planes]
     return tuple(planes), tuple(hres)

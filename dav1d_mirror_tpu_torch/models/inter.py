@@ -8,6 +8,9 @@ frame program (models/frame_exec), which runs on the device:
 
   * translational MC as fixed-size unit batches over stacked reference
     planes (ops/mc, ops/mc_cuda),
+  * MC from a reference of another size than the frame (a super-res
+    frame reads every reference so) as scaled unit batches over a view
+    of that reference (ops/mc.mc_scaled_batch),
   * affine warp (local and global motion) as 8x8 unit batches,
   * compound blocks as whole-block prep batches per side, joined by
     average, distance weights, wedge or difference-weighted (seg) masks,
@@ -22,7 +25,6 @@ the intra halves of inter-intra blocks: their inter prediction is put on
 the device, the native walk blends it with the intra prediction
 (dd == 2 in ``BuiltFrame.dd_per``).
 
-Scaled references raise NotImplementedError (ROADMAP queue 1, item 1b).
 The planner always runs the vectorized path (models/plan_vec), which the
 native entropy walk always feeds, and packs without the reference's
 ProgramSchema: every batch is padded to a power of two on its own.
@@ -36,8 +38,6 @@ from ..host.tilecoder import (COMP_INTER_AVG, COMP_INTER_SEG,
                               T_BLOCK_DIM)
 from ..ops.mc import PAD_OOB
 from .frame_buffers import _gmv_warp_params
-
-_LATER_MC = "ROADMAP queue 1, item 1b (scaled MC and super-res)"
 
 
 def _p2(n: int, floor: int = 8) -> int:
@@ -83,6 +83,32 @@ def _block_device_class(fhdr, coder, b, refs, cur_w, cur_h):
         if rb is None:
             return None
     return "comp" if b.comp_type else "single"
+
+
+def _scale_fac(ref_sz, this_sz):
+    return ((ref_sz << 14) + (this_sz >> 1)) // this_sz
+
+
+def _scale_mv(val, scale):
+    tmp = val * scale + (scale - 0x4000) * 8
+    v = (abs(tmp) + 128) >> 8
+    return (-v if tmp < 0 else v) + 32
+
+
+def _ctrunc_div(a, b):
+    q = abs(a) // abs(b)
+    return -q if (a < 0) != (b < 0) else q
+
+
+def _resize_params(in_w, out_w):
+    """dav1d decode.c scale_fac:3517 + get_upscale_x0:3365 (C truncating
+    division semantics). Copied from dav1d_mirror_tpu/models/
+    ref_decoder.py."""
+    step = ((in_w << 14) + (out_w >> 1)) // out_w
+    err = out_w * step - (in_w << 14)
+    x0 = _ctrunc_div(-((out_w - in_w) << 13) + (out_w >> 1), out_w) + \
+        128 - _ctrunc_div(err, 2)
+    return step, x0 & 0x3FFF
 
 
 def _units_for_block_raw(plan, pl, ss_hor, ss_ver, b_dims, bx, by, mv,
@@ -139,12 +165,45 @@ def _warp_rows(ss_hor, ss_ver, wm, bx, by, bw4, bh4, ref_slot):
     return out
 
 
+def _scaled_pos(ss_hor, ss_ver, bx, by, mv, scale):
+    h_mul, v_mul = 4 >> ss_hor, 4 >> ss_ver
+    mvy, mvx = mv
+    orig_x = (bx * h_mul << 4) + mvx * (1 << (0 if ss_hor else 1))
+    orig_y = (by * v_mul << 4) + mvy * (1 << (0 if ss_ver else 1))
+    return _scale_mv(orig_x, scale[0]), _scale_mv(orig_y, scale[1])
+
+
+def _scaled_rows(ss_hor, ss_ver, b_dims, bx, by, mv, f2d, ref_slot,
+                 scale, step, split=True):
+    """Scaled-MC sub-unit rows (dav1d recon_tmpl.c mc:1010-1037); pos
+    recomputed per sub-unit via the closed-form per-pixel stepping.
+    Returns [(row9, uw, uh, sub_y, sub_x)]."""
+    bw4, bh4 = b_dims
+    h_mul, v_mul = 4 >> ss_hor, 4 >> ss_ver
+    pw, ph = bw4 * h_mul, bh4 * v_mul
+    pos_x, pos_y = _scaled_pos(ss_hor, ss_ver, bx, by, mv, scale)
+    su = 8 if split else max(pw, ph)
+    out = []
+    for oy in range(0, ph, su):
+        uh = min(su, ph - oy)
+        py = pos_y + oy * step[1]
+        for ox in range(0, pw, su):
+            uw = min(su, pw - ox)
+            px = pos_x + ox * step[0]
+            out.append(((ref_slot, py >> 10, px >> 10, px & 0x3FF,
+                         py & 0x3FF, step[0], step[1], f2d, 0),
+                        uw, uh, oy, ox))
+    return out
+
+
 class _FramePlan:
     """All device MC work for one frame, bucketed for batching."""
 
     def __init__(self, n_planes):
         self.put = [dict() for _ in range(n_planes)]       # translational
         self.warp_put = [[] for _ in range(n_planes)]      # (row, y, x)
+        # scaled references: bucket (uw, uh, ref) -> [(row9, y, x)]
+        self.scaled_put = [dict() for _ in range(n_planes)]
         # OBMC laps, applied after all puts: phase 0 = top, 1 = left;
         # bucket (phase, lap_h, lap_w, region_dim); entries
         # (kind, row, (dst_y, dst_x))
@@ -244,7 +303,7 @@ def _sub8x8_refined_vec(blk, bw4, bh4, ssh, ssv, has_chroma, rf):
 
 
 def _plan_obmc(plan, pl, ssh, ssv, coder, fhdr, refs, rf, f2d_map, b,
-               scaled_of):
+               scaled_of, scale_step):
     """OBMC lap planning (dav1d recon_tmpl.c obmc:1071)."""
     b_dim = T_BLOCK_DIM[b.bs]
     bw4, bh4 = int(b_dim[0]), int(b_dim[1])
@@ -269,8 +328,12 @@ def _plan_obmc(plan, pl, ssh, ssv, coder, fhdr, refs, rf, f2d_map, b,
         key = (phase, lh, lw, region)
         lst = plan.laps[pl].setdefault(key, [])
         if scaled_of(rref):
-            raise NotImplementedError(f"OBMC lap from a scaled reference: "
-                                      f"{_LATER_MC}")
+            scale, step = scale_step(rref)
+            (row, _, _, _, _), = _scaled_rows(
+                ssh if pl else 0, ssv if pl else 0, (ow4, mc_h4),
+                src_bx, src_by, rmv, f2d, rref, scale, step, split=False)
+            lst.append(("s", row, (d[0], d[1])))
+            return
         tmp = {}
         _units_for_block_raw(tmp, pl, ssh, ssv, (ow4, mc_h4), src_bx,
                              src_by, rmv, rref, f2d, dst=(d[0], d[1]),
@@ -340,11 +403,26 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
         rb = refs[fhdr.refidx[i]]
         return rb.width != cur_w or rb.height != cur_h
 
+    def scale_step(i):
+        rb = refs[fhdr.refidx[i]]
+        sx = _scale_fac(rb.width, cur_w)
+        sy = _scale_fac(rb.height, cur_h)
+        return (sx, sy), ((sx + 8) >> 4, (sy + 8) >> 4)
+
     def plan_put(pl, b_dims, bx, by, mv, f2d, ref_i, ssh, ssv, dst=None):
         if scaled_of(ref_i):
-            raise NotImplementedError(f"scaled reference: {_LATER_MC}")
-        _units_for_block_raw(plan.put[pl], pl, ssh, ssv, b_dims, bx,
-                             by, mv, ref_i, f2d, dst=dst)
+            scale, step = scale_step(ref_i)
+            h_mul = 4 >> (ssh if pl else 0)
+            v_mul = 4 >> (ssv if pl else 0)
+            base = dst if dst is not None else (by * v_mul, bx * h_mul)
+            for row, uw, uh, oy, ox in _scaled_rows(
+                    ssh if pl else 0, ssv if pl else 0, b_dims, bx, by,
+                    mv, f2d, ref_i, scale, step):
+                plan.scaled_put[pl].setdefault((uw, uh, ref_i), []).append(
+                    (row, base[0] + oy, base[1] + ox))
+        else:
+            _units_for_block_raw(plan.put[pl], pl, ssh, ssv, b_dims, bx,
+                                 by, mv, ref_i, f2d, dst=dst)
 
     vec = None
     f2d_map = None
@@ -393,7 +471,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                                  b.filter2d, b.ref[0], 0, 0)
                     if b.motion_mode == 1:  # OBMC
                         _plan_obmc(plan, 0, 0, 0, coder, fhdr, refs, rf,
-                                   f2d_map, b, scaled_of)
+                                   f2d_map, b, scaled_of, scale_step)
 
                 if has_chroma:
                     cbw4 = (bw4 + ss_hor) >> ss_hor
@@ -460,7 +538,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                             if not use_warp and b.motion_mode == 1:
                                 _plan_obmc(plan, pl, ss_hor, ss_ver,
                                            coder, fhdr, refs, rf,
-                                           f2d_map, b, scaled_of)
+                                           f2d_map, b, scaled_of,
+                                           scale_step)
             else:
                 # compound (dav1d recon_tmpl.c:1822-1907)
                 def side(i, pl, ssh, ssv):
@@ -474,9 +553,11 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                         return ("w", _warp_rows(ssh, ssv, wm, bx, by,
                                                 bw4, bh4, b.ref[i]))
                     if scaled_of(b.ref[i]):
-                        raise NotImplementedError(
-                            f"compound block with a scaled reference: "
-                            f"{_LATER_MC}")
+                        scale, step = scale_step(b.ref[i])
+                        return ("s", _scaled_rows(ssh, ssv, (bw4, bh4),
+                                                  bx, by, b.mv[i],
+                                                  b.filter2d, b.ref[i],
+                                                  scale, step))
                     return ("t", (b.ref[i], b.mv[i], b.filter2d))
 
                 jw = 8
@@ -521,7 +602,11 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
             _src_ids[k] = len(ref_desc) - 1
         return _src_ids[k]
 
+    # A scaled reference's stacked slot is -1 (zeros, which no op reads);
+    # its ops read a view of its own size (srefspec, indexed by sref_idx)
     refspec = []
+    sref_keys = []
+    srefspec = []
     for pl in range(n_planes if not intra_frame else 0):
         ssh = ss_hor if pl else 0
         ssv = ss_ver if pl else 0
@@ -531,6 +616,11 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
         for i in range(7):
             rb = refs[fhdr.refidx[i]]
             if rb is None or rb.width != cur_w or rb.height != cur_h:
+                if rb is not None and (pl, i) not in sref_keys:
+                    w_v = (rb.width + ssh) >> ssh
+                    h_v = (rb.height + ssv) >> ssv
+                    sref_keys.append((pl, i))
+                    srefspec.append((_src(rb, pl), h_v, w_v))
                 slots.append(-1)
             else:
                 slots.append(_src(rb, pl))
@@ -538,10 +628,12 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
 
     # --- pack the whole device pixel stage into one program ---
     from .frame_exec import FrameProgram, compact_cf, pack_put_case
+    sref_idx = {k: i for i, k in enumerate(sref_keys)}
     prog = FrameProgram(
         n_planes, bd,
         [] if intra_frame else [p.shape for p in bufs.planes],
-        refspec, out_dtype=None if intra_frame else bufs.planes[0].dtype)
+        refspec, srefspec,
+        out_dtype=None if intra_frame else bufs.planes[0].dtype)
 
     # translational put batches
     for pl in range(0 if intra_frame else n_planes):
@@ -566,10 +658,25 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
         xs = _pad_vec(np.asarray([x for _, _, x in wl], np.int32), False, P)
         prog.op("warp", pl, prog.emit(rows), prog.emit(ys), prog.emit(xs))
 
+    # scaled put batches; a view holds one reference, so each row's
+    # reference index is 0
+    for pl in range(0 if intra_frame else n_planes):
+        for (uw, uh, ref_i), lst in sorted(plan.scaled_put[pl].items()):
+            P = _p2(len(lst))
+            rows = np.asarray([r for r, _, _ in lst], np.int32)
+            rows[:, 0] = 0
+            rows = _pad_rows(rows, None, P)
+            ys = _pad_vec(np.asarray([y for _, y, _ in lst], np.int32),
+                          True, P)
+            xs = _pad_vec(np.asarray([x for _, _, x in lst], np.int32),
+                          False, P)
+            prog.op("scaled", pl, sref_idx[(pl, ref_i)], uw, uh,
+                    prog.emit(rows), prog.emit(ys), prog.emit(xs))
+
     # compound batches (luma first: seg chroma masks derive from the
     # luma preps)
     def _pack_side(pl, bwp, bhp, group, i, ssh, ssv):
-        tcases, wunits = {}, []
+        tcases, wunits, sunits = {}, [], {}
         for slot, e in enumerate(group):
             kind, payload = e["sides"][i]
             if kind == "t":
@@ -580,9 +687,13 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                                      ref_i, f2d, whole=True)
                 (k2, l2), = tmp2.items()
                 tcases.setdefault(k2[2:4], []).append((slot, l2[0]))
-            else:   # "w"
+            elif kind == "w":
                 for row, sy, sx in payload:
                     wunits.append((slot, row, sy, sx))
+            else:   # "s"
+                for row, uw, uh, sy, sx in payload:
+                    sunits.setdefault((uw, uh, row[0]), []).append(
+                        (slot, row, sy, sx))
         subops = []
         for (hh, hv), lst in sorted(tcases.items()):
             P = _p2(len(lst))
@@ -600,6 +711,16 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                 [s * bhp * bwp + sy * bwp + sx
                  for s, _, sy, sx in wunits], np.int32), False, P)
             subops.append(("w", prog.emit(rows), prog.emit(base)))
+        for (uw, uh, ref_i), lst in sorted(sunits.items()):
+            P = _p2(len(lst))
+            rows = np.asarray([r for _, r, _, _ in lst], np.int32)
+            rows[:, 0] = 0
+            rows = _pad_rows(rows, None, P)
+            base = _pad_vec(np.asarray(
+                [s * bhp * bwp + sy * bwp + sx
+                 for s, _, sy, sx in lst], np.int32), False, P)
+            subops.append(("s", sref_idx[(pl, ref_i)], uw, uh,
+                           prog.emit(rows), prog.emit(base)))
         return tuple(subops)
 
     for pl in range(0 if intra_frame else n_planes):
@@ -678,10 +799,13 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                 # a real lap
                 nL = _p2(len(lst) + 1)
                 lst = lst + [(lk, lr, (PAD_OOB, 0))] * (nL - len(lst))
-                tcases = {}
-                for slot, (_, row, _) in enumerate(lst):
-                    tcases.setdefault(tuple(row[6:8]), []).append(
-                        (slot, row[:6]))
+                tcases, sunits = {}, {}
+                for slot, (kind, row, _) in enumerate(lst):
+                    if kind == "t":
+                        tcases.setdefault(tuple(row[6:8]), []).append(
+                            (slot, row[:6]))
+                    else:
+                        sunits.setdefault(row[0], []).append((slot, row))
                 subops = []
                 for (hh, hv), l2 in sorted(tcases.items()):
                     P = _p2(len(l2))
@@ -691,6 +815,17 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                                                 np.int32), False, P)
                     subops.append(("t", bool(hh), bool(hv),
                                    prog.emit(arr), prog.emit(slots)))
+                for ref_i, l2 in sorted(sunits.items()):
+                    P = _p2(len(l2))
+                    rows = np.asarray([r for _, r in l2], np.int32)
+                    rows[:, 0] = 0
+                    rows = _pad_rows(rows, None, P)
+                    # whole-slot writes as sub-rect scatters at
+                    # slot * lh * lw
+                    base = _pad_vec(np.asarray([s * lh * lw for s, _ in l2],
+                                               np.int32), False, P)
+                    subops.append(("s", sref_idx[(pl, ref_i)], lw, lh,
+                                   prog.emit(rows), prog.emit(base)))
                 h_ys = prog.emit(np.asarray([d[0] for _, _, d in lst],
                                             np.int32))
                 h_xs = prog.emit(np.asarray([d[1] for _, _, d in lst],
@@ -842,9 +977,10 @@ def execute_frame_program(built, seq, fhdr, coders, bufs, device):
                     seq, fhdr, coder, bufs, built.dd_per[ci], res_buf,
                     offs[ci])
                 if rc != 0:
-                    raise NotImplementedError(
-                        f"native pass 2 refused tile {ci} (rc {rc}): "
-                        "intrabc blocks, ROADMAP queue 1, item 1c")
+                    raise RuntimeError(
+                        f"native pass 2 refused tile {ci} (rc {rc}): a "
+                        "block needs host inter work that the planner did "
+                        "not send to the device")
             if not intra_frame:
                 # the host pass touched the planes: upload them again
                 dev_planes = [plane_to_torch(p, device)

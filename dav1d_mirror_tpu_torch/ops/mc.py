@@ -1,7 +1,7 @@
 """Batched motion compensation as PyTorch ops on int32 tensors.
 
-Port of ``dav1d_mirror_tpu/ops/mc_tpu.py`` (all but scaled MC and
-super-res). The host planner decomposes every translational MC block into
+Port of ``dav1d_mirror_tpu/ops/mc_tpu.py``. The host planner decomposes
+every translational MC block into
 fixed-size units (8x8, with 4-wide/4-tall remainder buckets) that share
 one subpel phase each; these functions run one bucket:
 
@@ -17,11 +17,13 @@ The rest of the inter toolset runs on whole-block batches: the compound
 joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``
 and the ``comp_join_*`` slot forms over ``set_slots`` /
 ``scatter_slot_units``), the affine warp (``warp8x8_batch``) and the OBMC
-blend (``obmc_blend_batch``).
+blend (``obmc_blend_batch``). Blocks whose reference has another size
+than the frame run ``mc_scaled_batch``; super-resolution upscales a plane
+with ``resize_plane``.
 
 Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224, avg:589,
 w_avg:604, mask:620, w_mask:683, warp_affine_8x8:758 / 8x8t:793,
-blend_v:655 / blend_h:668.
+blend_v:655 / blend_h:668, put/prep_8tap_scaled:172/287, resize:877.
 """
 from __future__ import annotations
 
@@ -450,3 +452,118 @@ def obmc_blend_batch(plane, laps, ys, xs, lap_h: int, lap_w: int,
     reg = gather_units(plane, ys, xs, lap_h, lap_w).to(torch.int32)
     out = (reg * (64 - m) + laps * m + 32) >> 6
     return scatter_units(plane, out, ys, xs, lap_h, lap_w)
+
+
+# ---------------------------------------------------------------------
+# scaled-reference MC (dav1d mc_tmpl.c put/prep_8tap_scaled:172/287):
+# per-pixel source stepping as closed-form index/phase arrays
+# (xoff(x) = (posx_frac + x*dx) >> 10, ...) over a clamped window gather
+# ---------------------------------------------------------------------
+def _scaled_taps(src, off, axis, n_src):
+    """The 8 taps of each output position: (8 tensors) of src gathered
+    along `axis` (1 = rows, 2 = columns) at off + k, k = 0..7, clamped
+    into [0, n_src - 1] as the reference's gather clamps them. off:
+    (B, n) int32."""
+    B = src.shape[0]
+    ar8 = torch.arange(8, device=src.device, dtype=off.dtype)
+    ids = (off[:, :, None] + ar8).clamp(0, n_src - 1).long()   # (B, n, 8)
+    out = []
+    for k in range(8):
+        if axis == 2:
+            idx = ids[:, None, :, k].expand(B, src.shape[1], off.shape[1])
+        else:
+            idx = ids[:, :, None, k].expand(B, off.shape[1], src.shape[2])
+        out.append(torch.gather(src, axis, idx))
+    return out
+
+
+def mc_scaled_batch(ref_stack, args, uw: int, uh: int, win_w: int,
+                    win_h: int, bitdepth: int, prep: bool):
+    """args: (B, 9) [ref, top, left, mxf, myf, dx, dy, f2d, pad]; the
+    window of (win_h, win_w) is gathered at (top-3, left-3), clamped into
+    the reference; mxf/myf = pos & 0x3FF. Returns (B, uh, uw) int32:
+    pixels (put) or prep tmp."""
+    dev = ref_stack.device
+    ref_idx = args[:, 0].long()
+    top, left = args[:, 1], args[:, 2]
+    mxf, myf = args[:, 3], args[:, 4]
+    dx, dy = args[:, 5], args[:, 6]
+    f2d = args[:, 7].long()
+    H, W = ref_stack.shape[1], ref_stack.shape[2]
+    ib = ibits(bitdepth)
+    bias = 0 if bitdepth == 8 else 8192
+    irnd = (1 << ib) >> 1
+    bd_max = (1 << bitdepth) - 1
+
+    ar_h = torch.arange(win_h, device=dev, dtype=torch.int32)
+    ar_w = torch.arange(win_w, device=dev, dtype=torch.int32)
+    ys = (top[:, None] - 3 + ar_h[None, :]).clamp(0, H - 1).long()
+    xs = (left[:, None] - 3 + ar_w[None, :]).clamp(0, W - 1).long()
+    win = ref_stack[ref_idx[:, None, None], ys[:, :, None],
+                    xs[:, None, :]].to(torch.int32)
+
+    f2d_tab = _f2d_table(dev)
+    th, tv = f2d_tab[f2d, 0], f2d_tab[f2d, 1]
+
+    # ---- horizontal pass: mid (B, win_h, uw) ----
+    x = torch.arange(uw, device=dev, dtype=torch.int32)[None, :]
+    phx = mxf[:, None] + x * dx[:, None]                  # (B, uw)
+    subx = (phx & 0x3FF) >> 6
+    fh = _filters_for(th[:, None].expand(-1, uw), subx.clamp(min=1),
+                      uw <= 4)                            # (B, uw, 8)
+    taps = _scaled_taps(win, phx >> 10, 2, win_w)
+    filt = taps[0] * fh[:, None, :, 0]
+    for k in range(1, 8):
+        filt = filt + taps[k] * fh[:, None, :, k]
+    filt = (filt + ((1 << (6 - ib)) >> 1)) >> (6 - ib)
+    mid = torch.where((subx == 0)[:, None, :], taps[3] << ib, filt)
+
+    # ---- vertical pass ----
+    y = torch.arange(uh, device=dev, dtype=torch.int32)[None, :]
+    phy = myf[:, None] + y * dy[:, None]                  # (B, uh)
+    suby = (phy & 0x3FF) >> 6
+    fv = _filters_for(tv[:, None].expand(-1, uh), suby.clamp(min=1),
+                      uh <= 4)                            # (B, uh, 8)
+    tapsv = _scaled_taps(mid, phy >> 10, 1, win_h)
+    vfilt = tapsv[0] * fv[:, :, None, 0]
+    for k in range(1, 8):
+        vfilt = vfilt + tapsv[k] * fv[:, :, None, k]
+    vcopy = tapsv[3]
+    copy_row = (suby == 0)[:, :, None]
+    if prep:
+        return torch.where(copy_row, vcopy - bias,
+                           ((vfilt + 32) >> 6) - bias)
+    return torch.where(
+        copy_row, ((vcopy + irnd) >> ib).clamp(0, bd_max),
+        ((vfilt + ((1 << (6 + ib)) >> 1)) >> (6 + ib)).clamp(0, bd_max))
+
+
+# ---------------------------------------------------------------------
+# horizontal super-res resample (dav1d src/mc_tmpl.c resize:877). step
+# and mx0 are frame constants: the source columns and filter rows of each
+# output column are computed once on the host; the device runs one gather
+# and an 8-tap contraction.
+# ---------------------------------------------------------------------
+RESIZE_FILTER = np.asarray(TABLES["resize_filter"], np.int32)  # (64, 8)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(out_w: int, src_w: int, step: int, mx0: int, device):
+    """(source columns (out_w * 8,) int64, filter rows (out_w, 8) int32)
+    on `device`."""
+    xs = np.arange(out_w, dtype=np.int64)
+    phase = mx0 + xs * step
+    src_x = -1 + (phase >> 14)
+    fidx = (phase & 0x3FFF) >> 8
+    idx = np.clip(src_x[:, None] + np.arange(-3, 5)[None, :], 0, src_w - 1)
+    return (torch.from_numpy(idx.reshape(-1)).to(device),
+            torch.from_numpy(RESIZE_FILTER[fidx]).to(device))
+
+
+def resize_plane(src, out_w: int, src_w: int, step: int, mx0: int,
+                 bitdepth: int):
+    """src: (h, >= src_w) int32. Returns (h, out_w) int32 pixels."""
+    idx, f = _resize_taps(out_w, src_w, step, mx0, src.device)
+    g = src.index_select(1, idx).view(src.shape[0], out_w, 8)
+    acc = (g * f[None]).sum(dim=2, dtype=torch.int32)
+    return ((-acc + 64) >> 7).clamp(0, (1 << bitdepth) - 1)

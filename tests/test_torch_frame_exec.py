@@ -8,8 +8,10 @@ The filter chain's loop restoration (snap/lrw/lrs) runs on a program the
 port's LR planner packs for a synthetic frame, held to the same
 interpreter.
 
-Also: every op kind outside this slice raises NotImplementedError, and
-the int16 side buffer refuses values it would wrap."""
+Also: every op kind outside the port so far (the device intra engine's,
+and the reference's Pallas-only and dense forms) raises
+NotImplementedError, and the int16 side buffer refuses values it would
+wrap."""
 import sys
 from pathlib import Path
 from types import SimpleNamespace

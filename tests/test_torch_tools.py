@@ -10,8 +10,9 @@ on the CPU, exact against the JAX package:
   bit) against the JAX package's host reference path, and the committed
   tests/streams_torch streams against their recorded hashes (the 1080p
   one is decoded on the GPU only, by chip_smoke.py);
-- a scaled reference and a super-res frame still raise
-  NotImplementedError naming their ROADMAP item."""
+- references made a size other than the frame's (scaled MC of every tool)
+  and the super-res corpus stream decode as the JAX package decodes them
+  (tests/test_torch_superres.py holds the rest of that slice)."""
 import copy
 import sys
 from pathlib import Path
@@ -168,23 +169,42 @@ def test_chip_smoke_asserts_the_recorded_tools_hashes():
         assert name in md5 and (STREAMS / name).is_file()
 
 
+def _narrowed_refs_decode(api, mux, settings, frames):
+    """Decode frames[0], make every reference 16 columns narrower than
+    the frame, and decode frames[1]: every inter block of it, warp,
+    compound and OBMC ones too, reads a scaled reference."""
+    dec = api.Decoder(settings)
+    m = mux()
+    for i, fr in enumerate(frames[:2]):
+        if i:
+            for k, rb in enumerate(dec._refs):
+                if rb is not None:
+                    dec._refs[k] = copy.copy(rb)
+                    dec._refs[k].width -= 16
+        dec.send_data(fr.data)
+        while (pic := dec.get_picture()) is not None:
+            m.write(pic)
+    return m.digest(), m.n
+
+
 def test_scaled_reference_raises_naming_its_roadmap_item():
+    """Scaled MC (which raised NotImplementedError before its slice) on a
+    frame of every tool, against the JAX host reference path given the
+    same narrowed references."""
     _, data, _ = ts.build_tools_stream(MINI, 9)
     _, _, _, frames = parse_ivf(data)
-    dec = tapi.Decoder(tapi.Settings(device="cpu"))
-    dec.send_data(frames[0].data)
-    for i, rb in enumerate(dec._refs):
-        if rb is not None:
-            dec._refs[i] = copy.copy(rb)
-            dec._refs[i].width += 16
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        dec.send_data(frames[1].data)
+    want = _narrowed_refs_decode(japi, JMD5Muxer, japi.Settings(
+        use_tpu_inter=False, use_tpu_filters=False), frames)
+    got = _narrowed_refs_decode(tapi, MD5Muxer,
+                                tapi.Settings(device="cpu"), frames)
+    assert got == want and got[1] == 2
 
 
 def test_super_res_frame_raises_naming_its_roadmap_item():
+    """The super-res corpus stream (which raised NotImplementedError
+    before its slice) gives its md5.txt hash."""
     data = (STREAMS / "inter_superres.ivf").read_bytes()
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        _port(data)
+    assert _port(data) == (_md5_txt()["inter_superres.ivf"], 4)
 
 
 def test_gmv_warp_cache_ignores_a_reused_id():

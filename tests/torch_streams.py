@@ -1,13 +1,16 @@
 """Streams of the PyTorch port's tests (tests/streams_torch/): their
-configurations and the function that makes them.
+configurations and the functions that make them.
 
-Both streams take config 2's own parameters (bench.E2E_CONFIGS
+Every stream takes config 2's own parameters (bench.E2E_CONFIGS
 ["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80, switchable tx, deblock and
 CDEF). ``build_tools_stream`` is test_e2e_inter.build_stream with global
 motion added: that function codes none, so each inter frame's header gets
 random global-motion parameters (streamgen.make_random_gmv, as
-test_e2e_features does) for the references of GMV_TYPES. Written, with
-their md5, by tools_dev/gen_torch_streams.py.
+test_e2e_features does) for the references of GMV_TYPES.
+``build_superres_stream`` is test_e2e_inter.build_stream with a
+super-res denominator of its own on each inter frame (SUPERRES_DENOMS):
+that function codes one for all. Written, with their md5, by
+tools_dev/gen_torch_streams.py.
 """
 from __future__ import annotations
 
@@ -30,6 +33,13 @@ TOOLS = dict(CONFIG2, n_inter=4, order_hint=1, comp=True, jnt=1, masked=1,
 TOOLS_SEED = 9
 LOSSLESS = dict(CONFIG2, w=128, h=64, n_inter=3, q=0)
 LOSSLESS_SEED = 9
+# super-res: the keyframe coded at denominator 16 (half width), the inter
+# frames at SUPERRES_DENOMS (None: no super-res, every reference at the
+# frame's own size); compound, OBMC and inter-intra blocks
+SUPERRES = dict(CONFIG2, n_inter=4, sr=16, order_hint=1, comp=True, jnt=1,
+                masked=1, swmotion=True, interintra=1)
+SUPERRES_SEED = 9
+SUPERRES_DENOMS = (16, 12, None, 9)
 # global-motion type of each reference (LAST .. ALTREF)
 GMV_TYPES = (h.WM_TYPE_ROT_ZOOM, h.WM_TYPE_TRANSLATION, h.WM_TYPE_AFFINE,
              h.WM_TYPE_ROT_ZOOM, h.WM_TYPE_AFFINE, 0, h.WM_TYPE_ROT_ZOOM)
@@ -38,6 +48,7 @@ STREAMS = {
     # name: (md5 from the JAX package's host reference path, frames)
     "e2e_1080p_inter_tools.ivf": ("8e678ba92fc156763dac7dcfaae2e727", 5),
     "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5", 4),
+    "e2e_1080p_superres.ivf": ("c365d81ab907f53467bd0ae7762cb0ce", 5),
 }
 
 
@@ -66,4 +77,30 @@ def build_tools_stream(cfg, seed, gmv=True):
     if not gmv:
         return test_e2e_inter.build_stream(cfg, seed)
     with _global_motion(seed):
+        return test_e2e_inter.build_stream(cfg, seed)
+
+
+@contextlib.contextmanager
+def _superres_denoms(denoms):
+    orig = test_e2e_inter.make_inter_frame_hdr
+    left = list(denoms)
+
+    def with_denom(*args, **kw):
+        kw["superres_denom"] = left.pop(0)
+        return orig(*args, **kw)
+
+    test_e2e_inter.make_inter_frame_hdr = with_denom
+    try:
+        yield
+    finally:
+        test_e2e_inter.make_inter_frame_hdr = orig
+
+
+def build_superres_stream(cfg, seed, denoms=SUPERRES_DENOMS):
+    """test_e2e_inter.build_stream(cfg, seed) with inter frame i coded at
+    super-res denominator denoms[i] (None: none); cfg["sr"] is the
+    keyframe's. build_stream derives each frame's scaled references from
+    its own header. Returns (seq, ivf bytes, frames)."""
+    assert len(denoms) == cfg["n_inter"]
+    with _superres_denoms(denoms):
         return test_e2e_inter.build_stream(cfg, seed)

@@ -3,23 +3,29 @@
 
     python tools_dev/gen_torch_streams.py [--seed N]
 
-Run from the repo root. Two streams, both from config 2's own parameters
-(bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80, switchable
-tx, deblock and CDEF), made by tests/torch_streams.build_tools_stream
-(tests/test_e2e_inter.build_stream with random global motion on each
-inter frame):
+Run from the repo root. Three streams, all from config 2's own
+parameters (bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80,
+switchable tx, deblock and CDEF), made by tests/torch_streams.py:
 
-- e2e_1080p_inter_tools.ivf: 1920x1080, a keyframe and 4 inter frames
-  with order hints, compound references (distance weights, wedge and
-  difference-weighted masks), local and global warped motion, OBMC and
-  inter-intra;
-- lossless_128x64.ivf: 128x64 at q 0, 4 frames (lossless WHT residuals).
+- e2e_1080p_inter_tools.ivf (build_tools_stream: tests/test_e2e_inter.
+  build_stream with random global motion on each inter frame):
+  1920x1080, a keyframe and 4 inter frames with order hints, compound
+  references (distance weights, wedge and difference-weighted masks),
+  local and global warped motion, OBMC and inter-intra;
+- lossless_128x64.ivf: 128x64 at q 0, 4 frames (lossless WHT residuals);
+- e2e_1080p_superres.ivf (build_superres_stream): 1920x1080, a keyframe
+  coded at super-res denominator 16 and 4 inter frames coded at
+  denominators 16, 12, none and 9 (coded widths 960, 1280, 1920, 1707),
+  with compound references, OBMC and inter-intra.
 
 Each is decoded by the JAX package's host reference path
 (Settings(use_tpu_inter=False, use_tpu_filters=False)); its md5 is
-printed, with the count of each block family of the inter frames. The
-tools stream's seed must give every family at least one block: the
-script fails otherwise.
+printed, with the count of each block family of the inter frames, and
+for the super-res stream the coded width of each frame and the count of
+scaled puts, scaled compound sides and scaled OBMC laps by horizontal
+step. The tools stream's seed must give every family at least one
+block, and the super-res stream's every kind of scaled MC: the script
+fails otherwise.
 """
 import argparse
 import hashlib
@@ -65,21 +71,45 @@ def _families(fhdr, coders, counts):
                 counts["global warp"] = counts.get("global warp", 0) + 1
 
 
+# kinds of scaled MC the super-res stream must contain
+SCALED = ("scaled put", "scaled comp side", "scaled obmc lap")
+
+
 def reference_md5(data):
-    """(md5, frames, family counts) from the JAX host reference path."""
+    """(md5, frames, family counts) from the JAX host reference path. The
+    counts also hold the coded widths ("widths") and the scaled MC calls
+    by kind and horizontal step ("scaled put step 2048", ...)."""
     import dav1d_mirror_tpu.api as japi
     from dav1d_mirror_tpu.models import ref_decoder as rd
     from dav1d_mirror_tpu.output import MD5Muxer
     from dav1d_mirror_tpu.host.ivf import parse_ivf
-    counts = {}
-    orig = rd.recon_frame
+    counts = {"widths": []}
+    orig = rd.recon_frame, rd._mc_scaled, rd._obmc
+    in_obmc = [False]
 
     def spy(seq, fhdr, coders, *args, **kw):
+        counts["widths"].append(fhdr.width[0])
         if fhdr.frame_type not in (0, 2):
             _families(fhdr, coders, counts)
-        return orig(seq, fhdr, coders, *args, **kw)
+        return orig[0](seq, fhdr, coders, *args, **kw)
 
-    rd.recon_frame = spy
+    def spy_scaled(*args):
+        prep, step = args[-1], args[-2]
+        kind = ("scaled obmc lap" if in_obmc[0] else
+                "scaled comp side" if prep else "scaled put")
+        k = f"{kind} step {step[0]}"
+        counts[k] = counts.get(k, 0) + 1
+        counts[kind] = counts.get(kind, 0) + 1
+        return orig[1](*args)
+
+    def spy_obmc(*args):
+        in_obmc[0] = True
+        try:
+            return orig[2](*args)
+        finally:
+            in_obmc[0] = False
+
+    rd.recon_frame, rd._mc_scaled, rd._obmc = spy, spy_scaled, spy_obmc
     try:
         _, _, _, frames = parse_ivf(data)
         dec = japi.Decoder(japi.Settings(use_tpu_inter=False,
@@ -90,7 +120,7 @@ def reference_md5(data):
             while (pic := dec.get_picture()) is not None:
                 mux.write(pic)
     finally:
-        rd.recon_frame = orig
+        rd.recon_frame, rd._mc_scaled, rd._obmc = orig
     return mux.digest(), mux.n, counts
 
 
@@ -105,21 +135,35 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     os.makedirs(ts.DIR, exist_ok=True)
-    jobs = (("e2e_1080p_inter_tools.ivf", ts.TOOLS, opts.seed, True),
-            ("lossless_128x64.ivf", ts.LOSSLESS, ts.LOSSLESS_SEED, False))
+    jobs = (("e2e_1080p_inter_tools.ivf",
+             lambda: ts.build_tools_stream(ts.TOOLS, opts.seed)),
+            ("lossless_128x64.ivf",
+             lambda: ts.build_tools_stream(ts.LOSSLESS, ts.LOSSLESS_SEED,
+                                           False)),
+            ("e2e_1080p_superres.ivf",
+             lambda: ts.build_superres_stream(ts.SUPERRES,
+                                              ts.SUPERRES_SEED)))
     ok = True
-    for name, cfg, seed, gmv in jobs:
-        _, data, n = ts.build_tools_stream(cfg, seed, gmv)
+    for name, build in jobs:
+        _, data, n = build()
         with open(ts.DIR / name, "wb") as f:
             f.write(data)
         md5, n_pics, counts = reference_md5(data)
         assert n_pics == n, (name, n_pics, n)
-        print(f"{name}: seed {seed}, {len(data)} bytes, {n_pics} frames, "
+        print(f"{name}: {len(data)} bytes, {n_pics} frames, "
               f"file md5 {hashlib.md5(data).hexdigest()}")
         print(f"  families: " + ", ".join(
             f"{k} {counts.get(k, 0)}" for k in FAMILIES))
         print(f"  decoded md5 {md5}")
-        if name.startswith("e2e_1080p"):
+        if name.startswith("e2e_1080p_superres"):
+            print(f"  coded widths {counts['widths']}")
+            print("  " + ", ".join(f"{k} {v}" for k, v in sorted(
+                counts.items()) if k.startswith("scaled")))
+            missing = [k for k in SCALED if not counts.get(k)]
+            if missing:
+                print(f"  MISSING scaled MC: {missing}")
+                ok = False
+        elif name.startswith("e2e_1080p"):
             missing = [k for k in FAMILIES if not counts.get(k)]
             if missing:
                 print(f"  MISSING families: {missing}")
