@@ -28,11 +28,17 @@ Run from the root of a checkout. It
    sides and OBMC laps must run. Each path also runs a staged pass for
    its stage split (the tools and super-res streams' hash a second
    time). Config 3 is decoded once more without grain, each picture then
-   grained by ``Decoder.apply_grain``. Small streams are decoded on the
-   card as well: two corpus streams with self-guided and switchable
-   restoration, five with compound, warp and OBMC blocks and one with
-   super-res (tests/streams, against tests/streams/md5.txt), and a
-   lossless one (tests/streams_torch/lossless_128x64.ivf);
+   grained by ``Decoder.apply_grain``. The engine path is config 2 with
+   ``Settings(intra_engine=True)``, decoded three times (plain, staged,
+   and counting the eager ops of each frame's wave scan): the keyframe
+   must run the device intra engine's own program and every inter frame
+   its scan inside the frame's program, with no host pass 2. Small
+   streams are decoded on the card as well: two corpus streams with
+   self-guided and switchable restoration, five with compound, warp and
+   OBMC blocks and one with super-res (tests/streams, against
+   tests/streams/md5.txt), a lossless one (tests/streams_torch/
+   lossless_128x64.ivf), and six intra and inter corpus streams on both
+   routes; the CLI decodes one with ``--intraengine`` as a subprocess;
 3. runs each kernel's wrapper on the card at the shapes config 2 gave
    it, for bit depths 8/10/12, every unit size, put and prep, and at the
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
@@ -45,7 +51,13 @@ Run from the root of a checkout. It
    count) and with a cold L2 (a 256 MB write queued before each timed
    launch), beside an empty kernel's launch floor;
 4. prints the kernel table (ms in the JSON line is the warm time), each
-   path's per-frame times, op kinds per frame and stage split, one JSON
+   path's per-frame times, op kinds per frame and stage split, the
+   engine path's waves, units and eager ops per wave beside the hybrid
+   route's times;
+5. decodes fuzzed copies of two corpus streams (the mutation loop of
+   tests/test_error_containment.py) on both routes, on the card and on
+   the CPU, and requires equal outcomes (md5, and which temporal units
+   raised a contained error), then a clean decode; and prints one JSON
    line of kernel numbers, the card's name and power limit, and as the
    last line the device JSON.
 
@@ -101,6 +113,19 @@ TOOLS_CORPUS = ("inter_compound_oh.ivf", "inter_warp_obmc.ivf",
 STREAM4 = os.path.join(HERE, "bench_cache",
                        "e2e_4k_10bit_multitile_479aaf4a51e3.ivf")
 CONFIG4_MD5 = "c00e0479951b96933a8284c9b4ab0366"
+# streams decoded on both routes (hybrid, then the device intra engine)
+# against tests/streams/md5.txt
+ENGINE_CORPUS = ("intra_420_8bit.ivf", "intra_444_10bit.ivf",
+                 "intra_filter_pal.ivf", "intra_sb128_lr.ivf",
+                 "inter_basic.ivf", "multitile_2x2.ivf")
+# the CLI run on the card (md5.txt's hash of the stream)
+CLI_STREAM = ("intra_filter_pal.ivf", "3100692804dd29c7aa78ff45db91aea7")
+# the fuzz phase: mutated copies of each stream (the mutation loop of
+# tests/test_error_containment.py), each decoded on both routes on the
+# card and on the CPU
+FUZZ_STREAMS = ("intra_420_8bit.ivf", "inter_basic.ivf")
+FUZZ_COPIES = 12
+FUZZ_SEED = 2026
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
@@ -141,10 +166,16 @@ class ShapeLog:
     device put, host blend) it finished and to record each frame's coded
     and output widths."""
 
-    def __init__(self, mc_cuda, frame_exec, api):
+    def __init__(self, mc_cuda, frame_exec, api, intra=None):
         self.mc_cuda = mc_cuda
         self.frame_exec = frame_exec
         self.api = api
+        self.intra = intra
+        self.routes = []     # per frame: "intra", "mixed" or "hybrid"
+        self.full_device = []  # per frame: no host pass 2
+        self.scans = []      # per frame: [(waves, units, filter cells)]
+        self.scan_ops = []   # per frame: eager ops of its scans (counted)
+        self.count_ops = None  # an op-counting dispatch mode class
         self.hplanes = []   # (R, H, W, C, bd)
         self.vpass = []     # (B, uw, uh, C, H, w_mid, bd)
         self.vpass_args = {}  # (uw, uh) -> (args, bd) of its largest put
@@ -153,13 +184,17 @@ class ShapeLog:
         self.ii_blocks = 0   # inter-intra blocks of the decode
         self.widths = []     # per frame: (coded width, output width)
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
-                      frame_exec.execute_program, api.execute_frame_program)
+                      frame_exec.execute_program, api.execute_frame_program,
+                      api.run_intra_frame,
+                      intra.intra_scan if intra else None)
 
     def on_frame(self, i):
         self.frame_ops.append({})
+        self.scans.append([])
+        self.scan_ops.append(0)
 
     def __enter__(self):
-        hp, vp, ex, ef = self._orig
+        hp, vp, ex, ef, ri, scan = self._orig
 
         def rec_ex(sig, *args):
             ops = self.frame_ops[-1]
@@ -181,7 +216,26 @@ class ShapeLog:
             self.widths.append(tuple(fhdr.width))
             self.ii_blocks += sum(int((dd == 2).sum())
                                   for dd in built.dd_per)
+            self.routes.append("mixed" if built.intra_engine else "hybrid")
+            self.full_device.append(bool(built.full_device))
             return ef(built, seq, fhdr, *args)
+
+        def rec_ri(prog, bufs, device):
+            self.widths.append(tuple(bufs.fhdr.width))
+            self.routes.append("intra")
+            self.full_device.append(True)
+            return ri(prog, bufs, device)
+
+        def rec_scan(planes, res, mrows, moffs, frows, foffs, *args):
+            self.scans[-1].append((len(moffs) - 1, int(mrows.shape[0]),
+                                   int(frows.shape[0])))
+            if self.count_ops is None:
+                return scan(planes, res, mrows, moffs, frows, foffs, *args)
+            counter = self.count_ops()
+            with counter:
+                out = scan(planes, res, mrows, moffs, frows, foffs, *args)
+            self.scan_ops[-1] += counter.n
+            return out
 
         def rec_hp(ref_stack, combos, bd):
             self.hplanes.append(tuple(ref_stack.shape) +
@@ -207,12 +261,116 @@ class ShapeLog:
         self.mc_cuda.mc_unit_batch_hv = rec_vp
         self.frame_exec.execute_program = rec_ex
         self.api.execute_frame_program = rec_ef
+        self.api.run_intra_frame = rec_ri
+        if self.intra is not None:
+            self.intra.intra_scan = rec_scan
         return self
 
     def __exit__(self, *exc):
         (self.mc_cuda.mc_hplanes, self.mc_cuda.mc_unit_batch_hv,
          self.frame_exec.execute_program,
-         self.api.execute_frame_program) = self._orig
+         self.api.execute_frame_program, self.api.run_intra_frame,
+         scan) = self._orig
+        if self.intra is not None:
+            self.intra.intra_scan = scan
+
+
+def op_counter(torch):
+    """A dispatch mode that counts the aten ops issued inside it: every
+    eager op the host dispatches, views included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    return OpCount
+
+
+def check_engine_routes(shapes, name):
+    """On a decode with the intra engine on: a frame on the engine's own
+    route ("intra") or in an inter frame's program ("mixed") ran one
+    intrascan and no host pass 2; a "hybrid" frame ran none. Returns
+    {route: frames}."""
+    for i, (route, full, ops) in enumerate(zip(
+            shapes.routes, shapes.full_device, shapes.frame_ops)):
+        if route == "hybrid":
+            assert "intrascan" not in ops, (name, i, ops)
+        else:
+            assert ops.get("intrascan") == 1 and full, (name, i, route, ops)
+    return {r: shapes.routes.count(r) for r in ("intra", "mixed", "hybrid")}
+
+
+def mutate(np, units, rng):
+    """One fuzzed copy of a stream's temporal units: per OBU, with
+    probability 1/2, a truncation or a bit flip (the mutation loop of
+    tests/test_error_containment.py)."""
+    out = []
+    for obus in units:
+        mut = []
+        for o in obus:
+            o = bytearray(o)
+            if len(o) and rng.random() < 0.5:
+                if rng.random() < 0.5 and len(o) > 2:
+                    o = o[:rng.integers(1, len(o))]   # truncate
+                else:
+                    o[rng.integers(0, len(o))] ^= \
+                        1 << rng.integers(0, 8)       # bit flip
+            mut.append(bytes(o))
+        out.append(mut)
+    return out
+
+
+def fuzz_outcome(api, MD5Muxer, units, device, engine):
+    """Decode fuzzed units: (per temporal unit "E" for a contained error or
+    the pictures it gave, md5 of every picture, pictures)."""
+    dec = api.Decoder(api.Settings(device=device, logger=None,
+                                   apply_grain=False, intra_engine=engine))
+    mux = MD5Muxer()
+    per_tu = []
+    for obus in units:
+        try:
+            dec.send_obus(obus)
+            err = False
+        except api.DecodeError:
+            err = True
+        n = 0
+        while (pic := dec.get_picture()) is not None:
+            mux.write(pic)
+            n += 1
+        per_tu.append("E" if err else n)
+    return tuple(per_tu), mux.digest(), mux.n
+
+
+def fuzz_phase(api, MD5Muxer, torch, np, open_demuxer):
+    """Every fuzzed copy, on both routes: the outcome on the card equals
+    the outcome on the CPU. Returns (copies, decodes, copies with an
+    error, seconds)."""
+    t0 = time.perf_counter()
+    n_copies = n_dec = n_err = 0
+    for si, name in enumerate(FUZZ_STREAMS):
+        with open(os.path.join(STREAMS, name), "rb") as f:
+            units = list(open_demuxer(f.read())[1])
+        rng = np.random.default_rng(FUZZ_SEED + si)
+        for trial in range(FUZZ_COPIES):
+            copy = mutate(np, units, rng)
+            n_copies += 1
+            erred = False
+            for engine in (False, True):
+                got = fuzz_outcome(api, MD5Muxer, copy, "cuda", engine)
+                torch.cuda.synchronize()
+                want = fuzz_outcome(api, MD5Muxer, copy, "cpu", engine)
+                n_dec += 2
+                assert got == want, (
+                    f"fuzz {name} copy {trial} engine {engine}: card "
+                    f"{got} != CPU {want}")
+                erred |= "E" in got[0]
+            n_err += erred
+    return n_copies, n_dec, n_err, time.perf_counter() - t0
 
 
 def decode(api, MD5Muxer, frames, torch, on_frame=None, **settings):
@@ -671,8 +829,9 @@ def main():
 
     import numpy as np
     from dav1d_mirror_tpu_torch import api
+    from dav1d_mirror_tpu_torch.host.demux import open_demuxer
     from dav1d_mirror_tpu_torch.host.ivf import parse_ivf
-    from dav1d_mirror_tpu_torch.models import frame_exec
+    from dav1d_mirror_tpu_torch.models import frame_exec, intra
     from dav1d_mirror_tpu_torch.ops import mc, mc_cuda
     from dav1d_mirror_tpu_torch.output import MD5Muxer
     from dav1d_mirror_tpu_torch.utils import stages
@@ -699,6 +858,31 @@ def main():
     (digest2, _, times2), split = staged(
         stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
+
+    # ---- the engine path: config 2 with the device intra engine, twice
+    # (the second pass staged), then a third pass counting the eager ops
+    # of each frame's wave scan ----
+    with ShapeLog(mc_cuda, frame_exec, api, intra) as shapes_e:
+        (d_e, n_e, times_e), launches_e = counted(lambda: decode(
+            api, MD5Muxer, frames, torch, shapes_e.on_frame,
+            intra_engine=True))
+    assert n_e == 9 and d_e == STREAM_MD5, f"engine md5 {d_e} ({n_e})"
+    # the same MC work as the hybrid route: 176 launches of each kernel
+    assert launches_e == launches, (launches_e, launches)
+    routes_e = check_engine_routes(shapes_e, "config 2 engine")
+    # the keyframe on the engine's own route, and every inter frame
+    # eligible (plain intra blocks only) and full-device
+    assert routes_e == {"intra": 1, "mixed": 8, "hybrid": 0}, routes_e
+    (d_es, _, times_es), split_e = staged(stages, lambda: decode(
+        api, MD5Muxer, frames, torch, intra_engine=True))
+    assert d_es == STREAM_MD5, f"engine md5 {d_es} (staged pass)"
+    assert "host-pass2" not in split_e, split_e
+    with ShapeLog(mc_cuda, frame_exec, api, intra) as shapes_c:
+        shapes_c.count_ops = op_counter(torch)
+        d_c, _, _ = decode(api, MD5Muxer, frames, torch, shapes_c.on_frame,
+                           intra_engine=True)
+    assert d_c == STREAM_MD5, f"engine md5 {d_c} (op-counting pass)"
+    assert shapes_c.scans == shapes_e.scans, "the scans differ by pass"
 
     # ---- config 3 path: with grain, without grain, staged ----
     with open(STREAM3, "rb") as f:
@@ -821,6 +1005,38 @@ def main():
         print(f"{name}: md5 {d} as in md5.txt, {n} frames, ops {kinds}, "
               f"coded/output widths {c_shapes.widths}")
 
+    # ---- the intra corpus streams on both routes ----
+    for name in ENGINE_CORPUS:
+        with open(os.path.join(STREAMS, name), "rb") as f:
+            _, _, _, fr = parse_ivf(f.read())
+        for engine in (False, True):
+            with ShapeLog(mc_cuda, frame_exec, api, intra) as c_shapes:
+                d, n, _ = decode(api, MD5Muxer, fr, torch,
+                                 c_shapes.on_frame, apply_grain=False,
+                                 intra_engine=engine)
+            assert d == corpus_md5[name], f"{name} engine {engine}: md5 {d}"
+            rts = check_engine_routes(c_shapes, name)
+            if engine:
+                assert c_shapes.routes[0] == "intra", c_shapes.routes
+            else:
+                assert rts["hybrid"] == n, rts
+            print(f"{name}: md5 {d} as in md5.txt on the "
+                  f"{'engine' if engine else 'hybrid'} route, {n} frames, "
+                  f"routes {rts}, scans (waves, units, filter cells) "
+                  f"{[x for sc in c_shapes.scans for x in sc]}")
+
+    # ---- the CLI on the card, with the engine ----
+    t0 = time.perf_counter()
+    cli_cmd = [sys.executable, "-m", "dav1d_mirror_tpu_torch.cli", "-i",
+               os.path.join("tests", "streams", CLI_STREAM[0]), "--muxer",
+               "md5", "--verify", CLI_STREAM[1], "--intraengine"]
+    r = subprocess.run(cli_cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, (r.returncode, r.stdout, r.stderr[-3000:])
+    print(f"cli: {' '.join(cli_cmd[1:])} exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + " / ".join(r.stderr.strip().splitlines()[-2:]))
+
     # ---- config 4: 4K 10-bit, 2x2 tiles ----
     with open(STREAM4, "rb") as f:
         _, _, _, frames4 = parse_ivf(f.read())
@@ -846,6 +1062,7 @@ def main():
         r["launches_tools"] = launches_t[r["name"]]
         r["launches_config4"] = launches4[r["name"]]
         r["launches_superres"] = launches_s[r["name"]]
+        r["launches_engine"] = launches_e[r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -857,13 +1074,15 @@ def main():
               f"{r['launches_config3']} in the config 3 decode, "
               f"{r['launches_tools']} in the tools decode, "
               f"{r['launches_config4']} in the config 4 decode, "
-              f"{r['launches_superres']} in the super-res decode")
+              f"{r['launches_superres']} in the super-res decode, "
+              f"{r['launches_engine']} in the config 2 engine decode")
         for c in r["cases"]:
             if c.startswith(("config 3", "tools", "superres")):
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_config3", "launches_tools", "launches_config4",
-            "launches_superres", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_superres", "launches_engine", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
@@ -887,7 +1106,25 @@ def main():
               f"{t * 1e3:.1f} ms): " + ", ".join(
                   f"{k} {v * 1e3:.1f} ms ({100 * v / t:.1f}%)"
                   for k, v in sorted(sp.items(), key=lambda kv: -kv[1])))
+    report_path("config 2 engine", frames, times_e, shapes_e, launches_e,
+                {"expected": STREAM_MD5, "got": d_e, "staged": d_es},
+                split_e, sum(times_es))
+    print(f"config 2 engine routes: {routes_e}")
+    for i, (t, sc, n_ops) in enumerate(zip(times_e, shapes_c.scans,
+                                           shapes_c.scan_ops)):
+        waves = sum(w for w, _, _ in sc)
+        print(f"config 2 engine frame {i} ({shapes_e.routes[i]}): "
+              f"{t * 1e3:.1f} ms, {waves} waves, "
+              f"{sum(u for _, u, _ in sc)} units, "
+              f"{sum(c for _, _, c in sc)} filter cells, {n_ops} eager ops "
+              f"in its scan, {n_ops / max(waves, 1):.1f} per wave")
     steady = times[2:]
+    steady_e = times_e[2:]
+    print(f"engine vs hybrid, config 2, this call: frame 0 "
+          f"{times_e[0] * 1e3:.1f} ms vs {times[0] * 1e3:.1f} ms; frame 1 "
+          f"{times_e[1] * 1e3:.1f} ms vs {times[1] * 1e3:.1f} ms; steady fps "
+          f"(frames 2-8) {len(steady_e) / sum(steady_e):.3f} vs "
+          f"{len(steady) / sum(steady):.3f}")
     if opts.profile:
         per_frame = profile_frames(torch, api, MD5Muxer, frames,
                                    opts.profile)
@@ -896,6 +1133,20 @@ def main():
               ", ".join(f"{k} {v:.3f} ({100 * v / frame_ms:.3f}% of the "
                         f"{frame_ms:.1f} ms steady frame)"
                         for k, v in per_frame.items()))
+
+    # ---- fuzz: corrupt streams decode on the card as on the CPU,
+    # and a clean decode still matches after them ----
+    n_copies, n_dec, n_err, fuzz_s = fuzz_phase(api, MD5Muxer, torch, np,
+                                                open_demuxer)
+    with open(os.path.join(STREAMS, "inter_basic.ivf"), "rb") as f:
+        _, _, _, fr = parse_ivf(f.read())
+    d, _, _ = decode(api, MD5Muxer, fr, torch, apply_grain=False)
+    assert d == corpus_md5["inter_basic.ivf"], f"inter_basic after fuzz {d}"
+    print(f"fuzz: {n_copies} mutated copies of {', '.join(FUZZ_STREAMS)} "
+          f"(seed {FUZZ_SEED}), {n_dec} decodes on both routes, the card's "
+          f"outcome equal to the CPU's in every one, {n_err} copies with a "
+          f"contained error; {fuzz_s:.1f} s; inter_basic after it: md5 {d} "
+          f"as in md5.txt")
 
     # ---- 4. result lines ----
     print(json.dumps({"kernels": table}))

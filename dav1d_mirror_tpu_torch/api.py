@@ -2,19 +2,25 @@
 
 Port of ``dav1d_mirror_tpu/api.py``. A `Decoder` is opened with
 `Settings`, fed temporal units with `send_data`, and produces `Picture`s
-from `get_picture`; `flush` resets in-flight state for seeking. Every
-frame takes the hybrid device route: native entropy decode on the host,
-the frame's pixel program on the device (models/inter), the intra blocks
-in the native host walk, then deblock, CDEF, super-resolution and loop
-restoration on the device (models/filters). A super-res frame is
+from `get_picture`; `flush` resets in-flight state for seeking. By default
+every frame takes the hybrid device route: native entropy decode on the
+host, the frame's pixel program on the device (models/inter), the intra
+blocks in the native host walk, then deblock, CDEF, super-resolution and
+loop restoration on the device (models/filters). With
+``Settings.intra_engine`` the device intra engine (models/intra)
+reconstructs the intra blocks instead: a frame whose blocks are all intra
+runs the engine's own program, and an inter frame whose only host work
+would be plain intra blocks runs it inside its pixel program, so neither
+downloads its planes before the filters. A super-res frame is
 reconstructed at its coded width and leaves the filter chain upscaled;
 references, outputs and grain see the upscaled planes. With
 ``Settings.apply_grain`` (the default) a frame that carries film grain is
 grained on the device on its way out (ops/filmgrain); the reference
 planes stay grain-free. ``Decoder.apply_grain`` grains a decoded picture
 on its own (dav1d_apply_grain). Frames decode in
-order, synchronously; the reference's entropy-vs-pixels pipelining
-(``n_threads``, ``max_frame_delay``) is not ported yet.
+order, synchronously; the reference's entropy-vs-pixels pipelining is not
+ported yet, so ``n_threads`` and ``max_frame_delay`` are validated and
+otherwise ignored.
 
 The device is `Settings.device` ("cuda" by default). Asking for CUDA
 where PyTorch has none raises; nothing falls back to the CPU.
@@ -44,6 +50,8 @@ from .models.filters import apply_inloop_filters
 from .models.frame_buffers import FrameBuffers, _tile_payload
 from .models.frame_exec import plane_to_torch
 from .models.inter import build_frame_program, execute_frame_program
+from .models.intra import build_intra_frame, run_intra_frame
+from .models.plan_vec import all_intra
 from .ops.filmgrain import apply_film_grain
 from .utils import stages
 
@@ -67,6 +75,10 @@ EVENT_FLAG_NEW_OP_PARAMS_INFO = 2
 @dataclass
 class Settings:
     """Analogue of Dav1dSettings (include/dav1d/dav1d.h:78-99)."""
+    # accepted and validated for parity (get_frame_delay); the in-order
+    # decode ignores them until the pipelining is ported
+    n_threads: int = 0
+    max_frame_delay: int = 0
     apply_grain: bool = True
     operating_point: int = 0
     all_layers: bool = True
@@ -80,6 +92,10 @@ class Settings:
     logger: object = "default"
     # torch device of the pixel stage
     device: str = "cuda"
+    # the device intra engine (models/intra) for the intra blocks; the
+    # reference's use_tpu_intra_engine. None (auto) and False take the
+    # hybrid route (intra blocks in the native host walk)
+    intra_engine: bool | None = None
 
 
 @dataclass
@@ -101,6 +117,32 @@ class Picture:
     new_temporal_unit: bool = False
 
 
+def get_frame_delay(settings: Settings | None = None) -> int:
+    """dav1d_get_frame_delay (include/dav1d/dav1d.h:323): how many
+    frames a decoder opened with these settings may buffer internally
+    before get_picture returns the first one."""
+    s = settings or Settings()
+    if s.max_frame_delay < 0 or s.max_frame_delay > 256 or \
+            s.n_threads < 0 or s.n_threads > 256:
+        raise ValueError("invalid settings")
+    if s.n_threads > 1 or s.max_frame_delay > 1:
+        return max(s.max_frame_delay, 2)
+    return 1
+
+
+def parse_sequence_header(data: bytes) -> h.SequenceHeader:
+    """dav1d_parse_sequence_header: scan OBUs for a sequence header."""
+    st = obu_mod.ObuState()
+    for _, obu_data in split_obus(data):
+        try:
+            obu_mod.parse_obus(st, obu_data)
+        except obu_mod.ParseError:
+            continue
+        if st.seq_hdr is not None:
+            return st.seq_hdr
+    raise DecodeError("no sequence header")
+
+
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device must exist."""
     dev = torch.device(device)
@@ -117,6 +159,7 @@ class Decoder:
         self.s = settings or Settings()
         if self.s.frame_size_limit and self.s.frame_size_limit < 0:
             raise ValueError("invalid frame_size_limit")
+        get_frame_delay(self.s)     # validates n_threads, max_frame_delay
         self.device = resolve_device(self.s.device)
         if not native_tile.available():
             raise RuntimeError("native tile walk unavailable")
@@ -168,10 +211,10 @@ class Decoder:
         """Feed individual complete OBUs (with or without size fields).
 
         Errors are CONTAINED (dav1d abort_frame): a frame that fails to
-        parse or decode poisons the reference slots it would have
-        refreshed and raises DecodeError, but the decoder object stays
-        consistent. A stream feature this package does not decode yet
-        raises NotImplementedError as it is."""
+        parse or decode, for whatever reason, poisons the reference slots
+        it would have refreshed and raises DecodeError, but the decoder
+        object stays consistent: feeding the next keyframe (or calling
+        flush()) resumes normal operation."""
         prev_seq = self._st.seq_hdr
         for obu_data in obus:
             try:
@@ -186,8 +229,6 @@ class Decoder:
                 self._st.frame_ready = False
                 try:
                     self._handle_frame()
-                except NotImplementedError:
-                    raise
                 except Exception as e:
                     self._contain_error(e)
 
@@ -416,10 +457,19 @@ class Decoder:
         # work buffers at the coded width (fhdr.width[0]); the filter
         # chain returns the final ones, upscaled on a super-res frame
         bufs = FrameBuffers(seq, fhdr)
-        with stages.scope("plan"):
-            built = build_frame_program(seq, fhdr, coders, bufs, refs,
-                                        jnt_weights)
-        execute_frame_program(built, seq, fhdr, coders, bufs, self.device)
+        if self.s.intra_engine and all_intra(coders):
+            # the device intra engine's own program (models/intra)
+            with stages.scope("plan"):
+                prog = build_intra_frame(seq, fhdr, coders, bufs)
+            with stages.scope("device", self.device):
+                run_intra_frame(prog, bufs, self.device)
+        else:
+            with stages.scope("plan"):
+                built = build_frame_program(
+                    seq, fhdr, coders, bufs, refs, jnt_weights,
+                    intra_engine=bool(self.s.intra_engine))
+            execute_frame_program(built, seq, fhdr, coders, bufs,
+                                  self.device)
         with stages.scope("filters", self.device):
             bufs = apply_inloop_filters(seq, fhdr, coders, bufs,
                                         self.device,

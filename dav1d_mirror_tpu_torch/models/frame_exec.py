@@ -12,8 +12,10 @@ filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
 from a reference of another size), ``comp`` (average, distance-weighted,
 wedge and seg joins), ``obmc``, ``residmc``, ``residc`` and ``hresc``
 (lossless WHT), ``hresmc``, ``dbk``, ``snap``, ``cdef``, ``sres``
-(super-resolution), ``lrw``, ``lrs`` and ``out``. Every other kind raises
-``NotImplementedError`` naming its ROADMAP item, before any op runs.
+(super-resolution), ``lrw``, ``lrs`` and ``out``, and the device intra
+engine's (models/intra): ``embed``, ``palset``, ``newres``, ``resrawmc``
+and ``resrawc`` (residual planes), ``intrascan`` and ``crop``. Every other
+kind raises ``NotImplementedError`` saying why, before any op runs.
 
 Ops update the planes in place, in the reference's op order: puts and
 warps, compound blocks, OBMC laps (top, then left), then residuals. An op
@@ -36,6 +38,7 @@ from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
                       mc_scaled_batch, mc_unit_batch, obmc_blend_batch,
                       resize_plane, scatter_slot_units, scatter_units,
                       set_slots, unit_index, warp8x8_batch)
+from . import intra
 
 
 # int16 OOB sentinel for destination rows: PAD_OOB (1 << 20) marks
@@ -90,21 +93,27 @@ def _expand_cf(vals, pos, sh: int, sw: int):
 
 
 def _resid_scatter_multi(plane, cfs, rsel, csel, ys, xs, tx: int,
-                         bitdepth: int):
+                         bitdepth: int, add: bool = True):
     """Inverse-transform one bucket and clip-add it onto the plane at
-    (ys, xs). Pad rows carry PAD_OOB ys: masked out of both the read and
-    the write. Updates the plane IN PLACE (one bucket touches a sliver
-    of it) and returns it."""
-    return _add_units(plane, _residual_multi_core(cfs, rsel, csel, tx,
-                                                  bitdepth), ys, xs, bitdepth)
+    (ys, xs) (add=True, the inter program), or write it there raw
+    (add=False, the intra engine's residual planes). Pad rows carry
+    PAD_OOB ys: masked out of both the read and the write. Updates the
+    plane IN PLACE (one bucket touches a sliver of it) and returns it."""
+    res = _residual_multi_core(cfs, rsel, csel, tx, bitdepth)
+    if not add:
+        return scatter_units(plane, res, ys, xs, res.shape[1], res.shape[2])
+    return _add_units(plane, res, ys, xs, bitdepth)
 
 
-def _resid_scatter(plane, cfs, ys, xs, tx: int, txtp: int, bitdepth: int):
+def _resid_scatter(plane, cfs, ys, xs, tx: int, txtp: int, bitdepth: int,
+                   add: bool = True):
     """One-type bucket (the lossless WHT buckets): inverse-transform and
-    clip-add onto the plane at (ys, xs), in place, as
-    _resid_scatter_multi."""
-    return _add_units(plane, _residual_core(cfs, tx, txtp, bitdepth), ys, xs,
-                      bitdepth)
+    clip-add onto (or, add=False, write into) the plane at (ys, xs), in
+    place, as _resid_scatter_multi."""
+    res = _residual_core(cfs, tx, txtp, bitdepth)
+    if not add:
+        return scatter_units(plane, res, ys, xs, res.shape[1], res.shape[2])
+    return _add_units(plane, res, ys, xs, bitdepth)
 
 
 def _add_units(plane, res, ys, xs, bitdepth: int):
@@ -241,9 +250,10 @@ _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
 HANDLED = ("hpx", "puthv_x", "put", "warp", "scaled", "comp", "obmc",
            "residmc", "residc", "hresmc", "hresc", "dbk", "snap", "cdef",
-           "sres", "lrw", "lrs", "out")
+           "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
+           "resrawmc", "resrawc", "intrascan", "crop")
 
-# op kinds outside this slice -> where they stand in ROADMAP.md
+# op kinds of the reference that no planner of the port emits -> why
 LATER = {
     "hpp": "Pallas-only form (the port's planner emits hpx)",
     "puthv_p": "Pallas-only form (the port's planner emits puthv_x)",
@@ -252,16 +262,9 @@ LATER = {
     "residm": "dense residual form (the port's planner emits residmc)",
     "hres": "dense residual form (the port's planner emits hresmc)",
     "hresm": "dense residual form (the port's planner emits hresmc)",
-    "setplane": "ROADMAP queue 1, item 8 (device intra engine)",
-    "newres": "ROADMAP queue 1, item 8 (device intra engine)",
-    "resraw": "ROADMAP queue 1, item 8 (device intra engine)",
-    "resrawm": "ROADMAP queue 1, item 8 (device intra engine)",
-    "resrawc": "ROADMAP queue 1, item 8 (device intra engine)",
-    "resrawmc": "ROADMAP queue 1, item 8 (device intra engine)",
-    "embed": "ROADMAP queue 1, item 8 (device intra engine)",
-    "palset": "ROADMAP queue 1, item 8 (device intra engine)",
-    "intrascan": "ROADMAP queue 1, item 8 (device intra engine)",
-    "crop": "ROADMAP queue 1, item 8 (device intra engine)",
+    "setplane": "dense plane upload (the port's planner emits palset)",
+    "resraw": "dense residual form (the port's planner emits resrawmc)",
+    "resrawm": "dense residual form (the port's planner emits resrawmc)",
 }
 
 
@@ -477,6 +480,46 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                 planes[pl] = new
             else:
                 snap[tgt][pl] = new
+        # ---- the device intra engine (models/intra) ----
+        elif kind == "embed":
+            # a NEW plane in the engine's padded layout (PADT top/left
+            # margin, the luma-padded shape for every plane)
+            _, pl, Hp, Wp, ph, pw, padt = rec
+            new = torch.zeros((Hp, Wp), dtype=torch.int32, device=dev)
+            new[padt:padt + ph, padt:padt + pw] = planes[pl][:ph, :pw]
+            planes[pl] = new
+        elif kind == "palset":
+            # palette pixels placed as 4x4 tiles before the scan
+            _, pl, h_vals, h_ys, h_xs = rec
+            scatter_units(planes[pl], get(h_vals), get(h_ys), get(h_xs), 4,
+                          4)
+        elif kind == "newres":
+            snap["res"] = [torch.zeros_like(p) for p in planes]
+        elif kind == "resrawmc":
+            _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            _resid_scatter_multi(snap["res"][pl], cf, get(h_rs), get(h_cs),
+                                 get(h_ys), get(h_xs), tx, bd, add=False)
+        elif kind == "resrawc":
+            _, pl, tx, txtp, sh, sw, h_v, h_p, h_ys, h_xs = rec
+            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
+            _resid_scatter(snap["res"][pl], cf, get(h_ys), get(h_xs), tx,
+                           txtp, bd, add=False)
+        elif kind == "intrascan":
+            _, h_mrows, moffs, mfams, h_frows, foffs, ssh, ssv, npl = rec
+            out = intra.intra_scan(
+                torch.stack(planes[:npl]), torch.stack(snap["res"][:npl]),
+                get(h_mrows), moffs, get(h_frows), foffs, bd, ssh, ssv,
+                mfams)
+            planes[:npl] = list(out.unbind(0))
+        elif kind == "crop":
+            # a NEW plane of the frame's shape from the padded layout
+            _, pl, oy, ox, ph, pw, fh, fw = rec
+            H, W = planes[pl].shape
+            oy, ox = min(max(oy, 0), H - ph), min(max(ox, 0), W - pw)
+            new = torch.zeros((fh, fw), dtype=torch.int32, device=dev)
+            new[:ph, :pw] = planes[pl][oy:oy + ph, ox:ox + pw]
+            planes[pl] = new
         else:  # "out"
             planes = [p.to(_OUT_DTYPES[out_dtype]) for p in planes]
     return tuple(planes), tuple(hres)

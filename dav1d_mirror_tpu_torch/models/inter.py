@@ -376,16 +376,20 @@ class BuiltFrame:
     plus everything execute_frame_program needs. Holds only entropy-
     stage products and reference IDENTITY — no reference pixels."""
     __slots__ = ("prog", "ref_desc", "hres_meta", "intra_frame",
-                 "full_device", "dd_per")
+                 "full_device", "dd_per", "intra_engine")
 
 
-def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
+def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
+                        intra_engine=False):
     """Plan + pack the whole per-frame device pixel stage. Reads only
     entropy products (blocks/coefs/refmvs) and reference METADATA
     (dims/slots) — reference pixels are bound by execute_frame_program.
     jnt_weights: the frame's distance weights (host/obu.
     compute_jnt_weights), needed when it has distance-weighted compound
-    blocks."""
+    blocks. intra_engine: reconstruct the plain intra blocks of an
+    eligible inter frame with the device intra engine (models/intra) in
+    this same program; built.intra_engine says whether the frame was
+    eligible."""
     bd = seq.bitdepth
     cur_w, cur_h = fhdr.width[0], fhdr.height
     ss_hor, ss_ver = bufs.ss_hor, bufs.ss_ver
@@ -844,16 +848,35 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
     # the transform TYPE is per-block data (ops/itx.itx_residual_multi).
     # Lossless WHT keeps buckets of its own (residc / hresc).
     from ..ops.itx_meta import TX_INFO as _TXI, WHT_WHT
-    from .plan_vec import ResidBucket, plan_residuals_vec
+    from .plan_vec import B_INTRA, ResidBucket, plan_residuals_vec
     if intra_frame:
         dd_per = [np.zeros(c.native_arrays[0].shape[0], np.uint8)
                   for c in coders]
     else:
         dd_per = vec["dd_per"]
+    # ---- mixed-frame device intra (the intra engine) eligibility ----
+    # Every non-intra block must be device-covered (dd 1) and there may
+    # be no inter-intra blends (dd 2, host decode-order work): intra
+    # units' edges must only ever read pixels the device itself produced.
+    # Eligible intra blocks are re-marked dd 3; their residuals feed the
+    # engine's residual planes instead of the host map (hres), and the
+    # frame becomes full_device: no plane download, no host pass 2.
+    eng = bool(intra_engine and not intra_frame)
+    if eng:
+        for ci, coder in enumerate(coders):
+            intra_m = coder.native_arrays[0][:, B_INTRA] != 0
+            dd = dd_per[ci]
+            if (dd == 2).any() or ((dd == 0) & ~intra_m).any():
+                eng = False
+                break
+        if eng:
+            for ci, coder in enumerate(coders):
+                dd = dd_per[ci]
+                dd[(dd == 0) & (coder.native_arrays[0][:, B_INTRA] != 0)] = 3
     rv = plan_residuals_vec(coders, dd_per)
     if rv is None:
         raise ValueError("coefficient records are not in decode order")
-    rplans, hplans, _ = rv
+    rplans, hplans, iplans = rv
 
     # Sparse/dense split threshold: blocks with <= KS nonzeros ride the
     # K=KS lanes; the rare dense tail gets its own sub-bucket.
@@ -927,6 +950,12 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
                 lst.cf[idx], lst.ys[idx], lst.xs[idx], lst.sel[idx],
                 lst.ci[idx], lst.cj[idx])))
 
+    if eng:
+        # every remaining (plain intra) block reconstructs in this same
+        # program through the wave scan (models/intra)
+        from .intra import emit_mixed_intra
+        emit_mixed_intra(prog, seq, fhdr, coders, iplans, prog.plane_shapes)
+
     if not intra_frame:
         prog.op("out")   # native-dtype planes for downloads and refs
 
@@ -937,7 +966,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None):
     built.hres_meta = hres_meta
     built.intra_frame = intra_frame
     built.dd_per = dd_per
-    n_dev = sum(int((dd == 1).sum()) for dd in dd_per)
+    built.intra_engine = eng
+    n_dev = sum(int(((dd == 1) | (dd == 3)).sum()) for dd in dd_per)
     built.full_device = (not intra_frame and not hplans
                          and n_dev == total_blocks)
     return built

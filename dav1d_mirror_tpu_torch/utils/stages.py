@@ -4,7 +4,8 @@ execute, host pass 2, filters).
 Off by default: ``scope`` then costs one branch. When ``enabled``, each
 scope that names a CUDA device synchronizes it on exit, so device work
 queued inside the scope is charged to that scope and not to whichever
-later scope happens to wait for it.
+later scope happens to wait for it, and marks its span as an NVTX range
+for a GPU timeline. utils/trace renders the totals.
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ import torch
 
 enabled = False
 _acc = defaultdict(float)
+_cnt = defaultdict(int)
 
 
 def reset():
     _acc.clear()
+    _cnt.clear()
 
 
 @contextlib.contextmanager
@@ -27,15 +30,25 @@ def scope(name: str, device=None):
     if not enabled:
         yield
         return
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.nvtx.range_push(name)
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        if device is not None and torch.device(device).type == "cuda":
+        if cuda:
             torch.cuda.synchronize(device)
+            torch.cuda.nvtx.range_pop()
         _acc[name] += time.perf_counter() - t0
+        _cnt[name] += 1
 
 
 def seconds() -> dict:
     """{stage: total seconds} accumulated since reset()."""
     return dict(_acc)
+
+
+def calls() -> dict:
+    """{stage: number of scopes} accumulated since reset()."""
+    return dict(_cnt)

@@ -34,6 +34,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "from dav1d_mirror_tpu_torch import api\n"
         "from dav1d_mirror_tpu_torch.ops import mc, mc_cuda\n"
+        "from dav1d_mirror_tpu_torch import cli, output\n"
+        "from dav1d_mirror_tpu_torch.utils import trace\n"
+        "from dav1d_mirror_tpu_torch.models import intra\n"
+        "from dav1d_mirror_tpu_torch.ops import ipred\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'dav1d_mirror_tpu' or\n"
         "             m.startswith('dav1d_mirror_tpu.'))\n"
