@@ -38,7 +38,19 @@ Run from the root of a checkout. It
    OBMC blocks and one with super-res (tests/streams, against
    tests/streams/md5.txt), a lossless one (tests/streams_torch/
    lossless_128x64.ivf), and six intra and inter corpus streams on both
-   routes; the CLI decodes one with ``--intraengine`` as a subprocess;
+   routes; the CLI decodes one with ``--intraengine`` as a subprocess.
+   Config 2 with ``Settings(n_threads=4)`` and the tools path with
+   ``Settings(max_frame_delay=3)`` are decoded through the pipelined
+   Decoder (entropy || build || pixels || download), with the frame
+   delay's pictures in flight, in turns with the serial decode (serial,
+   pipelined, pipelined, serial), every pass to the path's md5 and both
+   counters moving, then once more staged; the parallel paths run at
+   world size 1 on an NCCL mesh: the tile-sharded decode of
+   tests/streams_torch/e2e_1080p_sharded.ivf (to the JAX host md5 and
+   the Decoder's on the card), the band deblock, CDEF and LR functions
+   on config 2's and config 3's first-frame planes (``torch.equal`` with
+   the single-device filters) and the dry run's steps
+   (parallel/dryrun.run_rank);
 3. runs each kernel's wrapper on the card at the shapes config 2 gave
    it, for bit depths 8/10/12, every unit size, put and prep, and at the
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
@@ -53,7 +65,10 @@ Run from the root of a checkout. It
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
-   route's times;
+   route's times, the pipelined paths' times between pictures and
+   steady fps beside the serial decodes' and their stage split, and
+   each parallel step's time (the multi-rank paths run only on the CPU
+   under gloo, in the tests: one card takes one NCCL rank);
 5. decodes fuzzed copies of two corpus streams (the mutation loop of
    tests/test_error_containment.py) on both routes, on the card and on
    the CPU, and requires equal outcomes (md5, and which temporal units
@@ -99,10 +114,15 @@ LR_STREAMS = ("inter_10bit_lr.ivf", "intra_sb128_lr.ivf")
 TOOLS_DIR = os.path.join(HERE, "tests", "streams_torch")
 TOOLS_STREAM = "e2e_1080p_inter_tools.ivf"
 SUPERRES_STREAM = "e2e_1080p_superres.ivf"
+SHARDED_STREAM = "e2e_1080p_sharded.ivf"
 TOOLS_STREAMS = {TOOLS_STREAM: ("8e678ba92fc156763dac7dcfaae2e727", 5),
                  "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5",
                                          4),
-                 SUPERRES_STREAM: ("c365d81ab907f53467bd0ae7762cb0ce", 5)}
+                 SUPERRES_STREAM: ("c365d81ab907f53467bd0ae7762cb0ce", 5),
+                 SHARDED_STREAM: ("076650a32371f706c1437177be26aede", 5)}
+# the pipelined paths: config 2 and the tools path with these settings
+PIPELINED = (("config 2", dict(n_threads=4)),
+             ("tools", dict(max_frame_delay=3)))
 # corpus stream with super-res frames (tests/streams)
 SUPERRES_CORPUS = ("inter_superres.ivf",)
 # corpus streams with compound, warp and OBMC blocks (tests/streams)
@@ -387,6 +407,132 @@ def decode(api, MD5Muxer, frames, torch, on_frame=None, **settings):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return mux.digest(), mux.n, times
+
+
+def decode_pipelined(api, MD5Muxer, frames, torch, **settings):
+    """Decode taking a picture only once get_frame_delay(settings) frames
+    are pending (dav1d's frame delay; 1 = right after its frame): a
+    caller that waits for each picture right after sending its frame
+    leaves the pipeline nothing to overlap. Returns (md5, pictures, the
+    seconds between successive pictures, the first from the start)."""
+    s = api.Settings(device="cuda", **settings)
+    delay = api.get_frame_delay(s)
+    dec = api.Decoder(s)
+    mux = MD5Muxer()
+    stamps = [time.perf_counter()]
+
+    def take():
+        pic = dec.get_picture()
+        if pic is None:
+            return False
+        mux.write(pic)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return True
+
+    try:
+        for sent, fr in enumerate(frames, 1):
+            dec.send_data(fr.data)
+            while sent - (len(stamps) - 1) >= delay and take():
+                pass
+        dec.drain()
+        while take():
+            pass
+    finally:
+        dec.close()
+    return mux.digest(), mux.n, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
+    """Each path of PIPELINED, decoded in turns serial, pipelined,
+    pipelined, serial (both through decode_pipelined, the serial one with
+    a frame delay of 1), every pass to the path's md5, both kernel
+    counters moving in the first pipelined pass; then pipelined once
+    more, staged. paths: {name: (frames, md5)}. Returns {name:
+    launches}."""
+    out = {}
+    for name, settings in PIPELINED:
+        frames, md5 = paths[name]
+        runs = []
+        for piped in (False, True, True, False):
+            kw = settings if piped else {}
+            (d, n, times), launches = counted(lambda: decode_pipelined(
+                api, MD5Muxer, frames, torch, **kw))
+            assert (d, n) == (md5, len(frames)), (name, kw, d, n)
+            runs.append((piped, times, launches))
+        launches = runs[1][2]
+        assert launches["mc_hplanes"] > 0 and launches["mc_vpass"] > 0, \
+            (name, launches)
+        (ds, _, times_s), split = staged(stages, lambda: decode_pipelined(
+            api, MD5Muxer, frames, torch, **settings))
+        assert ds == md5, (name, "staged", ds)
+        print(f"pipelined {name} ({settings}): md5 {md5} in every pass, "
+              f"{len(frames)} frames, launches {launches}")
+        for piped, times, _ in runs:
+            steady = times[2:]
+            print(f"pipelined {name} {'pipelined' if piped else 'serial'} "
+                  f"pass: ms between pictures " +
+                  ", ".join(f"{t * 1e3:.1f}" for t in times) +
+                  f"; steady fps over frames 2-{len(times) - 1} "
+                  f"{len(steady) / sum(steady):.3f}; whole stream "
+                  f"{sum(times):.2f} s")
+        print(f"pipelined {name} stage split (staged pass, "
+              f"{sum(times_s) * 1e3:.1f} ms wall; stages overlap, device, "
+              f"host-pass2 and filters run on the pixel worker): " +
+              ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                        sorted(split.items(), key=lambda kv: -kv[1])))
+        out[name] = launches
+    return out
+
+
+def parallel_phase(torch):
+    """The parallel paths at world size 1 on the card (NCCL): the sharded
+    stream decode of SHARDED_STREAM against its JAX host md5 and the
+    port's Decoder on the card, the band functions on config 2's and
+    config 3's first-frame planes and parameters against the
+    single-device filters, and the dry run's steps at its shapes."""
+    from dav1d_mirror_tpu_torch.parallel import dryrun
+    from dav1d_mirror_tpu_torch.parallel.mesh import close_mesh, init_mesh
+    with open(os.path.join(TOOLS_DIR, SHARDED_STREAM), "rb") as f:
+        sharded = f.read()
+    t0 = time.perf_counter()
+    mesh = init_mesh(1, 0, f"tcp://127.0.0.1:{dryrun.free_port()}", "cuda")
+    print(f"parallel: NCCL mesh of world size 1 formed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    try:
+        steps = dryrun.run_rank(mesh, 1, sharded)
+        frame_checks = {}
+        for cfg, path in (("config 2", STREAM), ("config 3", STREAM3)):
+            with open(path, "rb") as f:
+                ff = dryrun.first_frame(f.read(), "cuda")
+            for k, v in dryrun.filter_checks(mesh, *ff).items():
+                frame_checks[f"{cfg} {k}"] = v
+    finally:
+        close_mesh()
+    st = steps["sharded_stream_decode"]
+    want = TOOLS_STREAMS[SHARDED_STREAM]
+    assert (st["md5"], st["frames"]) == want, (st, want)
+    bad = [k for k, v in list(steps.items()) + list(frame_checks.items())
+           if not v["equal"]]
+    assert not bad, f"parallel checks unequal: {bad}"
+    kinds = {k.split()[2] for k in frame_checks}
+    assert kinds == {"band_deblock_plane", "band_cdef_plane",
+                     "shard_lr_batch"}, kinds
+    print(f"parallel: {SHARDED_STREAM} decoded tile-sharded, md5 "
+          f"{st['md5']} as the JAX host reference and the port's Decoder "
+          f"on the card ({st['decoder_md5']}), {st['frames']} frames, "
+          f"{st['ms']:.1f} ms tile-sharded against {st['decoder_ms']:.1f} "
+          f"ms through the Decoder")
+    for k, v in steps.items():
+        print(f"parallel step {k}: equal, {v['ms']:.2f} ms")
+    for k, v in frame_checks.items():
+        print(f"parallel {k} at {v['shape']}: torch.equal with the "
+              f"single-device op; band {v['ms']:.2f} ms, single-device "
+              f"{v['plain_ms']:.2f} ms")
+    print("parallel: the multi-rank paths (2 and 4 ranks) ran only on the "
+          "CPU under gloo (tests/test_torch_parallel.py): NCCL puts no two "
+          "ranks on one GPU, and this machine has one card")
+    return steps, frame_checks
 
 
 def _event(torch):
@@ -1051,6 +1197,14 @@ def main():
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
     assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"
 
+    # ---- the pipelined paths: config 2 and the tools path through the
+    # four-stage pipeline, against their serial decodes above ----
+    piped = pipelined_phase(api, MD5Muxer, torch, stages, counted, {
+        "config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
+
+    # ---- the parallel paths at world size 1 on the card ----
+    parallel_phase(torch)
+
     # ---- 2. kernel phase ----
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
     own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
@@ -1063,6 +1217,8 @@ def main():
         r["launches_config4"] = launches4[r["name"]]
         r["launches_superres"] = launches_s[r["name"]]
         r["launches_engine"] = launches_e[r["name"]]
+        r["launches_pipelined_config2"] = piped["config 2"][r["name"]]
+        r["launches_pipelined_tools"] = piped["tools"][r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -1075,13 +1231,18 @@ def main():
               f"{r['launches_tools']} in the tools decode, "
               f"{r['launches_config4']} in the config 4 decode, "
               f"{r['launches_superres']} in the super-res decode, "
-              f"{r['launches_engine']} in the config 2 engine decode")
+              f"{r['launches_engine']} in the config 2 engine decode, "
+              f"{r['launches_pipelined_config2']} in the pipelined config "
+              f"2 decode, {r['launches_pipelined_tools']} in the pipelined "
+              f"tools decode")
         for c in r["cases"]:
             if c.startswith(("config 3", "tools", "superres")):
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_config3", "launches_tools", "launches_config4",
-            "launches_superres", "launches_engine", "max_abs_err", "ms",
+            "launches_superres", "launches_engine",
+            "launches_pipelined_config2", "launches_pipelined_tools",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]

@@ -17,10 +17,19 @@ references, outputs and grain see the upscaled planes. With
 ``Settings.apply_grain`` (the default) a frame that carries film grain is
 grained on the device on its way out (ops/filmgrain); the reference
 planes stay grain-free. ``Decoder.apply_grain`` grains a decoded picture
-on its own (dav1d_apply_grain). Frames decode in
-order, synchronously; the reference's entropy-vs-pixels pipelining is not
-ported yet, so ``n_threads`` and ``max_frame_delay`` are validated and
-otherwise ignored.
+on its own (dav1d_apply_grain).
+
+With ``n_threads`` > 1 or ``max_frame_delay`` > 1 the decode is pipelined
+in four in-order stages, as the reference's is (dav1d frame threading
+re-expressed as host entropy(N+1) || device pixels(N)): entropy and every
+reference-state update on the caller thread; program building on one
+worker, or two when ``n_threads`` >= 2; the pixel program and the filter
+chain on one worker, on its current CUDA stream; and the download of the
+output planes on one worker, which copies them into pinned host memory on
+a side stream. A picture is ready once its download has finished, and an
+error of the pixel stage surfaces at ``get_picture`` (or at a later
+``send_obus`` that waits for that frame), as in the reference. The output
+order, the frame count and every byte equal those of the in-order decode.
 
 The device is `Settings.device` ("cuda" by default). Asking for CUDA
 where PyTorch has none raises; nothing falls back to the CPU.
@@ -33,6 +42,7 @@ src/obu.c:1572-1682, inloop-filter debug mask include/dav1d/dav1d.h:66-74.
 """
 from __future__ import annotations
 
+import concurrent.futures as _cf
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -75,8 +85,9 @@ EVENT_FLAG_NEW_OP_PARAMS_INFO = 2
 @dataclass
 class Settings:
     """Analogue of Dav1dSettings (include/dav1d/dav1d.h:78-99)."""
-    # accepted and validated for parity (get_frame_delay); the in-order
-    # decode ignores them until the pipelining is ported
+    # either > 1 pipelines the decode (entropy || build || pixels ||
+    # download); n_threads >= 2 gives program building two workers, and
+    # max_frame_delay bounds the frames in flight (at least 2)
     n_threads: int = 0
     max_frame_delay: int = 0
     apply_grain: bool = True
@@ -143,6 +154,22 @@ def parse_sequence_header(data: bytes) -> h.SequenceHeader:
     raise DecodeError("no sequence header")
 
 
+def _check_refs(fhdr, coders, refs):
+    """Raise as the reference's pixel stage does (ref_decoder.py:351)
+    when an inter block predicts from an empty reference slot: a slot no
+    frame has filled, e.g. after the keyframe failed to decode."""
+    if fhdr.frame_type in (h.KEY, h.INTRA) or all(
+            refs[fhdr.refidx[i]] is not None for i in range(7)):
+        return
+    for coder in coders:
+        for b in coder.blocks:
+            if b.intra:
+                continue
+            for ri in (b.ref[0], b.ref[1] if b.comp_type else -1):
+                if ri >= 0 and refs[fhdr.refidx[ri]] is None:
+                    raise DecodeError("missing reference frame")
+
+
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device must exist."""
     dev = torch.device(device)
@@ -163,11 +190,43 @@ class Decoder:
         self.device = resolve_device(self.s.device)
         if not native_tile.available():
             raise RuntimeError("native tile walk unavailable")
+        # the pipeline (reference api.py:229-258): an in-order pixel
+        # worker, 1-2 program builders, an in-order download worker.
+        # Entropy and every reference-state update stay on the caller
+        # thread (they depend on entropy only).
+        self._pipe = self._build_pipe = self._gather_pipe = None
+        self._inflight = []
+        self._ginflight = []
+        self._dl_stream = None
+        if self.s.n_threads > 1 or self.s.max_frame_delay > 1:
+            self._pipe = _cf.ThreadPoolExecutor(
+                1, thread_name_prefix="dav1d-pixels")
+            self._build_pipe = _cf.ThreadPoolExecutor(
+                2 if self.s.n_threads >= 2 else 1,
+                thread_name_prefix="dav1d-build")
+            self._gather_pipe = _cf.ThreadPoolExecutor(
+                1, thread_name_prefix="dav1d-download")
+            self._frame_delay = max(self.s.max_frame_delay, 2)
+            if self.device.type == "cuda":
+                self._dl_stream = torch.cuda.Stream(self.device)
         self.flush()
 
     # -- lifecycle ---------------------------------------------------------
+    def _drain_pipe(self):
+        """Wait out every frame in flight. Their errors were already
+        reported, or are dropped with the frames (flush/close), as the
+        reference's _drain_pipe drops them."""
+        for futs in (self._inflight, self._ginflight):
+            for f in futs:
+                try:
+                    f.result()
+                except Exception:
+                    pass
+            futs.clear()
+
     def flush(self):
         """dav1d_flush: drop in-flight state, keep the sequence header."""
+        self._drain_pipe()
         seq = getattr(self, "_st", None) and self._st.seq_hdr
         self._st = obu_mod.ObuState()
         self._st.seq_hdr = seq
@@ -184,6 +243,11 @@ class Decoder:
         self.last_error = None        # dav1d_get_decode_error_data_props
 
     def close(self):
+        self._drain_pipe()
+        for pool in (self._pipe, self._build_pipe, self._gather_pipe):
+            if pool is not None:
+                pool.shutdown(wait=True)
+        self._pipe = self._build_pipe = self._gather_pipe = None
         self._out = []
         self._refs = [None] * 8
 
@@ -251,7 +315,15 @@ class Decoder:
     def get_picture(self) -> Picture | None:
         if not self._out:
             return None
-        return self._out.pop(0)
+        p = self._out.pop(0)
+        ready = p.__dict__.pop("_ready", None)
+        if ready is not None:
+            try:
+                ready.result()
+            except Exception as e:  # contained like synchronous errors
+                self.last_error = e
+                raise DecodeError(str(e)) from e
+        return p
 
     def apply_grain(self, pic: Picture) -> Picture:
         """dav1d_apply_grain (include/dav1d/dav1d.h:235): synthesize film
@@ -291,22 +363,39 @@ class Decoder:
         cw = (w + bufs.ss_hor) >> bufs.ss_hor
         ch = (hgt + bufs.ss_ver) >> bufs.ss_ver
         sizes = [(hgt, w)] + [(ch, cw)] * (len(bufs.planes) - 1)
-        if self.s.apply_grain and fhdr.film_grain_present:
-            # grain device copies of the frame's planes; bufs keeps the
-            # grain-free planes that later frames predict from
-            with stages.scope("grain", self.device):
-                grained = apply_film_grain(bufs.dev_planes, seq, fhdr, w,
-                                           hgt)
-                vis = [g[:y, :x].cpu().numpy().astype(p.dtype)
-                       for g, p, (y, x) in zip(grained, bufs.planes, sizes)]
-        else:
-            vis = [p[:y, :x] for p, (y, x) in zip(bufs.planes, sizes)]
-        pic = Picture(tuple(vis), width=w, height=hgt,
+        pic = Picture((), width=w, height=hgt,
                       bitdepth=seq.bitdepth, layout=seq.layout,
                       frame_hdr=fhdr, seq_hdr=seq,
                       content_light=st.content_light,
                       mastering_display=st.mastering_display,
                       itut_t35=t35, new_temporal_unit=new_tu)
+        grain = self.s.apply_grain and fhdr.film_grain_present
+        device = self.device
+
+        def finalize():
+            # a failed pixel or download stage surfaces here, at the
+            # picture, and not as planes that were never filled
+            gf = getattr(bufs, "_gather_fut", None)
+            if gf is not None:
+                gf.result()
+            if grain:
+                # grain device copies of the frame's planes; bufs keeps
+                # the grain-free planes that later frames predict from
+                with stages.scope("grain", device):
+                    grained = apply_film_grain(bufs.dev_planes, seq, fhdr,
+                                               w, hgt)
+                    vis = [g[:y, :x].cpu().numpy().astype(p.dtype)
+                           for g, p, (y, x) in zip(grained, bufs.planes,
+                                                   sizes)]
+            else:
+                vis = [p[:y, :x] for p, (y, x) in zip(bufs.planes, sizes)]
+            pic.planes = tuple(vis)
+
+        if self._gather_pipe is not None:
+            # ordered after the frame's download on the in-order worker
+            pic._ready = self._gather_pipe.submit(finalize)
+        else:
+            finalize()
         self._queue_out(pic)
 
     def _queue_out(self, p):
@@ -361,6 +450,67 @@ class Decoder:
             self._emit(bufs, fhdr)
         st.tiles = []
         st.n_tiles = 0
+
+    def _build(self, seq, fhdr, coders, bufs, refs, jnt_weights):
+        """Build stage: plan and pack the frame's pixel program from its
+        entropy products and the references' metadata (no pixels)."""
+        _check_refs(fhdr, coders, refs)
+        with stages.scope("plan"):
+            if self.s.intra_engine and all_intra(coders):
+                # the device intra engine's own program (models/intra)
+                return build_intra_frame(seq, fhdr, coders, bufs)
+            return build_frame_program(
+                seq, fhdr, coders, bufs, refs, jnt_weights,
+                intra_engine=bool(self.s.intra_engine))
+
+    def _pixels(self, built, seq, fhdr, coders, bufs, refs, jnt_weights,
+                download=True):
+        """Pixel stage: run the built program on the device, then the
+        filter chain. Returns the frame's filtered buffers (bufs, or new
+        ones of the upscaled width on a super-res frame)."""
+        device = self.device
+        if self.s.intra_engine and all_intra(coders):
+            with stages.scope("device", device):
+                run_intra_frame(built, bufs, device)
+        else:
+            execute_frame_program(built, seq, fhdr, coders, bufs, device)
+        return self._filter(seq, fhdr, coders, bufs, download)
+
+    def _filter(self, seq, fhdr, coders, bufs, download=True):
+        """The in-loop filter chain over a reconstructed frame."""
+        with stages.scope("filters", self.device):
+            return apply_inloop_filters(seq, fhdr, coders, bufs,
+                                        self.device,
+                                        filters_mask=self.s.inloop_filters,
+                                        download=download)
+
+    def _download(self, pixel_fut, bufs):
+        """Download stage (in order, one job per frame; reference
+        _gather_planes, api.py:148): wait for the frame's pixel job, copy
+        its output planes into pinned host memory on the side stream once
+        the pixel worker's event has fired, and fill bufs.planes."""
+        pixel_fut.result()
+        planes = bufs.dev_planes
+        with stages.scope("download"):
+            if self._dl_stream is not None:
+                side = self._dl_stream
+                with torch.cuda.stream(side):
+                    side.wait_event(bufs._pixels_done)
+                    host = []
+                    for p in planes:
+                        hp = torch.empty(p.shape, dtype=p.dtype,
+                                         pin_memory=True)
+                        hp.copy_(p, non_blocking=True)
+                        p.record_stream(side)
+                        host.append(hp)
+                    done = torch.cuda.Event()
+                    done.record(side)
+                done.synchronize()
+            else:
+                host = planes
+            for i, hp in enumerate(host):
+                bufs.planes[i] = hp.numpy().astype(bufs.planes[i].dtype)
+        return bufs
 
     def _skip_by_frame_type(self, fhdr, check_refresh):
         """Dav1dDecodeFrameType filtering (dav1d obu.c:1570-1700)."""
@@ -454,26 +604,58 @@ class Decoder:
                     native_tile.code_tile_native(coder)
                     coders.append(coder)
 
-        # work buffers at the coded width (fhdr.width[0]); the filter
-        # chain returns the final ones, upscaled on a super-res frame
-        bufs = FrameBuffers(seq, fhdr)
-        if self.s.intra_engine and all_intra(coders):
-            # the device intra engine's own program (models/intra)
-            with stages.scope("plan"):
-                prog = build_intra_frame(seq, fhdr, coders, bufs)
-            with stages.scope("device", self.device):
-                run_intra_frame(prog, bufs, self.device)
+        # The pixel stage depends only on this frame's entropy products and
+        # on reference PIXELS, which the in-order pixel worker has made by
+        # the time its job runs. final_bufs is the frame's reference and
+        # output buffer from now on; for a super-res frame the work
+        # buffers are at the coded width (fhdr.width[0]) and the filter
+        # chain's upscaled planes move into final_bufs.
+        final_bufs = FrameBuffers(seq, fhdr, width=fhdr.width[1])
+        work_bufs = (final_bufs if fhdr.width[0] == fhdr.width[1]
+                     else FrameBuffers(seq, fhdr))
+        frame = (seq, fhdr, coders, work_bufs, list(refs), jnt_weights)
+        device = self.device
+        pipelined = self._pipe is not None
+        if pipelined:
+            built_fut = self._build_pipe.submit(self._build, *frame)
         else:
-            with stages.scope("plan"):
-                built = build_frame_program(
-                    seq, fhdr, coders, bufs, refs, jnt_weights,
-                    intra_engine=bool(self.s.intra_engine))
-            execute_frame_program(built, seq, fhdr, coders, bufs,
-                                  self.device)
-        with stages.scope("filters", self.device):
-            bufs = apply_inloop_filters(seq, fhdr, coders, bufs,
-                                        self.device,
-                                        filters_mask=self.s.inloop_filters)
+            built_fut = _cf.Future()
+            built_fut.set_result(self._build(*frame))
+
+        def pixel_work():
+            # a reference whose own pixel job failed fails this frame
+            # too, with its error, as the reference's host path does
+            # when it waits for its references' planes (api.py:761); the
+            # in-order worker has finished those jobs already
+            for rb in frame[4]:
+                f = getattr(rb, "_pixel_fut", None)
+                if f is not None:
+                    f.result()
+            out = self._pixels(built_fut.result(), *frame,
+                               download=not pipelined)
+            if out is not final_bufs:
+                final_bufs.planes = out.planes
+                final_bufs.dev_planes = out.dev_planes
+            if device.type == "cuda" and pipelined:
+                # the download stage waits on this, on its side stream
+                final_bufs._pixels_done = torch.cuda.Event()
+                final_bufs._pixels_done.record()
+            return final_bufs
+
+        if pipelined:
+            fut = self._pipe.submit(pixel_work)
+            final_bufs._pixel_fut = fut
+            self._inflight.append(fut)
+            gfut = self._gather_pipe.submit(self._download, fut, final_bufs)
+            final_bufs._gather_fut = gfut
+            self._ginflight.append(gfut)
+            while len(self._ginflight) > self._frame_delay:
+                self._ginflight.pop(0).result()
+            while len(self._inflight) > self._frame_delay:
+                self._inflight.pop(0).result()
+        else:
+            pixel_work()
+        bufs = final_bufs
 
         # reference slot updates (entropy-stage products)
         out_cdf = cdf_thread_update(cdf_in,

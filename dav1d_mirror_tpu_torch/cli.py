@@ -37,9 +37,11 @@ def parse_args(argv=None):
     p.add_argument("--skip", type=int, default=0,
                    help="skip decoding of the first N temporal units")
     p.add_argument("--threads", type=int, default=0,
-                   help="accepted and validated; the decode is in order")
+                   help="Settings.n_threads: > 1 pipelines the decode "
+                        "(entropy || build || pixels || download)")
     p.add_argument("--framedelay", type=int, default=0,
-                   help="accepted and validated; the decode is in order")
+                   help="Settings.max_frame_delay: > 1 pipelines the "
+                        "decode, with this many frames in flight")
     p.add_argument("--filmgrain", type=int, default=None,
                    help="enable film grain application (default: 1, "
                         "except if muxer is md5 or xxh3, as the reference "

@@ -151,14 +151,17 @@ def _emit_lr_plane(prog, fhdr, coders, bufs, p):
                     h_ysout, h_eg, h_s0, h_s1, h_w0, h_w1)
 
 
-def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
+def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7,
+                         download=True):
     """Deblock, CDEF, super-resolution and loop restoration over the
     frame's planes on `device`, starting from the device planes the
     reconstruction left (bufs.dev_planes) or from an upload of
     bufs.planes. Returns the frame's final buffers: `bufs`, or for a
     super-res frame new buffers of the upscaled width (fhdr.width[1]).
     Publishes the filtered device planes on their dev_planes (later frames
-    read them as references) and downloads them into their planes."""
+    read them as references) and, with `download`, downloads them into
+    their planes (the pipelined decoder leaves that to its download
+    stage)."""
     from .frame_exec import FrameProgram, plane_to_torch, run_frame_program
 
     if bufs.dev_planes is not None:
@@ -245,6 +248,7 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
     prog.op("out")   # native-dtype planes for the download and the refs
     planes, _ = run_frame_program(prog, tuple(planes_in), device)
     bufs.dev_planes = list(planes)
-    for i, p in enumerate(planes):
-        bufs.planes[i] = p.cpu().numpy().astype(bufs.planes[i].dtype)
+    if download:
+        for i, p in enumerate(planes):
+            bufs.planes[i] = p.cpu().numpy().astype(bufs.planes[i].dtype)
     return bufs

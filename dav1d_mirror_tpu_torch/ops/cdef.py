@@ -161,12 +161,16 @@ def _ulog2(x):
 
 
 def cdef_filter_plane(plane, src, dir_map, pri_map, sec_map, damping,
-                      active, bitdepth, bw, bh):
+                      active, bitdepth, bw, bh, halo=None):
     """plane/src: (H, W) int32 (src = pre-CDEF snapshot); dir_map,
     pri_map, sec_map, active: per-block (hb, wb) maps at this plane's
     block size (bw x bh px); damping scalar. Frame borders use MISSING
     padding. Only the first (hb*bh, wb*bw) region is filtered. Returns a
-    new plane."""
+    new plane.
+
+    halo: optional (top2, bot2), real pre-CDEF pixel rows ((2, W) each)
+    to use above/below the region instead of MISSING: the row bands of
+    parallel/filter_shard, whose boundaries are frame-interior."""
     c = _consts(plane.device)
     hb, wb = dir_map.shape
     H = hb * bh
@@ -174,6 +178,10 @@ def cdef_filter_plane(plane, src, dir_map, pri_map, sec_map, damping,
     reg = src[:H, :W].to(torch.int32)
     pad = reg.new_full((H + 4, W + 4), MISSING)
     pad[2:2 + H, 2:2 + W] = reg
+    if halo is not None:
+        top2, bot2 = halo
+        pad[0:2, 2:2 + W] = top2[:, :W]
+        pad[H + 2:H + 4, 2:2 + W] = bot2[:, :W]
     shifts = torch.stack([pad[2 + dy:2 + dy + H, 2 + dx:2 + dx + W]
                           for (dy, dx) in _SHIFTS], dim=0)  # (25, H, W)
 

@@ -13,12 +13,12 @@ from __future__ import annotations
 import torch
 
 
-def _cols(n_edges, k, size, device):
-    """Column index 4*i + k of edge i. Low-side indices below 0 wrap to the
-    end of the axis, high-side ones clamp to its last entry, as the
-    reference's indexing does; both only ever feed masked-off candidates
-    or identity stores."""
-    idx = torch.arange(n_edges, device=device) * 4 + k
+def _cols(n_edges, k, size, device, base=0):
+    """Column index base + 4*i + k of edge i. Low-side indices below 0
+    wrap to the end of the axis, high-side ones clamp to its last entry,
+    as the reference's indexing does; both only ever feed masked-off
+    candidates or identity stores."""
+    idx = torch.arange(n_edges, device=device) * 4 + (k + base)
     return torch.remainder(idx.clamp(max=size - 1), size)
 
 
@@ -119,13 +119,14 @@ def _filter_values(ps, qs, E, I, H, F, wd_max, bitdepth):
 
 
 def _apply_pass(rows, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut, luma,
-                bitdepth):
+                bitdepth, base=0):
     """One deblock pass over the columns of `rows` (n, W): every edge i
-    sits between columns 4i-1 and 4i; edge_idx (n/4, n_edges) is the
-    per-edge width class (-1 = none) and each edge spans 4 rows. The
-    vertical pass runs on the plane, the horizontal one on its
-    transpose. Modifies `rows` in place (it is a view of the plane being
-    filtered) and returns it."""
+    sits between columns base+4i-1 and base+4i; edge_idx (n/4, n_edges)
+    is the per-edge width class (-1 = none) and each edge spans 4 rows.
+    The vertical pass runs on the plane, the horizontal one on its
+    transpose (base > 0: a row band behind `base` halo rows, the
+    reference's _apply_pass_h at sby4 = base / 4). Modifies `rows` in
+    place (it is a view of the plane being filtered) and returns it."""
     dev = rows.device
     W = rows.shape[1]
     n_edges = edge_idx.shape[1]
@@ -143,8 +144,9 @@ def _apply_pass(rows, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut, luma,
     def per_row(a):
         return a.repeat_interleave(4, dim=0)
 
-    ps = [rows[:, _cols(n_edges, -1 - k, W, dev)] for k in range(ntap)]
-    qs = [rows[:, _cols(n_edges, k, W, dev)] for k in range(ntap)]
+    ps = [rows[:, _cols(n_edges, -1 - k, W, dev, base)]
+          for k in range(ntap)]
+    qs = [rows[:, _cols(n_edges, k, W, dev, base)] for k in range(ntap)]
 
     E_r, I_r, H_r = per_row(E), per_row(I), per_row(Hh)
     act_r = per_row(active)
@@ -198,8 +200,8 @@ def _apply_pass(rows, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut, luma,
     # column across neighbouring edges, so re-read the current value and
     # only overwrite where this edge actually modified the sample
     for k in range(len(mod)):
-        for idx, new in ((_cols(n_edges, -1 - k, W, dev), new_p[k]),
-                         (_cols(n_edges, k, W, dev), new_q[k])):
+        for idx, new in ((_cols(n_edges, -1 - k, W, dev, base), new_p[k]),
+                         (_cols(n_edges, k, W, dev, base), new_q[k])):
             rows[:, idx] = where(mod[k], new, rows[:, idx])
     return rows
 

@@ -37,6 +37,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs = {}
 _lock = threading.Lock()
+# the launch counts are bumped from whichever thread launches (the
+# pipelined decoder's pixel worker, a caller's own thread)
+_count_lock = threading.Lock()
 _table_on = set()    # (library, device index) with the subpel table set
 
 
@@ -169,7 +172,8 @@ def mc_hplanes(ref_stack, combos, bitdepth):
             ref_stack.data_ptr(), combos.data_ptr(), out.data_ptr(), H, W,
             C, mc.ibits(bitdepth), stream)
     _raise_on(lib, "mc_hplanes", rc)
-    HPLANES_LAUNCHES += 1
+    with _count_lock:
+        HPLANES_LAUNCHES += 1
     return out
 
 
@@ -204,7 +208,8 @@ def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
             uw, uh, mc.ibits(bitdepth), 0 if bitdepth == 8 else 8192,
             (1 << bitdepth) - 1, int(bool(prep)), stream)
     _raise_on(lib, "mc_vpass", rc)
-    VPASS_LAUNCHES += 1
+    with _count_lock:
+        VPASS_LAUNCHES += 1
     return out
 
 

@@ -208,6 +208,25 @@ def test_cli_module_verifies_a_corpus_stream():
     assert "Verified." in r.stderr
 
 
+def test_cli_threads_reach_the_pipeline(monkeypatch, tmp_path):
+    """--threads 4 pipelines the decode (the build stage runs on a
+    worker thread) and --verify holds."""
+    import threading
+    names = []
+    orig = tapi.build_frame_program
+
+    def spy(*a, **k):
+        names.append(threading.current_thread().name)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tapi, "build_frame_program", spy)
+    assert cli_main(["-i", str(STREAMS / "inter_basic.ivf"), "--muxer",
+                     "md5", "--verify", "65007e9bf3721006921fe0d91ae20d86",
+                     "--threads", "4", "--device", "cpu", "-q", "-o",
+                     str(tmp_path / "o.md5")]) == 0
+    assert names and all(n.startswith("dav1d-build") for n in names)
+
+
 @pytest.mark.parametrize("flag, engine", [("--intraengine", True),
                                           ("--no-intraengine", False),
                                           (None, False)])

@@ -38,6 +38,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from dav1d_mirror_tpu_torch.utils import trace\n"
         "from dav1d_mirror_tpu_torch.models import intra\n"
         "from dav1d_mirror_tpu_torch.ops import ipred\n"
+        "from dav1d_mirror_tpu_torch import player\n"
+        "from dav1d_mirror_tpu_torch.parallel import (dryrun, filter_shard,"
+        " frame_pipe, mesh, multihost, row_overlap, tile_decode,"
+        " tile_shard)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'dav1d_mirror_tpu' or\n"
         "             m.startswith('dav1d_mirror_tpu.'))\n"
@@ -71,6 +75,25 @@ def test_decoder_refuses_cuda_without_a_gpu(monkeypatch):
         api.Decoder(api.Settings())
     assert api.Settings().device == "cuda"
     api.Decoder(api.Settings(device="cpu"))   # the CPU only when asked
+
+
+def test_parallel_paths_and_player_refuse_cuda_without_a_gpu(monkeypatch):
+    """The parallel entry points and the player run on CUDA unless the
+    CPU is asked for; without a card a CUDA mesh is refused, before any
+    process group forms (no quiet fall back to gloo)."""
+    import inspect
+    import torch
+    import torch.distributed as dist
+    from dav1d_mirror_tpu_torch import player
+    from dav1d_mirror_tpu_torch.parallel import dryrun, mesh, multihost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_mesh(1, 0, "tcp://127.0.0.1:1", "cuda")
+    assert not dist.is_initialized()
+    for fn in (mesh.init_mesh, multihost.init_multihost,
+               dryrun.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert player.parse_args(["x.ivf"]).device == "cuda"
 
 
 @pytest.mark.parametrize("alone", [False, True])

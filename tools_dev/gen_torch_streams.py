@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Write the streams of tests/streams_torch/ and print their md5.
 
-    python tools_dev/gen_torch_streams.py [--seed N]
+    python tools_dev/gen_torch_streams.py [--seed N] [--only NAME]
 
-Run from the repo root. Three streams, all from config 2's own
+Run from the repo root. Four streams, all from config 2's own
 parameters (bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80,
 switchable tx, deblock and CDEF), made by tests/torch_streams.py:
 
@@ -16,7 +16,11 @@ switchable tx, deblock and CDEF), made by tests/torch_streams.py:
 - e2e_1080p_superres.ivf (build_superres_stream): 1920x1080, a keyframe
   coded at super-res denominator 16 and 4 inter frames coded at
   denominators 16, 12, none and 9 (coded widths 960, 1280, 1920, 1707),
-  with compound references, OBMC and inter-intra.
+  with compound references, OBMC and inter-intra;
+- e2e_1080p_sharded.ivf (build_sharded_stream): 1920x1080, one tile, a
+  keyframe and 4 inter frames whose every block is inter: single-reference
+  translational, or compound average or distance-weighted, which is the
+  scope of the sharded inter decode (parallel/tile_decode.py).
 
 Each is decoded by the JAX package's host reference path
 (Settings(use_tpu_inter=False, use_tpu_filters=False)); its md5 is
@@ -24,8 +28,9 @@ printed, with the count of each block family of the inter frames, and
 for the super-res stream the coded width of each frame and the count of
 scaled puts, scaled compound sides and scaled OBMC laps by horizontal
 step. The tools stream's seed must give every family at least one
-block, and the super-res stream's every kind of scaled MC: the script
-fails otherwise.
+block, the super-res stream's every kind of scaled MC, and the sharded
+stream's both compound kinds with no block outside the sharded inter
+decode's scope: the script fails otherwise. ``--only`` writes one of them.
 """
 import argparse
 import hashlib
@@ -71,6 +76,35 @@ def _families(fhdr, coders, counts):
                 counts["global warp"] = counts.get("global warp", 0) + 1
 
 
+# block kinds of the sharded stream's inter frames; both compound kinds
+# must occur
+SHARDED_KINDS = ("single-ref", "avg", "dist-weighted")
+
+
+def _sharded_kinds(fhdr, coders, counts):
+    """Tally the block kinds of one inter frame and count, as "outside",
+    the blocks the sharded inter decode refuses (parallel/tile_decode.py
+    :305 of the JAX package: intra, OBMC / warp, inter-intra, masked
+    compound, a warping global motion)."""
+    from dav1d_mirror_tpu.models.ref_decoder import _gmv_warp_params
+    from dav1d_mirror_tpu.host.tilecoder import T_BLOCK_DIM
+    for c in coders:
+        for b in c.blocks:
+            bw4, bh4 = (int(v) for v in T_BLOCK_DIM[b.bs][:2])
+            kind = {0: "single-ref", 1: "dist-weighted",
+                    2: "avg"}.get(b.comp_type)
+            outside = (b.intra or b.motion_mode or b.interintra_type or
+                       kind is None)
+            if b.comp_type and b.inter_mode == 6:
+                outside |= any(_gmv_warp_params(fhdr, b.ref[i], False)
+                               is not None for i in (0, 1))
+            if not b.comp_type and b.inter_mode == 2 and \
+                    fhdr.gmv[b.ref[0]].type > 1 and min(bw4, bh4) > 1:
+                outside = True
+            kind = "outside" if outside else kind
+            counts[kind] = counts.get(kind, 0) + 1
+
+
 # kinds of scaled MC the super-res stream must contain
 SCALED = ("scaled put", "scaled comp side", "scaled obmc lap")
 
@@ -91,6 +125,7 @@ def reference_md5(data):
         counts["widths"].append(fhdr.width[0])
         if fhdr.frame_type not in (0, 2):
             _families(fhdr, coders, counts)
+            _sharded_kinds(fhdr, coders, counts)
         return orig[0](seq, fhdr, coders, *args, **kw)
 
     def spy_scaled(*args):
@@ -130,6 +165,8 @@ def main():
     ap.add_argument("--seed", type=int, default=ts.TOOLS_SEED,
                     help=f"seed of the tools stream (default "
                          f"{ts.TOOLS_SEED})")
+    ap.add_argument("--only", default=None,
+                    help="write only this stream (a file name)")
     opts = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -142,9 +179,13 @@ def main():
                                            False)),
             ("e2e_1080p_superres.ivf",
              lambda: ts.build_superres_stream(ts.SUPERRES,
-                                              ts.SUPERRES_SEED)))
+                                              ts.SUPERRES_SEED)),
+            ("e2e_1080p_sharded.ivf",
+             lambda: ts.build_sharded_stream(ts.SHARDED, ts.SHARDED_SEED)))
     ok = True
     for name, build in jobs:
+        if opts.only and name != opts.only:
+            continue
         _, data, n = build()
         with open(ts.DIR / name, "wb") as f:
             f.write(data)
@@ -162,6 +203,15 @@ def main():
             missing = [k for k in SCALED if not counts.get(k)]
             if missing:
                 print(f"  MISSING scaled MC: {missing}")
+                ok = False
+        elif name.startswith("e2e_1080p_sharded"):
+            print("  kinds: " + ", ".join(
+                f"{k} {counts.get(k, 0)}" for k in
+                SHARDED_KINDS + ("outside",)))
+            if counts.get("outside") or not (counts.get("avg") and
+                                             counts.get("dist-weighted")):
+                print("  OUT OF SCOPE: a block outside the sharded inter "
+                      "decode, or a compound kind missing")
                 ok = False
         elif name.startswith("e2e_1080p"):
             missing = [k for k in FAMILIES if not counts.get(k)]
