@@ -7,7 +7,7 @@ Run from the root of a checkout. It
 
 1. builds the package's kernels (both CUDA sources, one nvcc each, side by
    side) and its native host library from the checkout's sources;
-2. drives four paths through ``Decoder(Settings(device="cuda"))``, each
+2. drives each path through ``Decoder(Settings(device="cuda"))``, each
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that both counters moved:
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
@@ -25,7 +25,15 @@ Run from the root of a checkout. It
    whose frames switch super-res denominators (16, 16, 12, none, 9) with
    compound, OBMC and inter-intra blocks (tests/streams_torch/
    e2e_1080p_superres.ivf), where scaled and sres ops and scaled compound
-   sides and OBMC laps must run. Each path also runs a staged pass for
+   sides and OBMC laps must run; the Professional path, the 5-frame
+   1080p 12-bit 4:2:2 stream of the tools path's coding with loop
+   restoration (switchable, self-guided and Wiener) and chroma film grain
+   (tests/streams_torch/e2e_1080p_422_12bit.ivf), and the High path, the
+   5-frame 1080p 10-bit 4:4:4 stream of the tools path's coding with
+   palette blocks in inter frames (tests/streams_torch/
+   e2e_1080p_444_10bit.ivf), each decoded twice to its md5, the
+   Professional one also without grain and, without grain, through
+   ``Decoder.apply_grain``. Each path also runs a staged pass for
    its stage split (the tools and super-res streams' hash a second
    time). Config 3 is decoded once more without grain, each picture then
    grained by ``Decoder.apply_grain``. The engine path is config 2 with
@@ -37,8 +45,11 @@ Run from the root of a checkout. It
    self-guided and switchable restoration, five with compound, warp and
    OBMC blocks and one with super-res (tests/streams, against
    tests/streams/md5.txt), a lossless one (tests/streams_torch/
-   lossless_128x64.ivf), and six intra and inter corpus streams on both
-   routes; the CLI decodes one with ``--intraengine`` as a subprocess.
+   lossless_128x64.ivf), six intra and inter corpus streams on both
+   routes, and on both routes seven 64x64 format streams (12-bit, 12-bit
+   4:4:4, 4:2:2 at 8, 10 and 12 bit, monochrome, palette in inter frames;
+   tests/streams_torch) and inter_grain; the CLI decodes one with
+   ``--intraengine`` as a subprocess.
    Config 2 with ``Settings(n_threads=4)`` and the tools path with
    ``Settings(max_frame_delay=3)`` are decoded through the pipelined
    Decoder (entropy || build || pixels || download), with the frame
@@ -56,7 +67,9 @@ Run from the root of a checkout. It
    edge shapes (odd widths, one row, one combo, unsorted and duplicate
    combos, int16 wrap, one unit, extreme window origins), and on each
    decode's own largest calls (config 3's at bit depth 10, the tools
-   path's and the super-res path's), and requires ``torch.equal`` with the kernel's plain PyTorch
+   path's, the super-res path's, and the profile paths' at bit depths 12
+   and 10, with their largest chroma H-plane calls: 1080x960 at 4:2:2,
+   luma-sized at 4:4:4), and requires ``torch.equal`` with the kernel's plain PyTorch
    version; then times kernel and plain version as device time with
    CUDA events: warm (many
    back-to-back launches queued while the card is busy, over their
@@ -69,7 +82,7 @@ Run from the root of a checkout. It
    steady fps beside the serial decodes' and their stage split, and
    each parallel step's time (the multi-rank paths run only on the CPU
    under gloo, in the tests: one card takes one NCCL rank);
-5. decodes fuzzed copies of two corpus streams (the mutation loop of
+5. decodes fuzzed copies of four streams (the mutation loop of
    tests/test_error_containment.py) on both routes, on the card and on
    the CPU, and requires equal outcomes (md5, and which temporal units
    raised a contained error), then a clean decode; and prints one JSON
@@ -115,11 +128,47 @@ TOOLS_DIR = os.path.join(HERE, "tests", "streams_torch")
 TOOLS_STREAM = "e2e_1080p_inter_tools.ivf"
 SUPERRES_STREAM = "e2e_1080p_superres.ivf"
 SHARDED_STREAM = "e2e_1080p_sharded.ivf"
+# AV1's Professional profile (12-bit 4:2:2, every inter tool, loop
+# restoration, chroma film grain) and High profile (10-bit 4:4:4, every
+# inter tool, palette blocks in inter frames) at 1080p
+PRO_STREAM = "e2e_1080p_422_12bit.ivf"
+HIGH_STREAM = "e2e_1080p_444_10bit.ivf"
+# 64x64 streams of 12-bit, 12-bit 4:4:4, 4:2:2 at 8/10/12 bit,
+# monochrome and palette in inter frames
+FORMAT_STREAMS = ("features0_12bit.ivf", "features1_444_12bit.ivf",
+                  "features2_422_8bit.ivf", "features3_422_10bit.ivf",
+                  "features4_422_12bit.ivf", "inter16_mono.ivf",
+                  "inter39_scc.ivf")
 TOOLS_STREAMS = {TOOLS_STREAM: ("8e678ba92fc156763dac7dcfaae2e727", 5),
                  "lossless_128x64.ivf": ("d8bb566f6479722343086a0cb22048e5",
                                          4),
                  SUPERRES_STREAM: ("c365d81ab907f53467bd0ae7762cb0ce", 5),
-                 SHARDED_STREAM: ("076650a32371f706c1437177be26aede", 5)}
+                 SHARDED_STREAM: ("076650a32371f706c1437177be26aede", 5),
+                 PRO_STREAM: ("e4dce1d6efe442cf9b400eccdac09195", 5),
+                 HIGH_STREAM: ("9916482c5803fb77ac8fe0f78caa36a6", 5),
+                 "features0_12bit.ivf": ("d6856dce530d35f9a63d85bc4481da38",
+                                         3),
+                 "features1_444_12bit.ivf": (
+                     "11ff0933268d4585d2cc30f04064486d", 3),
+                 "features2_422_8bit.ivf": (
+                     "4bf35ee594fa8ea810836a855fc8d5c7", 3),
+                 "features3_422_10bit.ivf": (
+                     "3d187e714b09f373abaef9b4185e6d3f", 3),
+                 "features4_422_12bit.ivf": (
+                     "97ac433eb36e44502493cd98cd04b508", 3),
+                 "inter16_mono.ivf": ("4d7a1f4b85605a8c61a33ed7312185f1", 4),
+                 "inter39_scc.ivf": ("2e5a1b57ca1005ebc8a7d9cec79c33fb", 4)}
+# md5 without film grain of each stream with grain, from the JAX
+# package's host reference path; the Professional stream through
+# Decoder.apply_grain gives its md5 with grain
+NO_GRAIN_MD5 = {PRO_STREAM: "5a0f803eac6e7b2de4adde0f26e376a5"}
+# the profile paths: (stream, op kinds each must run)
+PROFILE_PATHS = (("pro", PRO_STREAM, ("comp", "warp", "obmc", "lrw",
+                                      "lrs")),
+                 ("high", HIGH_STREAM, ("comp", "warp", "obmc")))
+# corpus stream with film grain, decoded on both routes against md5.txt
+# (grain-free) beside FORMAT_STREAMS
+GRAIN_CORPUS = ("inter_grain.ivf",)
 # the pipelined paths: config 2 and the tools path with these settings
 PIPELINED = (("config 2", dict(n_threads=4)),
              ("tools", dict(max_frame_delay=3)))
@@ -143,7 +192,8 @@ CLI_STREAM = ("intra_filter_pal.ivf", "3100692804dd29c7aa78ff45db91aea7")
 # the fuzz phase: mutated copies of each stream (the mutation loop of
 # tests/test_error_containment.py), each decoded on both routes on the
 # card and on the CPU
-FUZZ_STREAMS = ("intra_420_8bit.ivf", "inter_basic.ivf")
+FUZZ_STREAMS = ("intra_420_8bit.ivf", "inter_basic.ivf",
+                "features4_422_12bit.ivf", "inter_444_masked.ivf")
 FUZZ_COPIES = 12
 FUZZ_SEED = 2026
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -200,6 +250,8 @@ class ShapeLog:
         self.vpass = []     # (B, uw, uh, C, H, w_mid, bd)
         self.vpass_args = {}  # (uw, uh) -> (args, bd) of its largest put
         self.hplanes_args = None  # (refs, combos, bd) of the largest call
+        self.hplanes_chroma_args = None  # the same of a chroma plane
+        self._hpx_planes = []  # planes of the frame program's hpx ops
         self.frame_ops = []  # per frame: {op kind: count}
         self.ii_blocks = 0   # inter-intra blocks of the decode
         self.widths = []     # per frame: (coded width, output width)
@@ -218,6 +270,8 @@ class ShapeLog:
 
         def rec_ex(sig, *args):
             ops = self.frame_ops[-1]
+            # the program's hpx ops call mc_hplanes in this order
+            self._hpx_planes = [rec[1] for rec in sig[0] if rec[0] == "hpx"]
             for rec in sig[0]:
                 ops[rec[0]] = ops.get(rec[0], 0) + 1
                 if rec[0] == "comp":     # the two sides' sub-ops
@@ -265,6 +319,11 @@ class ShapeLog:
             if kept is None or size(ref_stack, combos) > size(*kept):
                 # the reference stack is never written after it is made
                 self.hplanes_args = (ref_stack, combos.clone(), bd)
+            plane = self._hpx_planes.pop(0) if self._hpx_planes else 0
+            kept = self.hplanes_chroma_args
+            if plane and (kept is None or
+                          size(ref_stack, combos) > size(*kept)):
+                self.hplanes_chroma_args = (ref_stack, combos.clone(), bd)
             return hp(ref_stack, combos, bd)
 
         def rec_vp(args, uw, uh, bd, prep):
@@ -373,7 +432,8 @@ def fuzz_phase(api, MD5Muxer, torch, np, open_demuxer):
     t0 = time.perf_counter()
     n_copies = n_dec = n_err = 0
     for si, name in enumerate(FUZZ_STREAMS):
-        with open(os.path.join(STREAMS, name), "rb") as f:
+        where = TOOLS_DIR if name in TOOLS_STREAMS else STREAMS
+        with open(os.path.join(where, name), "rb") as f:
             units = list(open_demuxer(f.read())[1])
         rng = np.random.default_rng(FUZZ_SEED + si)
         for trial in range(FUZZ_COPIES):
@@ -483,6 +543,85 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
                         sorted(split.items(), key=lambda kv: -kv[1])))
         out[name] = launches
     return out
+
+
+def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
+                  frame_exec, parse_ivf, key, name, kinds):
+    """One profile path (PROFILE_PATHS): a counted decode under ShapeLog
+    to the stream's md5 with both counters moving and every op kind of
+    `kinds` run, a second decode to the same md5 (CUDA applies duplicate
+    scatter indices in any order), a staged pass; a stream with grain
+    also decodes without it and, without it, through
+    Decoder.apply_grain, each to its own md5. Returns the path's
+    report."""
+    with open(os.path.join(TOOLS_DIR, name), "rb") as f:
+        _, _, _, frames = parse_ivf(f.read())
+    md5, n_frames = TOOLS_STREAMS[name]
+    with ShapeLog(mc_cuda, frame_exec, api) as shapes:
+        (d, n, times), launches = counted(lambda: decode(
+            api, MD5Muxer, frames, torch, shapes.on_frame))
+    assert n == len(frames) == n_frames, (key, n, len(frames))
+    assert d == md5, f"{key} md5 {d} != {md5}"
+    assert launches["mc_hplanes"] > 0 and launches["mc_vpass"] > 0, \
+        (key, launches)
+    ran = {k for ops in shapes.frame_ops for k in ops}
+    assert set(kinds) <= ran, (key, sorted(ran))
+    assert shapes.ii_blocks > 0, f"{key} ran no inter-intra block"
+    d2, _, _ = decode(api, MD5Muxer, frames, torch)
+    assert d2 == md5, f"{key} md5 {d2} (second pass)"
+    (d_st, _, times_st), split = staged(
+        stages, lambda: decode(api, MD5Muxer, frames, torch))
+    assert d_st == md5, f"{key} md5 {d_st} (staged pass)"
+    digests = {"expected": md5, "got": d, "second": d2, "staged": d_st}
+    if name in NO_GRAIN_MD5:
+        assert split.get("grain", 0) > 0, (key, split)
+        # one decode without grain: each picture hashed as it is, and
+        # through Decoder.apply_grain (which returns a new picture)
+        dec = api.Decoder(api.Settings(device="cuda", apply_grain=False))
+        plain, grained = MD5Muxer(), MD5Muxer()
+        for fr in frames:
+            dec.send_data(fr.data)
+            while (pic := dec.get_picture()) is not None:
+                plain.write(pic)
+                grained.write(dec.apply_grain(pic))
+        torch.cuda.synchronize()
+        assert (plain.digest(), plain.n) == (NO_GRAIN_MD5[name], n_frames), \
+            f"{key} md5 without grain {plain.digest()}"
+        assert (grained.digest(), grained.n) == (md5, n_frames), (
+            f"{key} through Decoder.apply_grain: md5 {grained.digest()}")
+        digests.update({"no grain": plain.digest(),
+                        "apply_grain": grained.digest()})
+    return dict(frames=frames, times=times, shapes=shapes,
+                launches=launches, digests=digests, split=split,
+                staged_s=sum(times_st))
+
+
+def formats_phase(api, MD5Muxer, torch, mc_cuda, frame_exec, intra,
+                  parse_ivf, corpus_md5):
+    """The small format streams and GRAIN_CORPUS on both routes (hybrid,
+    then the device intra engine), each to its recorded md5."""
+    for name in FORMAT_STREAMS + GRAIN_CORPUS:
+        corpus = name in GRAIN_CORPUS
+        with open(os.path.join(STREAMS if corpus else TOOLS_DIR, name),
+                  "rb") as f:
+            _, _, _, fr = parse_ivf(f.read())
+        want = corpus_md5[name] if corpus else TOOLS_STREAMS[name][0]
+        for engine in (False, True):
+            # no format stream has grain; md5.txt is grain-free
+            with ShapeLog(mc_cuda, frame_exec, api, intra) as c_shapes:
+                d, n, _ = decode(api, MD5Muxer, fr, torch,
+                                 c_shapes.on_frame, apply_grain=False,
+                                 intra_engine=engine)
+            assert d == want, f"{name} engine {engine}: md5 {d} != {want}"
+            rts = check_engine_routes(c_shapes, name)
+            if engine:
+                assert c_shapes.routes[0] == "intra", c_shapes.routes
+            else:
+                assert rts["hybrid"] == n, rts
+            print(f"{name}: md5 {d} as recorded on the "
+                  f"{'engine' if engine else 'hybrid'} route, {n} frames, "
+                  f"routes {rts}, H-plane calls {len(c_shapes.hplanes)}, "
+                  f"V-pass calls {len(c_shapes.vpass)}")
 
 
 def parallel_phase(torch):
@@ -854,21 +993,24 @@ def kernel_phase(torch, np, mc, mc_cuda, shapes):
 
 def own_calls_phase(torch, mc, mc_cuda, shapes, path, rows):
     """Each kernel against its plain version (torch.equal) on a decode's
-    own calls, as the decode made them: its largest H-plane call and its
-    largest put V-pass call of each unit size. Adds the cases to the
-    kernel rows."""
+    own calls, as the decode made them: its largest H-plane call, its
+    largest on a chroma plane, and its largest put V-pass call of each
+    unit size. Adds the cases to the kernel rows."""
     by_name = {r["name"]: r for r in rows}
-    refs, combos, bd = shapes.hplanes_args
-    got = mc_cuda.mc_hplanes(refs, combos, bd)
-    want = mc.mc_hplanes(refs, combos, bd)
-    torch.cuda.synchronize()
-    label = (f"{path} own largest call R={refs.shape[0]} "
-             f"{refs.shape[1]}x{refs.shape[2]} C={combos.shape[0]} bd{bd}")
-    assert torch.equal(got, want), f"mc_hplanes differs: {label}"
     row = by_name["mc_hplanes"]
-    row["cases"].append(label)
-    row["max_abs_err"] = max(row["max_abs_err"], int(
-        (got.to(torch.int32) - want.to(torch.int32)).abs().max()))
+    for what, (refs, combos, bd) in (
+            ("own largest call", shapes.hplanes_args),
+            ("own largest chroma call", shapes.hplanes_chroma_args)):
+        got = mc_cuda.mc_hplanes(refs, combos, bd)
+        want = mc.mc_hplanes(refs, combos, bd)
+        torch.cuda.synchronize()
+        label = (f"{path} {what} R={refs.shape[0]} "
+                 f"{refs.shape[1]}x{refs.shape[2]} C={combos.shape[0]} "
+                 f"bd{bd}")
+        assert torch.equal(got, want), f"mc_hplanes differs: {label}"
+        row["cases"].append(label)
+        row["max_abs_err"] = max(row["max_abs_err"], int(
+            (got.to(torch.int32) - want.to(torch.int32)).abs().max()))
     row = by_name["mc_vpass"]
     for (uw, uh), (args, bd) in sorted(shapes.vpass_args.items()):
         got = mc_cuda.mc_unit_batch_hv(args, uw, uh, bd, False)
@@ -1151,6 +1293,12 @@ def main():
         print(f"{name}: md5 {d} as in md5.txt, {n} frames, ops {kinds}, "
               f"coded/output widths {c_shapes.widths}")
 
+    # ---- the profile paths: 12-bit 4:2:2 and 10-bit 4:4:4 ----
+    profiles = {key: profile_phase(api, MD5Muxer, torch, stages, counted,
+                                   mc_cuda, frame_exec, parse_ivf, key,
+                                   name, kinds)
+                for key, name, kinds in PROFILE_PATHS}
+
     # ---- the intra corpus streams on both routes ----
     for name in ENGINE_CORPUS:
         with open(os.path.join(STREAMS, name), "rb") as f:
@@ -1170,6 +1318,10 @@ def main():
                   f"{'engine' if engine else 'hybrid'} route, {n} frames, "
                   f"routes {rts}, scans (waves, units, filter cells) "
                   f"{[x for sc in c_shapes.scans for x in sc]}")
+
+    # ---- the small format streams on both routes ----
+    formats_phase(api, MD5Muxer, torch, mc_cuda, frame_exec, intra,
+                  parse_ivf, corpus_md5)
 
     # ---- the CLI on the card, with the engine ----
     t0 = time.perf_counter()
@@ -1210,6 +1362,8 @@ def main():
     own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
     own_calls_phase(torch, mc, mc_cuda, shapes_t, "tools", rows)
     own_calls_phase(torch, mc, mc_cuda, shapes_s, "superres", rows)
+    for key, prof in profiles.items():
+        own_calls_phase(torch, mc, mc_cuda, prof["shapes"], key, rows)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
@@ -1219,6 +1373,8 @@ def main():
         r["launches_engine"] = launches_e[r["name"]]
         r["launches_pipelined_config2"] = piped["config 2"][r["name"]]
         r["launches_pipelined_tools"] = piped["tools"][r["name"]]
+        for key, prof in profiles.items():
+            r[f"launches_{key}"] = prof["launches"][r["name"]]
         print(f"kernel {r['name']}: equal to plain in "
               f"{len(r['cases'])} cases; at {r['shape']}: "
               f"{r['ms']:.5f} ms warm ({100 * r['bound_ms'] / r['ms']:.1f}% "
@@ -1234,15 +1390,18 @@ def main():
               f"{r['launches_engine']} in the config 2 engine decode, "
               f"{r['launches_pipelined_config2']} in the pipelined config "
               f"2 decode, {r['launches_pipelined_tools']} in the pipelined "
-              f"tools decode")
+              f"tools decode, {r['launches_pro']} in the Professional "
+              f"(12-bit 4:2:2) decode, {r['launches_high']} in the High "
+              f"(10-bit 4:4:4) decode")
         for c in r["cases"]:
-            if c.startswith(("config 3", "tools", "superres")):
+            if c.startswith(("config 3", "tools", "superres", "pro",
+                             "high")):
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_config3", "launches_tools", "launches_config4",
             "launches_superres", "launches_engine",
             "launches_pipelined_config2", "launches_pipelined_tools",
-            "max_abs_err", "ms",
+            "launches_pro", "launches_high", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
@@ -1267,6 +1426,14 @@ def main():
               f"{t * 1e3:.1f} ms): " + ", ".join(
                   f"{k} {v * 1e3:.1f} ms ({100 * v / t:.1f}%)"
                   for k, v in sorted(sp.items(), key=lambda kv: -kv[1])))
+    for key, prof in profiles.items():
+        report_path(key, prof["frames"], prof["times"], prof["shapes"],
+                    prof["launches"], prof["digests"], prof["split"],
+                    prof["staged_s"])
+        print(f"{key}: {prof['shapes'].ii_blocks} inter-intra blocks; "
+              f"steady fps against config 2's in this call: "
+              f"{len(prof['times'][2:]) / sum(prof['times'][2:]):.3f} vs "
+              f"{len(times[2:]) / sum(times[2:]):.3f}")
     report_path("config 2 engine", frames, times_e, shapes_e, launches_e,
                 {"expected": STREAM_MD5, "got": d_e, "staged": d_es},
                 split_e, sum(times_es))

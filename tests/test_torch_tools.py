@@ -187,10 +187,9 @@ def _narrowed_refs_decode(api, mux, settings, frames):
     return m.digest(), m.n
 
 
-def test_scaled_reference_raises_naming_its_roadmap_item():
-    """Scaled MC (which raised NotImplementedError before its slice) on a
-    frame of every tool, against the JAX host reference path given the
-    same narrowed references."""
+def test_scaled_reference_matches_jax_host_reference():
+    """Scaled MC on a frame of every tool decodes as the JAX host
+    reference path decodes it, given the same narrowed references."""
     _, data, _ = ts.build_tools_stream(MINI, 9)
     _, _, _, frames = parse_ivf(data)
     want = _narrowed_refs_decode(japi, JMD5Muxer, japi.Settings(
@@ -200,9 +199,8 @@ def test_scaled_reference_raises_naming_its_roadmap_item():
     assert got == want and got[1] == 2
 
 
-def test_super_res_frame_raises_naming_its_roadmap_item():
-    """The super-res corpus stream (which raised NotImplementedError
-    before its slice) gives its md5.txt hash."""
+def test_super_res_frame_matches_md5_txt():
+    """The super-res corpus stream decodes to its md5.txt hash."""
     data = (STREAMS / "inter_superres.ivf").read_bytes()
     assert _port(data) == (_md5_txt()["inter_superres.ivf"], 4)
 

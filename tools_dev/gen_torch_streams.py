@@ -3,9 +3,10 @@
 
     python tools_dev/gen_torch_streams.py [--seed N] [--only NAME]
 
-Run from the repo root. Four streams, all from config 2's own
-parameters (bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]: 8-bit 4:2:0, q 80,
-switchable tx, deblock and CDEF), made by tests/torch_streams.py:
+Run from the repo root. Six streams from config 2's own parameters
+(bench.E2E_CONFIGS["e2e_1080p_inter_cdef"]: q 80, switchable tx,
+deblock and CDEF; 8-bit 4:2:0 but for the two profile streams), and
+seven small format streams, made by tests/torch_streams.py:
 
 - e2e_1080p_inter_tools.ivf (build_tools_stream: tests/test_e2e_inter.
   build_stream with random global motion on each inter frame):
@@ -20,7 +21,18 @@ switchable tx, deblock and CDEF), made by tests/torch_streams.py:
 - e2e_1080p_sharded.ivf (build_sharded_stream): 1920x1080, one tile, a
   keyframe and 4 inter frames whose every block is inter: single-reference
   translational, or compound average or distance-weighted, which is the
-  scope of the sharded inter decode (parallel/tile_decode.py).
+  scope of the sharded inter decode (parallel/tile_decode.py);
+- e2e_1080p_422_12bit.ivf (AV1's Professional profile): the tools
+  stream's coding at 12-bit 4:2:2, with loop restoration (switchable on
+  Y, self-guided on U, Wiener on V) and film grain with Cb and Cr points
+  of their own and a lag-3 auto-regression; its md5 is printed with
+  grain and without;
+- e2e_1080p_444_10bit.ivf (AV1's High profile): the tools stream's
+  coding at 10-bit 4:4:4 with screen-content tools (palette blocks in
+  inter frames too);
+- the FORMATS streams: 64x64 streams of tests/test_e2e_features.py's
+  CONFIGS 0-4 (12-bit, 12-bit 4:4:4, 4:2:2 at 8, 10 and 12 bit) and of
+  tests/test_e2e_inter.py's monochrome and palette-on-inter configs.
 
 Each is decoded by the JAX package's host reference path
 (Settings(use_tpu_inter=False, use_tpu_filters=False)); its md5 is
@@ -30,7 +42,13 @@ scaled puts, scaled compound sides and scaled OBMC laps by horizontal
 step. The tools stream's seed must give every family at least one
 block, the super-res stream's every kind of scaled MC, and the sharded
 stream's both compound kinds with no block outside the sharded inter
-decode's scope: the script fails otherwise. ``--only`` writes one of them.
+decode's scope: the script fails otherwise. Each profile stream must
+also hold every family, a sub-8x8 chroma inter block (at 4:2:2 dav1d's
+sub-8x8 case, a 4-pixel-wide luma block whose chroma joins its
+neighbours'; at 4:4:4 a 4-pixel luma side, whose chroma is 4 pixels), the
+Professional stream restoration units of both Wiener and self-guided
+kind on Y, and the High stream a palette block in an inter frame.
+``--only`` writes one of them.
 """
 import argparse
 import hashlib
@@ -105,12 +123,49 @@ def _sharded_kinds(fhdr, coders, counts):
             counts[kind] = counts.get(kind, 0) + 1
 
 
+def _format_tools(seq, fhdr, coders, counts):
+    """Tally the sub-8x8 chroma inter blocks and the palette blocks of an
+    inter frame, and the restoration units of each kind on Y of every
+    frame ("lr wiener", "lr sgr")."""
+    from dav1d_mirror_tpu.host.tilecoder import T_BLOCK_DIM
+    for c in coders:
+        for (p, _, _), lr in c.lr_units.items():
+            if p == 0 and lr["type"] in (2, 3):
+                k = "lr wiener" if lr["type"] == 2 else "lr sgr"
+                counts[k] = counts.get(k, 0) + 1
+        if fhdr.frame_type in (0, 2):
+            continue
+        for b in c.blocks:
+            bw4, bh4 = (int(v) for v in T_BLOCK_DIM[b.bs][:2])
+            if seq.ss_hor or seq.ss_ver:
+                sub8 = (bw4 == 1 and seq.ss_hor) or (bh4 == 1 and seq.ss_ver)
+            else:
+                sub8 = bw4 == 1 or bh4 == 1
+            if not b.intra and sub8 and not seq.monochrome:
+                counts["sub8x8 chroma"] = counts.get("sub8x8 chroma", 0) + 1
+            if b.intra and (b.pal_sz[0] or b.pal_sz[1]):
+                counts["inter-frame palette"] = \
+                    counts.get("inter-frame palette", 0) + 1
+
+
+# what each profile stream must hold besides FAMILIES
+PROFILE_TOOLS = {"e2e_1080p_422_12bit.ivf": ("sub8x8 chroma", "lr wiener",
+                                             "lr sgr"),
+                 "e2e_1080p_444_10bit.ivf": ("sub8x8 chroma",
+                                             "inter-frame palette")}
+
+
+# the streams with film grain, whose md5 is also printed without it
+GRAIN = ("e2e_1080p_422_12bit.ivf",)
+
+
 # kinds of scaled MC the super-res stream must contain
 SCALED = ("scaled put", "scaled comp side", "scaled obmc lap")
 
 
-def reference_md5(data):
-    """(md5, frames, family counts) from the JAX host reference path. The
+def reference_md5(data, grain=True):
+    """(md5, frames, family counts) from the JAX host reference path,
+    with film grain or without. The
     counts also hold the coded widths ("widths") and the scaled MC calls
     by kind and horizontal step ("scaled put step 2048", ...)."""
     import dav1d_mirror_tpu.api as japi
@@ -123,6 +178,7 @@ def reference_md5(data):
 
     def spy(seq, fhdr, coders, *args, **kw):
         counts["widths"].append(fhdr.width[0])
+        _format_tools(seq, fhdr, coders, counts)
         if fhdr.frame_type not in (0, 2):
             _families(fhdr, coders, counts)
             _sharded_kinds(fhdr, coders, counts)
@@ -148,7 +204,8 @@ def reference_md5(data):
     try:
         _, _, _, frames = parse_ivf(data)
         dec = japi.Decoder(japi.Settings(use_tpu_inter=False,
-                                         use_tpu_filters=False))
+                                         use_tpu_filters=False,
+                                         apply_grain=grain))
         mux = MD5Muxer()
         for fr in frames:
             dec.send_data(fr.data)
@@ -181,7 +238,13 @@ def main():
              lambda: ts.build_superres_stream(ts.SUPERRES,
                                               ts.SUPERRES_SEED)),
             ("e2e_1080p_sharded.ivf",
-             lambda: ts.build_sharded_stream(ts.SHARDED, ts.SHARDED_SEED)))
+             lambda: ts.build_sharded_stream(ts.SHARDED, ts.SHARDED_SEED)),
+            ("e2e_1080p_422_12bit.ivf",
+             lambda: ts.build_tools_stream(ts.PRO, ts.PRO_SEED)),
+            ("e2e_1080p_444_10bit.ivf",
+             lambda: ts.build_tools_stream(ts.HIGH, ts.HIGH_SEED))) + tuple(
+        (name, lambda name=name: ts.build_format_stream(name))
+        for name in ts.FORMATS)
     ok = True
     for name, build in jobs:
         if opts.only and name != opts.only:
@@ -193,8 +256,9 @@ def main():
         assert n_pics == n, (name, n_pics, n)
         print(f"{name}: {len(data)} bytes, {n_pics} frames, "
               f"file md5 {hashlib.md5(data).hexdigest()}")
-        print(f"  families: " + ", ".join(
-            f"{k} {counts.get(k, 0)}" for k in FAMILIES))
+        if name.startswith("e2e_1080p"):
+            print(f"  families: " + ", ".join(
+                f"{k} {counts.get(k, 0)}" for k in FAMILIES))
         print(f"  decoded md5 {md5}")
         if name.startswith("e2e_1080p_superres"):
             print(f"  coded widths {counts['widths']}")
@@ -214,7 +278,14 @@ def main():
                       "decode, or a compound kind missing")
                 ok = False
         elif name.startswith("e2e_1080p"):
-            missing = [k for k in FAMILIES if not counts.get(k)]
+            need = PROFILE_TOOLS.get(name, ())
+            if need:
+                print("  " + ", ".join(f"{k} {counts.get(k, 0)}"
+                                       for k in need))
+            if name in GRAIN:
+                md5_plain = reference_md5(data, grain=False)[0]
+                print(f"  decoded md5 without grain {md5_plain}")
+            missing = [k for k in FAMILIES + need if not counts.get(k)]
             if missing:
                 print(f"  MISSING families: {missing}")
                 ok = False
