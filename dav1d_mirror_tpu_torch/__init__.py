@@ -8,9 +8,11 @@ counterpart there is held bit-exact against it by ``tests/test_torch_*``.
                  intra walk), copied from the JAX package.
 * ``native/``  — the C++ sources of that stage; built into ``build/``.
 * ``ops/``     — pixel ops as PyTorch functions on int32 tensors, and the
-                 wrappers of the hand-written CUDA kernels (``mc_cuda``).
+                 wrappers of the hand-written CUDA kernels (``mc_cuda``,
+                 ``itx_cuda``; their build in ``cuda_build``).
 * ``csrc/``    — CUDA C++ sources of those kernels, built with ``nvcc``
-                 for ``sm_90a`` at first use.
+                 for ``sm_90a`` at first use (``itx_1d.cuh`` is written by
+                 ``tools/gen_itx_cuh.py``).
 * ``models/``  — frame planning (numpy) and the per-frame executor.
 * ``api.py``   — ``Decoder`` / ``Settings`` / ``Picture``.
 """

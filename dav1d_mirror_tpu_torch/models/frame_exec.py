@@ -19,25 +19,24 @@ kind raises ``NotImplementedError`` saying why, before any op runs.
 
 Ops update the planes in place, in the reference's op order: puts and
 warps, compound blocks, OBMC laps (top, then left), then residuals. An op
-that reads the plane it writes (OBMC, residuals) reads its whole batch
-before it writes any of it.
+that reads the plane it writes reads its whole batch before it writes any
+of it (OBMC), or reads and writes only its own disjoint units (the
+residual buckets, one launch of the itx kernel each: ops/itx_cuda).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import mc_cuda
+from ..ops import itx_cuda, mc_cuda
 from ..ops.cdef import cdef_frame
-from ..ops.itx import (_residual_core, _residual_multi_core, itx_residual,
-                       itx_residual_multi)
 from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
 from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
                       comp_join_wmask, gather_units, mc_hv_combos,
                       mc_scaled_batch, mc_unit_batch, obmc_blend_batch,
                       resize_plane, scatter_slot_units, scatter_units,
-                      set_slots, unit_index, warp8x8_batch)
+                      set_slots, warp8x8_batch)
 from . import intra
 
 
@@ -63,8 +62,9 @@ def compact_cf(cf):
     """Sparsify a (B, sh, sw) coefficient batch to (vals (B, K),
     pos (B, K), K): inverse-transform inputs are mostly zeros (eob
     truncates the scan), so the descriptor carries only the nonzeros;
-    the device rebuilds the dense block (pad lanes carry the out-of-range
-    position S). K is the bucket's max nonzero count."""
+    the device rebuilds the dense block (ops/itx._expand_cf, or the itx
+    kernel in its tile; pad lanes carry the out-of-range position S). K is
+    the bucket's max nonzero count."""
     B = cf.shape[0]
     S = cf.shape[1] * cf.shape[2]
     flat = cf.reshape(B, S)
@@ -79,49 +79,6 @@ def compact_cf(cf):
     vals[r, k_idx] = flat[r, c]
     pos[r, k_idx] = c
     return vals, pos, K
-
-
-def _expand_cf(vals, pos, sh: int, sw: int):
-    """Device-side inverse of compact_cf: (B, K)+(B, K) -> (B, sh, sw).
-    Pad lanes carry position S = sh*sw; they land in an extra sink
-    column that is cut off (the reference drops them)."""
-    B = vals.shape[0]
-    S = sh * sw
-    dense = vals.new_zeros((B, S + 1))
-    dense.scatter_(1, pos.long().clamp(0, S), vals)
-    return dense[:, :S].reshape(B, sh, sw)
-
-
-def _resid_scatter_multi(plane, cfs, rsel, csel, ys, xs, tx: int,
-                         bitdepth: int, add: bool = True):
-    """Inverse-transform one bucket and clip-add it onto the plane at
-    (ys, xs) (add=True, the inter program), or write it there raw
-    (add=False, the intra engine's residual planes). Pad rows carry
-    PAD_OOB ys: masked out of both the read and the write. Updates the
-    plane IN PLACE (one bucket touches a sliver of it) and returns it."""
-    res = _residual_multi_core(cfs, rsel, csel, tx, bitdepth)
-    if not add:
-        return scatter_units(plane, res, ys, xs, res.shape[1], res.shape[2])
-    return _add_units(plane, res, ys, xs, bitdepth)
-
-
-def _resid_scatter(plane, cfs, ys, xs, tx: int, txtp: int, bitdepth: int,
-                   add: bool = True):
-    """One-type bucket (the lossless WHT buckets): inverse-transform and
-    clip-add onto (or, add=False, write into) the plane at (ys, xs), in
-    place, as _resid_scatter_multi."""
-    res = _residual_core(cfs, tx, txtp, bitdepth)
-    if not add:
-        return scatter_units(plane, res, ys, xs, res.shape[1], res.shape[2])
-    return _add_units(plane, res, ys, xs, bitdepth)
-
-
-def _add_units(plane, res, ys, xs, bitdepth: int):
-    uh, uw = res.shape[1], res.shape[2]
-    yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
-    yy, xx = yy[ok].long(), xx[ok].long()
-    plane[yy, xx] = (plane[yy, xx] + res[ok]).clamp(0, (1 << bitdepth) - 1)
-    return plane
 
 
 class FrameProgram:
@@ -315,10 +272,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     cms = {}      # seg-mask registry (chroma masks of the luma seg joins)
     snap = {}     # filter-chain plane snapshots (pre-CDEF, pre-LR)
     hres = []
-
-    def hres_out(x):
-        # residuals fit int16 at 8 bpc (dav1d's own coef type)
-        hres.append(x.to(torch.int16) if bd == 8 else x)
+    # residuals fit int16 at 8 bpc (dav1d's own coef type)
+    hres_t = torch.int16 if bd == 8 else torch.int32
 
     def side_tmp(pl, bwp, bhp, N, subops, prep):
         """(N, bhp, bwp) slot batch of one compound side or one OBMC lap
@@ -411,22 +366,22 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                              region, vert)
         elif kind == "residc":
             _, pl, sh, sw, tx, txtp, h_v, h_p, h_ys, h_xs = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            _resid_scatter(planes[pl], cf, get(h_ys), get(h_xs), tx, txtp,
-                           bd)
+            itx_cuda.itx_bucket("add", get(h_v), get(h_p), txtp, tx, bd,
+                                planes[pl], get(h_ys), get(h_xs))
         elif kind == "hresc":
             _, tx, txtp, sh, sw, h_v, h_p = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            hres_out(itx_residual(cf, tx, txtp, bd))
+            hres.append(itx_cuda.itx_bucket("hres", get(h_v), get(h_p),
+                                            txtp, tx, bd, out_dtype=hres_t))
         elif kind == "residmc":
             _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            _resid_scatter_multi(planes[pl], cf, get(h_rs), get(h_cs),
-                                 get(h_ys), get(h_xs), tx, bd)
+            itx_cuda.itx_bucket("add", get(h_v), get(h_p),
+                                (get(h_rs), get(h_cs)), tx, bd, planes[pl],
+                                get(h_ys), get(h_xs))
         elif kind == "hresmc":
             _, tx, sh, sw, h_v, h_p, h_rs, h_cs = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            hres_out(itx_residual_multi(cf, get(h_rs), get(h_cs), tx, bd))
+            hres.append(itx_cuda.itx_bucket(
+                "hres", get(h_v), get(h_p), (get(h_rs), get(h_cs)), tx, bd,
+                out_dtype=hres_t))
         elif kind == "dbk":
             (_, pl, luma, sb4, h_ev, h_eh, h_lv, h_lh, h_el, h_il) = rec
             # the *_prev neighbour-level maps are pure shifts of lv/lh
@@ -497,14 +452,13 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             snap["res"] = [torch.zeros_like(p) for p in planes]
         elif kind == "resrawmc":
             _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            _resid_scatter_multi(snap["res"][pl], cf, get(h_rs), get(h_cs),
-                                 get(h_ys), get(h_xs), tx, bd, add=False)
+            itx_cuda.itx_bucket("raw", get(h_v), get(h_p),
+                                (get(h_rs), get(h_cs)), tx, bd,
+                                snap["res"][pl], get(h_ys), get(h_xs))
         elif kind == "resrawc":
             _, pl, tx, txtp, sh, sw, h_v, h_p, h_ys, h_xs = rec
-            cf = _expand_cf(get(h_v), get(h_p), sh, sw)
-            _resid_scatter(snap["res"][pl], cf, get(h_ys), get(h_xs), tx,
-                           txtp, bd, add=False)
+            itx_cuda.itx_bucket("raw", get(h_v), get(h_p), txtp, tx, bd,
+                                snap["res"][pl], get(h_ys), get(h_xs))
         elif kind == "intrascan":
             _, h_mrows, moffs, mfams, h_frows, foffs, ssh, ssv, npl = rec
             out = intra.intra_scan(

@@ -1,0 +1,123 @@
+"""Build, load and argument checks shared by the wrappers of the
+hand-written CUDA kernels (``ops/mc_cuda.py``, ``ops/itx_cuda.py``).
+
+Every source ``csrc/<name>.cu`` of ``SOURCES`` is compiled with ``nvcc``
+for ``sm_90a`` at first use, one ``nvcc`` per source, run side by side,
+into ``build/kernels/lib<name>.so`` beside this package, and bound through
+ctypes (plain C entry points, no PyTorch headers). A library is rebuilt
+when its source or any ``csrc/*.cuh`` header is newer than it. Each
+library exports ``<name>_error_string(int)``; its launch functions return
+``cudaGetLastError()``.
+"""
+from __future__ import annotations
+
+import ctypes as ct
+import fcntl
+import glob
+import os
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.join(os.path.dirname(__file__), os.pardir)
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build", "kernels")
+SOURCES = ("mc_hplanes", "mc_vpass", "itx")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def so_path(name):
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _stale(name):
+    so = so_path(name)
+    if not os.path.exists(so):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + \
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
+
+
+def build(extra_flags=()):
+    """Compile every stale kernel library, all ``nvcc`` runs side by
+    side. Returns {name: compiler output} for the sources it built.
+    Raises if a build fails."""
+    os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = {}
+        for name in SOURCES:
+            if not _stale(name):
+                continue
+            tmp = f"{so_path(name)}.{os.getpid()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
+                 os.path.join(CSRC, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = {}
+        for name, (tmp, p) in procs.items():
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, so_path(name))
+            logs[name] = out
+        return logs
+
+
+def load(name, bind):
+    """The kernel library `name`, built if stale and loaded once;
+    bind(lib) sets the argument types of its entry points."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            build()
+            lib = ct.CDLL(so_path(name))
+            err = getattr(lib, f"{name}_error_string")
+            err.restype = ct.c_char_p
+            err.argtypes = [ct.c_int]
+            bind(lib)
+            _libs[name] = lib
+    return _libs[name]
+
+
+def check(t, name, dtype, ndim, device):
+    """Raise unless t is a contiguous tensor of `dtype` with `ndim` dims
+    on `device` (dtype may be a tuple of allowed dtypes)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def raise_on(lib, name, rc):
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+def cuda_device(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors must be on the CPU (plain "
+                         f"version) or on a CUDA device, got {t.device}")
+    return t.device

@@ -7,6 +7,12 @@ integer arithmetic, vectorized over the batch. The 1D butterflies are
 ``ops/itx_1d.py``, unchanged: they run on any operand with +, -, *, >>
 and ``.clip``, torch tensors included.
 
+``itx_bucket`` is the plain version of the inverse-transform kernel
+(``csrc/itx.cu``, wrapper ``ops/itx_cuda.py``): one residual bucket from
+its compact coefficients to the plane, as the reference executor composes
+``_expand_cf``, the transform and the clip-add scatter
+(``dav1d_mirror_tpu/models/frame_exec.py:94-133``).
+
 Reference parity: dav1d `src/itx_tmpl.c:40-100` (composer semantics),
 `src/itx_1d.c` (butterflies).
 """
@@ -16,7 +22,10 @@ import torch
 
 from .itx_1d import get_1d_fn, iwht4
 from .itx_meta import TX_INFO, TXTYPE_TO_1D, WHT_WHT
+from .mc import scatter_units, unit_index
 from .spec_consts import clip_ranges
+
+MODES = ("add", "raw", "hres")
 
 
 def _apply_1d(arr, fn, mn, mx, n_out):
@@ -149,3 +158,61 @@ def itx_residual_multi(coefs, row_sel, col_sel, tx: int, bitdepth: int):
 
 def itx_residual(coefs, tx: int, txtp: int, bitdepth: int):
     return _residual_core(coefs, tx, txtp, bitdepth)
+
+
+def _expand_cf(vals, pos, sh: int, sw: int):
+    """Device-side inverse of compact_cf: (B, K)+(B, K) -> (B, sh, sw).
+    Pad lanes carry position S = sh*sw; they land in an extra sink
+    column that is cut off (the reference drops them)."""
+    B = vals.shape[0]
+    S = sh * sw
+    dense = vals.new_zeros((B, S + 1))
+    dense.scatter_(1, pos.long().clamp(0, S), vals)
+    return dense[:, :S].reshape(B, sh, sw)
+
+
+def _add_units(plane, res, ys, xs, bitdepth: int):
+    """Clip-add (B, uh, uw) residual units onto the plane at (ys, xs), in
+    place; elements outside the plane (pad rows, edge-cut units) are
+    neither read nor written."""
+    uh, uw = res.shape[1], res.shape[2]
+    yy, xx, ok = unit_index(ys, xs, uh, uw, plane.shape)
+    yy, xx = yy[ok].long(), xx[ok].long()
+    plane[yy, xx] = (plane[yy, xx] + res[ok]).clamp(
+        0, (1 << bitdepth) - 1).to(plane.dtype)
+    return plane
+
+
+def itx_bucket(mode: str, vals, pos, sel, tx: int, bitdepth: int,
+               plane=None, ys=None, xs=None, out_dtype=torch.int32):
+    """One residual bucket of tx size `tx`, the plain version of the
+    ``csrc/itx.cu`` kernel.
+
+    vals (B, K) int32 coefficients at positions pos (B, K) int32 of the
+    (sh, sw) block (a pad lane carries sh*sw), or pos None: vals is the
+    dense (B, sh*sw) block. sel: the transform type, as a tuple of
+    per-block family selectors (row_sel, col_sel), each (B,) int32 into
+    itx_families(w) / itx_families(h), or as one TxfmType for the whole
+    bucket (WHT_WHT: lossless 4x4). mode:
+    - "add": clip-add the residuals onto `plane` at (ys, xs) (B,) int32,
+      in place, and return the plane;
+    - "raw": write them there, cast to the plane's dtype, in place;
+    - "hres": return them as a new (B, h, w) tensor of `out_dtype`.
+    Elements of a unit outside the plane are dropped."""
+    if mode not in MODES:
+        raise ValueError(f"itx_bucket: mode {mode!r}")
+    w, h, _ = TX_INFO[tx]
+    sh, sw = min(h, 32), min(w, 32)
+    if pos is None:
+        cf = vals.reshape(vals.shape[0], sh, sw)
+    else:
+        cf = _expand_cf(vals, pos, sh, sw)
+    if isinstance(sel, tuple):
+        res = _residual_multi_core(cf, sel[0], sel[1], tx, bitdepth)
+    else:
+        res = _residual_core(cf, tx, int(sel), bitdepth)
+    if mode == "hres":
+        return res.to(out_dtype)
+    if mode == "raw":
+        return scatter_units(plane, res, ys, xs, h, w)
+    return _add_units(plane, res, ys, xs, bitdepth)

@@ -5,10 +5,9 @@
 
 Each takes the same arguments as its plain version in ``ops/mc.py``. A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
-kernel, or the call raises. The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use, one ``nvcc`` per source, run side by side, into
-``build/kernels/`` beside this package, and bound through ctypes (plain C
-entry points, no PyTorch headers). Each library keeps the subpel table in
+kernel, or the call raises. The kernels are built and loaded by
+``ops/cuda_build.py`` (``nvcc`` for ``sm_90a`` at first use, bound
+through ctypes). Each library keeps the subpel table in
 ``__constant__`` memory, uploaded once per device from ``mc.SUBPEL``.
 ``HPLANES_LAUNCHES`` and ``VPASS_LAUNCHES`` count the launches. Neither
 wrapper reads a device tensor back to the host.
@@ -16,97 +15,39 @@ wrapper reads a device tensor back to the host.
 from __future__ import annotations
 
 import ctypes as ct
-import fcntl
-import os
-import subprocess
 import threading
 
 import torch
 
 from . import mc
+from .cuda_build import check, cuda_device, load, raise_on
 
 HPLANES_LAUNCHES = 0
 VPASS_LAUNCHES = 0
 
-_PKG = os.path.join(os.path.dirname(__file__), os.pardir)
-_CSRC = os.path.join(_PKG, "csrc")
-_BUILD = os.path.join(_PKG, "build", "kernels")
-SOURCES = ("mc_hplanes", "mc_vpass")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_libs = {}
-_lock = threading.Lock()
 # the launch counts are bumped from whichever thread launches (the
 # pipelined decoder's pixel worker, a caller's own thread)
 _count_lock = threading.Lock()
 _table_on = set()    # (library, device index) with the subpel table set
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def _so(name):
-    return os.path.join(_BUILD, f"lib{name}.so")
-
-
-def build(extra_flags=()):
-    """Compile every stale kernel library, all ``nvcc`` runs side by
-    side. Returns {name: compiler output} for the sources it built.
-    Raises if a build fails."""
-    os.makedirs(_BUILD, exist_ok=True)
-    with open(os.path.join(_BUILD, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        procs = {}
-        for name in SOURCES:
-            src = os.path.join(_CSRC, f"{name}.cu")
-            so = _so(name)
-            if os.path.exists(so) and \
-                    os.path.getmtime(so) >= os.path.getmtime(src):
-                continue
-            tmp = f"{so}.{os.getpid()}.tmp"
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        logs = {}
-        for name, (tmp, p) in procs.items():
-            out, _ = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-            os.replace(tmp, _so(name))
-            logs[name] = out
-        return logs
+def _bind(lib, name):
+    vp = ct.c_void_p
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ct.c_int
+    if name == "mc_hplanes":
+        fn.argtypes = [vp, vp, vp] + [ct.c_int] * 4 + [vp]
+    else:
+        fn.argtypes = [vp] * 7 + [ct.c_int] * 9 + [vp]
+        lib.mc_empty_launch.restype = ct.c_int
+        lib.mc_empty_launch.argtypes = [vp]
+    init = getattr(lib, f"{name}_init")
+    init.restype = ct.c_int
+    init.argtypes = [vp]
 
 
 def _lib(name):
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        if name not in _libs:
-            build()
-            lib = ct.CDLL(_so(name))
-            vp = ct.c_void_p
-            fn = getattr(lib, f"{name}_launch")
-            fn.restype = ct.c_int
-            if name == "mc_hplanes":
-                fn.argtypes = [vp, vp, vp] + [ct.c_int] * 4 + [vp]
-            else:
-                fn.argtypes = [vp] * 7 + [ct.c_int] * 9 + [vp]
-                lib.mc_empty_launch.restype = ct.c_int
-                lib.mc_empty_launch.argtypes = [vp]
-            init = getattr(lib, f"{name}_init")
-            init.restype = ct.c_int
-            init.argtypes = [vp]
-            err = getattr(lib, f"{name}_error_string")
-            err.restype = ct.c_char_p
-            err.argtypes = [ct.c_int]
-            _libs[name] = lib
-    return _libs[name]
+    return load(name, lambda lib: _bind(lib, name))
 
 
 def _lib_on(name, dev):
@@ -115,36 +56,10 @@ def _lib_on(name, dev):
     lib = _lib(name)
     key = (name, dev.index)
     if key not in _table_on:
-        _raise_on(lib, name, getattr(lib, f"{name}_init")(
+        raise_on(lib, name, getattr(lib, f"{name}_init")(
             mc.SUBPEL.ctypes.data))
         _table_on.add(key)
     return lib
-
-
-def _check(t, name, dtype, ndim, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _raise_on(lib, name, rc):
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-
-
-def _cuda_device(t, what):
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: tensors must be on the CPU (plain "
-                         f"version) or on a CUDA device, got {t.device}")
-    return t.device
 
 
 def mc_hplanes(ref_stack, combos, bitdepth):
@@ -154,9 +69,9 @@ def mc_hplanes(ref_stack, combos, bitdepth):
     global HPLANES_LAUNCHES
     if ref_stack.device.type == "cpu":
         return mc.mc_hplanes(ref_stack, combos, bitdepth)
-    dev = _cuda_device(ref_stack, "mc_hplanes")
-    _check(ref_stack, "ref_stack", torch.int32, 3, dev)
-    _check(combos, "combos", torch.int32, 2, dev)
+    dev = cuda_device(ref_stack, "mc_hplanes")
+    check(ref_stack, "ref_stack", torch.int32, 3, dev)
+    check(combos, "combos", torch.int32, 2, dev)
     if combos.shape[1] != 3:
         raise ValueError(f"combos: shape {tuple(combos.shape)}, "
                          "expected (C, 3)")
@@ -171,7 +86,7 @@ def mc_hplanes(ref_stack, combos, bitdepth):
         rc = lib.mc_hplanes_launch(
             ref_stack.data_ptr(), combos.data_ptr(), out.data_ptr(), H, W,
             C, mc.ibits(bitdepth), stream)
-    _raise_on(lib, "mc_hplanes", rc)
+    raise_on(lib, "mc_hplanes", rc)
     with _count_lock:
         HPLANES_LAUNCHES += 1
     return out
@@ -185,11 +100,11 @@ def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
     hstack = args[0]
     if hstack.device.type == "cpu":
         return mc.mc_unit_batch_hv(args, uw, uh, bitdepth, prep)
-    dev = _cuda_device(hstack, "mc_unit_batch_hv")
-    _check(hstack, "hstack", torch.int16, 3, dev)
+    dev = cuda_device(hstack, "mc_unit_batch_hv")
+    check(hstack, "hstack", torch.int16, 3, dev)
     cols = args[1:]
     for nm, t in zip(("slot", "oy", "ox", "my", "tv"), cols):
-        _check(t, nm, torch.int32, 1, dev)
+        check(t, nm, torch.int32, 1, dev)
     B = cols[0].shape[0]
     if any(t.shape[0] != B for t in cols):
         raise ValueError("descriptor columns differ in length")
@@ -207,7 +122,7 @@ def mc_unit_batch_hv(args, uw: int, uh: int, bitdepth: int, prep: bool):
             out.data_ptr(), B, H, w_mid,
             uw, uh, mc.ibits(bitdepth), 0 if bitdepth == 8 else 8192,
             (1 << bitdepth) - 1, int(bool(prep)), stream)
-    _raise_on(lib, "mc_vpass", rc)
+    raise_on(lib, "mc_vpass", rc)
     with _count_lock:
         VPASS_LAUNCHES += 1
     return out
@@ -217,5 +132,5 @@ def empty_launch():
     """Launch an empty kernel on the current CUDA stream: the launch
     floor that a V-pass time is set beside. Not counted."""
     lib = _lib("mc_vpass")
-    _raise_on(lib, "mc_vpass", lib.mc_empty_launch(
+    raise_on(lib, "mc_vpass", lib.mc_empty_launch(
         torch.cuda.current_stream().cuda_stream))

@@ -36,13 +36,13 @@ from ..host.lf import build_lf_arrays
 from ..host.tilecoder import (COMP_INTER_AVG, COMP_INTER_WEIGHTED_AVG)
 from ..models.filters import build_cdef_plan
 from ..models.frame_buffers import _gmv_warp_params
-from ..models.frame_exec import _resid_scatter_multi
 from ..models.inter import _p2, _pad_rows, _units_for_block_raw
 from ..models.intra import IntraPlan, build_intra_plan, intra_scan, \
     wave_families
 from ..ops import ipred as P
+from ..ops import itx_cuda
 from ..ops.ipred import PAD, PADT
-from ..ops.itx import itx_multi_sel, itx_residual
+from ..ops.itx import itx_multi_sel
 from ..ops.itx_meta import TX_INFO, WHT_WHT
 from ..ops.mc import PAD_OOB, comp_join_wavg, mc_unit_batch, \
     scatter_units, set_slots
@@ -125,7 +125,8 @@ def _band_assembly(seq, fhdr, coder, band_y0px, band_x0px, n_planes,
     for (pl, tx, txtp), lst in sorted(buckets.items()):
         cfs = torch.as_tensor(np.stack([e.cf for e in lst]).astype(np.int32),
                               device=device)
-        r = itx_residual(cfs, tx, txtp, bitdepth).cpu().numpy()
+        r = itx_cuda.itx_bucket("hres", cfs.reshape(len(lst), -1), None,
+                                txtp, tx, bitdepth).cpu().numpy()
         y0 = band_y0px if pl == 0 else cy0
         x0 = band_x0px if pl == 0 else cx0
         for i, e in enumerate(lst):
@@ -499,9 +500,9 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
         sel = np.zeros((padn, 2), np.int32)
         for i, (c, y, x, s) in enumerate(lst):
             cf[i], ys[i], xs[i], sel[i] = c, y, x, s
-        sel_t = t(sel)
-        _resid_scatter_multi(planes[pl], t(cf), sel_t[:, 0], sel_t[:, 1],
-                             t(ys), t(xs), tx, bitdepth)
+        itx_cuda.itx_bucket("add", t(cf.reshape(padn, -1)), None,
+                            (t(sel[:, 0].copy()), t(sel[:, 1].copy())), tx,
+                            bitdepth, planes[pl], t(ys), t(xs))
 
     out = [all_gather_slabs(p, mesh) for p in planes]
     whole = _stitch_tiles(out, n_planes, rows_n, cols_n, band_h4, band_w4,

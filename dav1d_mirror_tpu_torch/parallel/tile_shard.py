@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.itx import itx_residual
+from ..ops import itx_cuda
 from ..ops.itx_meta import DCT_DCT, TX_16X16
 from .mesh import all_gather_slabs, axis_info, mesh_device, ppermute, \
     shard_bounds
@@ -30,8 +30,8 @@ def sharded_recon_step(mesh, pred, coefs, bitdepth: int = 8):
     pred = torch.as_tensor(pred, device=dev)
     coefs = torch.as_tensor(coefs, device=dev)
     a, b = shard_bounds(pred.shape[0], n, me)
-    res = itx_residual(coefs[a:b].to(torch.int32), TX_16X16, DCT_DCT,
-                       bitdepth)
+    res = itx_cuda.itx_bucket("hres", coefs[a:b].to(torch.int32).reshape(
+        b - a, -1), None, DCT_DCT, TX_16X16, bitdepth)
     rec = (pred[a:b].to(torch.int32) + res).clamp(0, (1 << bitdepth) - 1)
     halo = ppermute(rec[-1:], mesh, [(i, (i + 1) % n) for i in range(n)])
     rec[:1] = torch.minimum(rec[:1], halo)

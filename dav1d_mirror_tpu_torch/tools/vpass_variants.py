@@ -25,7 +25,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import mc, mc_cuda
+from ..ops import cuda_build, mc, mc_cuda
 
 _SRC = os.path.join(os.path.dirname(__file__), "mc_vpass_wide.cu")
 # (columns per thread at uw = 8, threads per block); uw = 4 and 2 take 4
@@ -36,9 +36,10 @@ C_T, H_T, W_T = 64, 1080, 1920
 
 
 def _build():
-    so = os.path.join(mc_cuda._BUILD, "libmc_vpass_wide.so")
-    os.makedirs(mc_cuda._BUILD, exist_ok=True)
-    subprocess.run([mc_cuda._nvcc(), *mc_cuda.NVCC_FLAGS, "-o", so, _SRC],
+    so = os.path.join(cuda_build.BUILD, "libmc_vpass_wide.so")
+    os.makedirs(cuda_build.BUILD, exist_ok=True)
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so,
+                    _SRC],
                    check=True)
     lib = ct.CDLL(so)
     vp = ct.c_void_p
@@ -98,7 +99,7 @@ def main():
         return 1
     import chip_smoke as cs
     print(f"card: {cs.card_line()}")
-    mc_cuda.build()
+    cuda_build.build()
     lib = _build()
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)

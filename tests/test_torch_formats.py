@@ -35,6 +35,7 @@ import jax.numpy as jnp
 sys.path.insert(0, str(Path(__file__).parent))
 
 import dav1d_mirror_tpu.api as japi  # noqa: E402
+import dav1d_mirror_tpu.models.ref_decoder as jref  # noqa: E402
 import dav1d_mirror_tpu.output as joutput  # noqa: E402
 import test_e2e_features  # noqa: E402
 import test_e2e_inter  # noqa: E402
@@ -88,6 +89,10 @@ def _port(data, grain=True, engine=False):
 
 
 def _jax_host(data, grain=True):
+    # the JAX host path caches global-motion warp parameters by
+    # id(frame header): a header freed by an earlier decode can hand its
+    # id, and its stale entry, to this one
+    jref._GMV_WARP_CACHE.clear()
     return _decode(japi, JMD5Muxer, japi.Settings(
         use_tpu_inter=False, use_tpu_filters=False, apply_grain=grain),
         data)

@@ -17,6 +17,7 @@ from dav1d_mirror_tpu.models import frame_exec as jfe
 from dav1d_mirror_tpu.ops import itx as jitx
 from dav1d_mirror_tpu_torch.models import frame_exec as tfe
 from dav1d_mirror_tpu_torch.ops import itx as titx
+from dav1d_mirror_tpu_torch.ops import itx_cuda
 from dav1d_mirror_tpu_torch.ops.itx_meta import (TX_INFO, WHT_WHT,
                                                  allowed_txtypes)
 from dav1d_mirror_tpu_torch.ops.mc import PAD_OOB
@@ -94,8 +95,8 @@ def test_expand_cf_drops_out_of_range_lanes(tx):
     want = np.asarray(jfe._expand_cf(jnp.asarray(vals), jnp.asarray(pos),
                                      cf.shape[1], cf.shape[2]))
     np.testing.assert_array_equal(want, cf)
-    got = tfe._expand_cf(torch.from_numpy(vals), torch.from_numpy(pos),
-                         cf.shape[1], cf.shape[2])
+    got = titx._expand_cf(torch.from_numpy(vals), torch.from_numpy(pos),
+                          cf.shape[1], cf.shape[2])
     assert torch.equal(got, torch.from_numpy(np.array(want)))
 
 
@@ -118,9 +119,11 @@ def test_resid_scatter_multi_masks_pad_rows(tx, bd):
     want = np.asarray(jfe._resid_scatter_multi(
         jnp.asarray(plane), jnp.asarray(cf), jnp.asarray(sel[:, 0]),
         jnp.asarray(sel[:, 1]), jnp.asarray(ys), jnp.asarray(xs), tx, bd))
-    got = tfe._resid_scatter_multi(
-        torch.from_numpy(plane.copy()), torch.from_numpy(cf),
-        torch.from_numpy(sel[:, 0].copy()),
-        torch.from_numpy(sel[:, 1].copy()), torch.from_numpy(ys),
-        torch.from_numpy(xs), tx, bd)
+    # the port's dense route (pos None), as parallel/tile_decode.py calls it
+    got = itx_cuda.itx_bucket(
+        "add", torch.from_numpy(cf.reshape(len(cf), -1)), None,
+        (torch.from_numpy(sel[:, 0].copy()),
+         torch.from_numpy(sel[:, 1].copy())), tx, bd,
+        torch.from_numpy(plane.copy()), torch.from_numpy(ys),
+        torch.from_numpy(xs))
     assert torch.equal(got, torch.from_numpy(np.array(want)))

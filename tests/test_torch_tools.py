@@ -23,6 +23,7 @@ import pytest
 sys.path.insert(0, str(Path(__file__).parent))
 
 import dav1d_mirror_tpu.api as japi  # noqa: E402
+import dav1d_mirror_tpu.models.ref_decoder as jref  # noqa: E402
 import torch_streams as ts  # noqa: E402
 from dav1d_mirror_tpu.models import frame_exec as jfe  # noqa: E402
 from dav1d_mirror_tpu.output import MD5Muxer as JMD5Muxer  # noqa: E402
@@ -57,6 +58,10 @@ def _port(data):
 
 
 def _jax_host(data):
+    # the JAX host path caches global-motion warp parameters by
+    # id(frame header): a header freed by an earlier decode can hand its
+    # id, and its stale entry, to this one
+    jref._GMV_WARP_CACHE.clear()
     return _decode(japi, JMD5Muxer, japi.Settings(
         use_tpu_inter=False, use_tpu_filters=False), data)
 
