@@ -77,18 +77,23 @@ Run from the root of a checkout. It
    count) and with a cold L2 (a 256 MB write queued before each timed
    launch), beside an empty kernel's launch floor; and the plain version
    as device time (the summed time of the kernels it runs, by
-   torch.profiler) and as host wall time per synchronized call. The itx kernel is
-   held to ``torch.equal`` with its plain version for every tx size at
+   torch.profiler) and as host wall time per synchronized call. The itx
+   kernel (one launch per run of a frame's residual records, over the
+   run's work list) is held to ``torch.equal`` with its plain version on
+   synthetic work lists that mix every tx size, WHT, dense tails, int16
+   and int32 descriptors, pad rows and units cut by the planes' edges, at
    bit depths 8/10/12 in its three modes (clip-add, raw, hres; int32 and
-   narrow planes) and WHT, on buckets with pad rows, units cut by the
-   plane's edges, sparse and all-K coefficient sets and the int16/int32
-   extremes, and on every path's own largest bucket of each mode, tx
-   size, one-type and dense kind (config 2, 3 and 4, tools, super-res,
-   engine, the two pipelined paths, the tile-sharded decode's dense
-   buckets and the two profile paths); it is timed at config 2's largest
-   16x16 and 32x32 clip-add buckets; and config 2's frame 3 program is
-   replayed with the kernel and with the plain version in its place,
-   counting the eager ops of each;
+   narrow planes), on one-entry buckets of every tx size, bit depth and
+   mode, and on every path's own largest work list of each mode (config
+   2, 3 and 4, tools, super-res, engine, the two pipelined paths, the
+   tile-sharded decode and the two profile paths) and the tile-sharded
+   decode's own one-entry buckets; every path must launch it once a run
+   (and never one entry at a time); it is timed on config 2 frame 3's
+   clip-add run, on the same buckets as one-entry launches in turns with
+   it, and on config 2's largest 32x32 bucket as a one-entry list; config
+   2's frame 3 program is replayed with the kernel and with the plain
+   version in its place, counting the eager ops of each; ``-Xptxas -v``
+   must show no stack frame and no spill in the kernel;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
@@ -226,8 +231,9 @@ def card_line():
 
 def build_all():
     """Build the native host library (on import) and the CUDA kernels
-    (every source side by side, nvcc with -Xptxas -v, to print registers
-    and spills)."""
+    (every source side by side, nvcc with -Xptxas -v, to print registers,
+    spills and stack frames). Fails if a kernel of csrc/itx.cu has a
+    stack frame or spills."""
     t0 = time.perf_counter()
     from dav1d_mirror_tpu_torch.host import native  # builds on import
     t_native = time.perf_counter() - t0
@@ -237,28 +243,44 @@ def build_all():
     t_cuda = time.perf_counter() - t0
     print(f"build: cuda kernels {t_cuda:.2f} s ({', '.join(logs) or 'cached'}),"
           f" native host library {t_native:.2f} s ({native.LIB._name})")
+    bad = []
     for name, log in logs.items():
+        fn = None
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+                print(f"  ptxas {name} {fn}: {line.strip()}")
+            if name == "itx" and "stack frame" in line:
+                nums = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]
+                if nums != [0, 0, 0]:
+                    bad.append(f"{fn}: {line.strip()}")
+    assert not bad, f"itx.cu: stack frame or spills: {bad}"
+    assert "itx" in logs or not logs, "itx.cu was not rebuilt with -v"
 
 
 class ItxLog:
-    """Wraps the itx kernel's wrapper to keep the largest bucket of each
-    (mode, tx size, one transform type, dense coefficients) that the
-    calls made inside it give the kernel (counts stay the wrapper's
-    own): `itx` {key: the call's arguments}. Descriptor slices,
-    selectors and dense blocks are never written after they are made;
-    the plane is, so only its shape and dtype are kept."""
+    """Wraps the itx kernel's wrappers to keep, of the calls made inside
+    it, the largest work list of each mode (`runs` {mode: the call's
+    arguments}, largest by work items) and the largest one-entry bucket of
+    each (mode, tx size, one transform type, dense coefficients)
+    (`itx` {key: the call's arguments}); counts stay the wrappers' own.
+    Descriptor buffers, tables, selectors and dense blocks are never
+    written after they are made; the planes are, so only their shapes and
+    dtypes are kept."""
 
     def __init__(self):
         from dav1d_mirror_tpu_torch.ops import itx_cuda
         self.itx_cuda = itx_cuda
         self.itx = {}
+        self.runs = {}
+        self.add_runs = None   # a list: keep every clip-add run's call
         self._orig = None
 
     def __enter__(self):
         ib = self._orig = self.itx_cuda.itx_bucket
+        ir = self._orig_run = self.itx_cuda.itx_run
 
         def rec_ib(mode, vals, pos, sel, tx, bd, plane=None, ys=None,
                    xs=None, out_dtype=None):
@@ -272,11 +294,28 @@ class ItxLog:
                     (tuple(plane.shape), plane.dtype))
             kw = {} if out_dtype is None else {"out_dtype": out_dtype}
             return ib(mode, vals, pos, sel, tx, bd, plane, ys, xs, **kw)
+
+        def rec_ir(mode, tab, work, desc, desc16, bd, planes=(),
+                   hres_views=(), hres_dtype=None):
+            call = dict(
+                mode=mode, tab=tab, work=work, desc=desc, desc16=desc16,
+                bd=bd, planes=[(tuple(p.shape), p.dtype) for p in planes],
+                hres_views=hres_views, hres_dtype=hres_dtype)
+            kept = self.runs.get(mode)
+            if kept is None or work[1] > kept["work"][1]:
+                self.runs[mode] = call
+            if mode == "add" and self.add_runs is not None:
+                self.add_runs.append(call)
+            kw = {} if hres_dtype is None else {"hres_dtype": hres_dtype}
+            return ir(mode, tab, work, desc, desc16, bd, planes, hres_views,
+                      **kw)
         self.itx_cuda.itx_bucket = rec_ib
+        self.itx_cuda.itx_run = rec_ir
         return self
 
     def __exit__(self, *exc):
         self.itx_cuda.itx_bucket = self._orig
+        self.itx_cuda.itx_run = self._orig_run
 
 
 class ShapeLog:
@@ -293,6 +332,12 @@ class ShapeLog:
     def __init__(self, mc_cuda, frame_exec, api, intra=None):
         self._itx_log = ItxLog()
         self.itx = self._itx_log.itx
+        self.runs = self._itx_log.runs
+        # every clip-add run's call (config 2: its largest 32x32 bucket)
+        self._itx_log.add_runs = self.add_runs = []
+        # itx launches the programs' work lists call for: one a run with
+        # work items
+        self.itx_expected = 0
         self.keep_frame = None
         self.kept_program = None
         self.mc_cuda = mc_cuda
@@ -335,6 +380,9 @@ class ShapeLog:
             self._hpx_planes = [rec[1] for rec in sig[0] if rec[0] == "hpx"]
             for rec in sig[0]:
                 ops[rec[0]] = ops.get(rec[0], 0) + 1
+                if rec[0] == "itxrun":
+                    assert rec[3][0] > 0, "an itxrun without entries"
+                    self.itx_expected += rec[3][1] > 0
                 if rec[0] == "comp":     # the two sides' sub-ops
                     subs = rec[5][0] + rec[5][1]
                 elif rec[0] == "obmc":
@@ -629,6 +677,7 @@ def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
     assert d == md5, f"{key} md5 {d} != {md5}"
     assert min(launches.values()) > 0, \
         (key, launches)
+    one_launch_per_run(shapes, launches, key)
     ran = {k for ops in shapes.frame_ops for k in ops}
     assert set(kinds) <= ran, (key, sorted(ran))
     assert shapes.ii_blocks > 0, f"{key} ran no inter-intra block"
@@ -1191,51 +1240,239 @@ def itx_compare(torch, np, itx, itx_cuda, rng, call, label):
     return int((got.long() - want.long()).abs().max())
 
 
-def itx_bound(np, itx, gen_itx_cuh, call):
-    """(least ms, what bounds it) of one bucket: its coefficients,
-    positions, selectors and origins read once, the pixels of its units
-    inside the plane read (add) and written once; the operations of the
-    generated straight-line code of each live block's row and column
-    families, the rect2 prescale and the epilogue. Pad rows and units
-    wholly outside the plane count nothing."""
-    from dav1d_mirror_tpu_torch.ops.itx_meta import TX_INFO, WHT_WHT
-    mode, vals, pos, sel, tx, bd, plane, ys, xs, out_dtype = call
+def itx_run_case(np, frame_exec, itx, rng, mode, bd):
+    """A synthetic work list of one run as a planner emits it: for every
+    tx size a sparse bucket (at most 16 nonzeros a block) of 12 real
+    blocks and 4 pad rows, a WHT 4x4 bucket, and dense tails (one block
+    with every coefficient set, K = sh * sw) at 4x4, 16x16, 32x32, 64x64
+    and 16x64; in each bucket a block at the int16 (int16 buffer) or
+    int32 extremes; vals in the int16 buffer where they fit (bd 8, every
+    other bucket), pos in the int16 or int32 one by turns; selectors over
+    every allowed type; three planes, each bucket's units in a band of two
+    unit rows of six, the last of each row cut by the right edge, the last
+    band of each plane by the bottom edge. Returns (sig, desc, desc16,
+    plane shapes)."""
+    from dav1d_mirror_tpu_torch.ops.itx_meta import (TX_INFO, WHT_WHT,
+                                                     allowed_txtypes)
+    from dav1d_mirror_tpu_torch.ops.mc import PAD_OOB
+    specs = [(tx, "sparse") for tx in range(19)] + [(0, "wht")] + \
+        [(tx, "dense") for tx in (0, 2, 3, 4, 17)]
+    W_PL, per_row = 352, 6
+    band, placed = [0, 0, 0], []
+    for i, (tx, _) in enumerate(specs):
+        placed.append((i % 3, band[i % 3]))
+        band[i % 3] += 2 * TX_INFO[tx][1]
+    last = {pl: max(i for i, (p, _) in enumerate(placed) if p == pl)
+            for pl in range(3)}
+    shapes = [(band[pl] - TX_INFO[specs[last[pl]][0]][1] // 2, W_PL)
+              for pl in range(3)]
+    prog = frame_exec.FrameProgram(3, bd, shapes)
+    amp = 900 << (bd - 8)
+    with frame_exec.ItxRun(prog, mode) as run:
+        for i, ((tx, kind), (pl, y0)) in enumerate(zip(specs, placed)):
+            w, h, _ = TX_INFO[tx]
+            sh, sw = min(h, 32), min(w, 32)
+            S = sh * sw
+            n_real, B = 12, 16
+            narrow = bd == 8 and i % 2 == 0
+            cf = np.zeros((B, S), np.int64)
+            for b in range(n_real):
+                nz = int(rng.integers(1, min(16, S) + 1))
+                cf[b, rng.choice(S, nz, replace=False)] = \
+                    rng.integers(1, amp, nz) * rng.choice([-1, 1], nz)
+            if kind == "dense":
+                v = rng.integers(-amp, amp, S)
+                v[v == 0] = 1
+                cf[3] = v
+            ext = (-32768, 32767) if narrow else ITX_EXTREMES
+            k = min(S, 8)
+            cf[n_real - 1, :] = 0
+            cf[n_real - 1, rng.choice(S, k, replace=False)] = \
+                rng.choice(ext, k)
+            vals, pos, K = frame_exec.compact_cf(
+                cf.astype(np.int32).reshape(B, sh, sw))
+            Kp = 1 << (K - 1).bit_length()
+            vals = np.pad(vals, ((0, 0), (0, Kp - K)))
+            pos = np.pad(pos, ((0, 0), (0, Kp - K)), constant_values=S)
+            h_v = prog.emit16(vals) if narrow else prog.emit(vals)
+            h_p = prog.emit16(pos) if i % 3 != 1 else prog.emit(pos)
+            j = np.arange(B)
+            ys = (y0 + j // per_row * h).astype(np.int32)
+            xs = np.where(j % per_row == per_row - 1, W_PL - w // 2,
+                          j % per_row * w).astype(np.int32)
+            ys[n_real:] = PAD_OOB
+            types = [t for t in allowed_txtypes(tx) if t != WHT_WHT]
+            sel = np.array([itx.itx_multi_sel(
+                tx, types[int(rng.integers(len(types)))]) for _ in range(B)],
+                np.int32)
+            wht = kind == "wht"
+            if mode == "hres":
+                rec = ("hresc", tx, WHT_WHT, sh, sw, h_v, h_p) if wht else \
+                    ("hresmc", tx, sh, sw, h_v, h_p, prog.emit(sel[:, 0]),
+                     prog.emit(sel[:, 1]))
+            else:
+                h_ys, h_xs = prog.emit(ys), prog.emit(xs)
+                if wht and mode == "add":
+                    rec = ("residc", pl, sh, sw, tx, WHT_WHT, h_v, h_p, h_ys,
+                           h_xs)
+                elif wht:
+                    rec = ("resrawc", pl, tx, WHT_WHT, sh, sw, h_v, h_p,
+                           h_ys, h_xs)
+                else:
+                    rec = ("residmc" if mode == "add" else "resrawmc", pl,
+                           sh, sw, tx, h_v, h_p, prog.emit(sel[:, 0]),
+                           prog.emit(sel[:, 1]), h_ys, h_xs)
+            run.op(*rec, n_real=n_real)
+    sig, desc, desc16, _ = prog.finalize()
+    return sig, desc, desc16, shapes
+
+
+def frame_runs(sig, desc):
+    """[(mode, table view of desc, work, hres views)] of a program's
+    itxrun records."""
+    out = []
+    for rec in sig[0]:
+        if rec[0] == "itxrun":
+            _, mode, (off, shape), work, views = rec
+            out.append((mode, desc[off:off + shape[0]], work, views))
+    return out
+
+
+def itx_run_compare(torch, np, itx, itx_cuda, rng, call, label):
+    """The kernel against its plain version on one work list
+    (torch.equal): call = dict(mode, tab, work, desc, desc16, bd, planes
+    [(shape, dtype)], hres_views, hres_dtype); the planes are random
+    pixels. Returns the max abs difference (0)."""
+    args = (call["mode"], call["tab"], call["work"], call["desc"],
+            call["desc16"], call["bd"])
+    planes = [torch.from_numpy(rng.integers(0, 1 << call["bd"], sh).astype(
+        np.int32)).to(call["desc"].device).to(dt) for sh, dt in
+        call["planes"]]
+    kw = {"hres_views": call["hres_views"]}
+    if call["hres_dtype"] is not None:
+        kw["hres_dtype"] = call["hres_dtype"]
+    got_p = [p.clone() for p in planes]
+    want_p = [p.clone() for p in planes]
+    got = itx_cuda.itx_run(*args, got_p, **kw)
+    want = itx.itx_run(*args, want_p, **kw)
+    torch.cuda.synchronize()
+    got, want = (got or []) + got_p, (want or []) + want_p
+    assert len(got) == len(want) and all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)), \
+        f"itx differs from its plain version: {label}"
+    return max([int((g.long() - w.long()).abs().max()) for g, w in
+                zip(got, want) if g.numel()] + [0])
+
+
+def itx_entry_cost(np, itx, gen_itx_cuh, mode, e, d32, d16, plane, hres_b,
+                   vals=None, pos=None, rsel=None, csel=None, ys=None,
+                   xs=None):
+    """(bytes, operations) one table entry needs: its real blocks'
+    coefficients, positions, selectors and origins read once, the pixels
+    of its units inside the plane read (add) and written once (hres: its
+    residuals written, pad rows included); the operations of the
+    generated code for the data: each block's nonzero rows through the
+    zero-tail variant of its last nonzero column, its columns through
+    the variant of its last nonzero row, the roundings, the prescale and
+    the clip-add. Blocks outside the plane count nothing. e: the entry's
+    ENTRY ints; d32/d16: the int32 and int16 buffers (numpy) its offsets
+    count from, or the one-entry call's arrays in vals..xs; plane:
+    ((H, W), bytes a pixel); hres_b: bytes an hres element."""
+    from dav1d_mirror_tpu_torch.ops.itx_meta import TX_INFO
+    tx, fl = e[itx.E_TX], e[itx.E_FLAGS]
+    K, B, n = e[itx.E_K], e[itx.E_B], e[itx.E_NREAL]
     w, h, _ = TX_INFO[tx]
     sh, sw = min(h, 32), min(w, 32)
-    B = vals.shape[0]
-    n_bytes = vals.numel() * 4 + (0 if pos is None else pos.numel() * 4)
-    if mode == "hres":
-        live = np.ones(B, bool)
-        n_px = B * h * w
-        n_bytes += n_px * out_dtype.itemsize
+    S = sh * sw
+
+    def sl(f, narrow, cnt):
+        src = d16 if narrow else d32
+        return src[e[f]:e[f] + cnt].astype(np.int64)
+    v16, p16 = bool(fl & itx.F_VALS16), bool(fl & itx.F_POS16)
+    if vals is None:
+        vals = sl(itx.E_VALS, v16, B * K).reshape(B, K)
+        if not fl & itx.F_DENSE:
+            pos = sl(itx.E_POS, p16, B * K).reshape(B, K)
+    vals = vals[:n]
+    pos = np.broadcast_to(np.arange(K), (n, K)) if fl & itx.F_DENSE else \
+        pos[:n]
+    wht, fixed = bool(fl & itx.F_WHT), bool(fl & itx.F_FIXED)
+    if fixed:
+        rs, cs = np.full(n, e[itx.E_RSEL]), np.full(n, e[itx.E_CSEL])
+    elif rsel is not None:
+        rs, cs = rsel[:n], csel[:n]
     else:
-        (H, W), dt = plane
-        yy = ys.cpu().numpy()[:, None, None] + np.arange(h)[None, :, None]
-        xx = xs.cpu().numpy()[:, None, None] + np.arange(w)[None, None, :]
+        rs, cs = sl(itx.E_RSEL, False, n), sl(itx.E_CSEL, False, n)
+    n_bytes = n * K * ((2 if v16 else 4) + (0 if fl & itx.F_DENSE else
+                                            2 if p16 else 4))
+    n_bytes += 0 if fixed else 8 * n
+    if mode == "hres":
+        live = np.ones(n, bool)
+        n_bytes += B * h * w * hres_b
+        n_px = 0
+    else:
+        (H, W), px_b = plane
+        if ys is None:
+            ys, xs = sl(itx.E_YS, False, n), sl(itx.E_XS, False, n)
+        yy = ys[:n, None, None] + np.arange(h)[None, :, None]
+        xx = xs[:n, None, None] + np.arange(w)[None, None, :]
         inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
         live = inside.any(axis=(1, 2))
         n_px = int(inside.sum())
-        n_bytes += B * 8 + n_px * dt.itemsize * (2 if mode == "add" else 1)
-    wht = not isinstance(sel, tuple) and sel == WHT_WHT
-    if isinstance(sel, tuple):
-        n_bytes += B * 8
-        rs, cs = sel[0].cpu().numpy(), sel[1].cpu().numpy()
-    else:
-        rs, cs = (0, 0) if wht else itx.itx_multi_sel(tx, sel)
-        rs, cs = np.full(B, rs), np.full(B, cs)
+        n_bytes += 8 * n + n_px * px_b * (2 if mode == "add" else 1)
+    dense = np.zeros((n, S + 1), np.int64)
+    np.put_along_axis(dense, np.clip(pos, 0, S).astype(np.int64), vals,
+                      axis=1)
+    nzb = (dense[:, :S] != 0).reshape(n, sh, sw)
+    rows = nzb.any(axis=2)
+    cols = nzb.any(axis=1)
+    last_r = np.where(rows.any(axis=1), sh - 1 - np.argmax(rows[:, ::-1],
+                                                             axis=1), -1)
+    last_c = np.where(cols.any(axis=1), sw - 1 - np.argmax(cols[:, ::-1],
+                                                             axis=1), -1)
+    rect2 = w == 2 * h or h == 2 * w
     fam_w = ("wht",) if wht else itx.itx_families(w)
     fam_h = ("wht",) if wht else itx.itx_families(h)
-    nnz = (vals.cpu().numpy() != 0).sum(axis=1)
-    rect2 = w == 2 * h or h == 2 * w
     n_ops = 0
     for b in np.nonzero(live)[0]:
-        n_ops += sh * gen_itx_cuh.op_count(fam_w[rs[b]], w) + \
-            w * gen_itx_cuh.op_count(fam_h[cs[b]], h) + \
-            nnz[b] * (3 if rect2 else 1)
-        if not wht:
-            n_ops += 3 * sh * w + 2 * h * w       # the two roundings
-        if mode == "add":
-            n_ops += 2 * h * w
+        nz_rows = int(rows[b].sum())
+        nnz = int(nzb[b].sum())
+        if wht:
+            n_ops += nz_rows * 8 + w * 8 + nnz
+        else:
+            fr = fam_w[rs[b]] if 0 <= rs[b] < len(fam_w) else fam_w[0]
+            fc = fam_h[cs[b]] if 0 <= cs[b] < len(fam_h) else fam_h[0]
+            m_r = gen_itx_cuh.tail_inputs(int(last_c[b]) + 1, w)
+            m_c = gen_itx_cuh.tail_inputs(int(last_r[b]) + 1, h)
+            n_ops += nz_rows * gen_itx_cuh.op_count(
+                fr, w, None if m_r == sw else m_r)
+            n_ops += w * gen_itx_cuh.op_count(fc, h,
+                                               None if m_c == sh else m_c)
+            n_ops += nnz * (3 if rect2 else 0) + 3 * nz_rows * w + 2 * h * w
+    if mode == "add":
+        n_ops += 2 * n_px
+    return n_bytes, n_ops
+
+
+def itx_run_bound(np, itx, gen_itx_cuh, call):
+    """(least ms, what bounds it) of one work list: the sum of its entries'
+    itx_entry_cost, and its table read once."""
+    mode, work = call["mode"], call["work"]
+    tab = call["tab"].cpu().numpy()
+    d32 = call["desc"].cpu().numpy()
+    d16 = call["desc16"].cpu().numpy()
+    hres_b = 4 if call["hres_dtype"] is None else call["hres_dtype"].itemsize
+    n_bytes = tab.size * 4
+    n_ops = 0
+    for e in itx.table_entries(tab, work[0]):
+        plane = None
+        if mode != "hres":
+            shp, dt = call["planes"][e[itx.E_PLANE]]
+            plane = (shp, dt.itemsize)
+        b, o = itx_entry_cost(np, itx, gen_itx_cuh, mode, e, d32, d16,
+                              plane, hres_b)
+        n_bytes += b
+        n_ops += o
     return bound(n_bytes, n_ops)
 
 
@@ -1274,19 +1511,46 @@ def time_wall(torch, fn, n):
 def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
               floor_ms):
     """The itx kernel against its plain version on the card
-    (torch.equal): every tx size at bd 8/10/12 in the three modes (int32
-    and narrow planes) on sparse and mixed synthetic buckets, WHT, and
-    each path's own largest bucket of every (mode, tx size, one type,
-    dense) in `owned` ({path: ShapeLog or ItxLog}); then warm and cold
-    time, plain time and bound at config 2's own largest 16x16 and 32x32
-    clip-add buckets.
-    Returns the kernel row of the JSON line."""
+    (torch.equal): synthetic work lists (itx_run_case) in the three
+    modes at bd 8/10/12 on int32 and narrow planes; one-entry buckets of
+    every tx size at bd 8/10/12 in the three modes (int32 and narrow
+    planes) on sparse and mixed coefficients, and WHT (itx_case); each
+    path's own largest work list of each mode and own largest one-entry
+    bucket of every (mode, tx size, one type, dense) in `owned` ({path:
+    ShapeLog or ItxLog}). Then, on config 2's frame 3 program (its
+    ShapeLog's kept_program): the clip-add run's warm and cold time,
+    bound, plain device and wall time, the same buckets as one-entry
+    launches in turns with the run (one-entry, run, run, one-entry), and
+    the run's largest 32x32 bucket as a one-entry list. Returns the
+    kernel row of the JSON line."""
     from dav1d_mirror_tpu_torch.ops.itx_meta import TX_INFO, WHT_WHT
     from dav1d_mirror_tpu_torch.tools import gen_itx_cuh
     dev = torch.device("cuda")
     rng = np.random.default_rng(2025)
     cases, max_err = [], 0
     t0 = time.perf_counter()
+    for bd in (8, 10, 12):
+        narrow = torch.uint8 if bd == 8 else torch.int16
+        hres_t = torch.int16 if bd == 8 else torch.int32
+        for mode in itx.MODES:
+            sig, desc, desc16, shapes = itx_run_case(np, frame_exec, itx,
+                                                     rng, mode, bd)
+            desc = torch.from_numpy(desc).to(dev)
+            desc16 = torch.from_numpy(desc16).to(dev)
+            (_, tab, work, views), = frame_runs(sig, desc)
+            for dt in ((None,) if mode == "hres" else (torch.int32,
+                                                       narrow)):
+                label = (f"work list {mode} bd{bd} {work[0]} entries "
+                         f"({work[1]} work items)"
+                         + ("" if dt is None else f" {dt}"))
+                max_err = max(max_err, itx_run_compare(
+                    torch, np, itx, itx_cuda, rng, dict(
+                        mode=mode, tab=tab, work=work, desc=desc,
+                        desc16=desc16, bd=bd,
+                        planes=[] if dt is None else
+                        [(sh, dt) for sh in shapes],
+                        hres_views=views, hres_dtype=hres_t), label))
+                cases.append(label)
     for tx in sorted(TX_INFO):
         for bd in (8, 10, 12):
             narrow = torch.uint8 if bd == 8 else torch.int16
@@ -1301,8 +1565,9 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
                 if kind != "sparse":
                     calls += [("add", narrow, None), ("raw", narrow, None)]
                 for mode, dt, odt in calls:
-                    label = (f"tx {tx} {TX_INFO[tx][0]}x{TX_INFO[tx][1]} "
-                             f"bd{bd} {kind} K={vals.shape[1]} {mode}"
+                    label = (f"one-entry tx {tx} {TX_INFO[tx][0]}x"
+                             f"{TX_INFO[tx][1]} bd{bd} {kind} "
+                             f"K={vals.shape[1]} {mode}"
                              + ("" if dt is None else f" {dt}"))
                     max_err = max(max_err, itx_compare(
                         torch, np, itx, itx_cuda, rng,
@@ -1312,10 +1577,16 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
                     cases.append(label)
     n_synth = len(cases)
     for path, shapes in owned.items():
+        for mode, c in sorted(shapes.runs.items()):
+            label = (f"{path} own largest work list {mode}: {c['work'][0]} "
+                     f"entries, {c['work'][1]} work items, bd{c['bd']}")
+            max_err = max(max_err, itx_run_compare(torch, np, itx, itx_cuda,
+                                                   rng, c, label))
+            cases.append(label)
         for (mode, tx, const, dense), c in sorted(shapes.itx.items()):
             call = (c["mode"], c["vals"], c["pos"], c["sel"], c["tx"],
                     c["bd"], c["plane"], c["ys"], c["xs"], c["out_dtype"])
-            label = (f"{path} own largest {mode} tx {tx} "
+            label = (f"{path} own largest one-entry {mode} tx {tx} "
                      f"{TX_INFO[tx][0]}x{TX_INFO[tx][1]} "
                      f"B={c['vals'].shape[0]} K={c['vals'].shape[1]} "
                      f"bd{c['bd']}" + (" one type" if const else "")
@@ -1327,39 +1598,107 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
           f"{len(cases) - n_synth} decode cases "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    own = owned["config 2"].itx
-    timed = []
-    for tx in (2, 3):
-        c = own.get(("add", tx, False, False))
-        if c is None:
-            continue
-        (H, W), dt = c["plane"]
-        plane = torch.from_numpy(rng.integers(0, 1 << c["bd"], (H, W))
-                                 .astype(np.int32)).to(dev).to(dt)
-        args = (c["vals"], c["pos"], c["sel"], tx, c["bd"], plane,
-                c["ys"], c["xs"])
+    # ---- config 2's frame 3: its clip-add run ----
+    sig, desc, desc16 = owned["config 2"].kept_program[:3]
+    bd, shapes = sig[2], sig[3]
+    (_, tab, work, _), = [r for r in frame_runs(sig, desc) if r[0] == "add"]
+    planes = [torch.from_numpy(rng.integers(0, 1 << bd, sh).astype(
+        np.int32)).to(dev) for sh in shapes]
+    call = dict(mode="add", tab=tab, work=work, desc=desc, desc16=desc16,
+                bd=bd, planes=[(p.shape, p.dtype) for p in planes],
+                hres_views=(), hres_dtype=None)
+    entries = itx.table_entries(tab, work[0])
 
-        def run_k(args=args):
+    def run_k():
+        return itx_cuda.itx_run("add", tab, work, desc, desc16, bd, planes)
+
+    def run_p():
+        return itx.itx_run("add", tab, work, desc, desc16, bd, planes)
+    # the same buckets as one-entry launches (every row, as the old
+    # executor gave them; coefficients widened to int32 before the clock)
+    per = []
+    for e in entries:
+        B, K = e[itx.E_B], e[itx.E_K]
+
+        def sl(f, narrow, n):
+            src = desc16 if narrow else desc
+            return src[e[f]:e[f] + n].to(torch.int32)
+        fl = e[itx.E_FLAGS]
+        vals = sl(itx.E_VALS, fl & itx.F_VALS16, B * K).view(B, K)
+        pos = sl(itx.E_POS, fl & itx.F_POS16, B * K).view(B, K)
+        sel = WHT_WHT if fl & itx.F_WHT else (
+            desc[e[itx.E_RSEL]:e[itx.E_RSEL] + B],
+            desc[e[itx.E_CSEL]:e[itx.E_CSEL] + B])
+        per.append((vals, pos, sel, e[itx.E_TX], bd, planes[e[itx.E_PLANE]],
+                    desc[e[itx.E_YS]:e[itx.E_YS] + B],
+                    desc[e[itx.E_XS]:e[itx.E_XS] + B]))
+
+    def run_b():
+        for args in per:
+            itx_cuda.itx_bucket("add", *args)
+    # a few hundred launches a timing: more would fill the launch queue,
+    # and the host could then not queue ahead of the card
+    reps_b = max(1, 400 // len(per))
+    turns = [time_warm(torch, run_b, reps_b), time_warm(torch, run_k, 100),
+             time_warm(torch, run_k, 100), time_warm(torch, run_b, reps_b)]
+    warm = min(turns[1:3])
+    cold = time_cold(torch, run_k, scratch, 20)
+    plain, plain_wall = time_plain(torch, run_p, 3)
+    b_ms, b_by = itx_run_bound(np, itx, gen_itx_cuh, call)
+    n_blocks = sum(e[itx.E_NREAL] for e in entries)
+    shape = (f"config 2 frame {OPS_FRAME}'s clip-add run: {work[0]} "
+             f"entries, {n_blocks} real blocks, {work[1]} work items, "
+             f"bd{bd}, int32 planes {shapes[0]}")
+    print(f"  itx {shape}: {warm:.5f} ms warm, {cold:.5f} ms cold, "
+          f"plain {plain:.5f} ms device, {plain_wall:.5f} ms wall, "
+          f"bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / warm:.1f}% of "
+          f"bound warm")
+    print(f"  itx the same {work[0]} buckets as one-entry launches, in turns "
+          f"(one-entry, run, run, one-entry): " +
+          ", ".join(f"{t:.5f}" for t in turns) +
+          f" ms; one-entry / run {min(turns[0], turns[3]) / warm:.1f}x")
+    # config 2's largest 32x32 clip-add bucket of the decode as a one-entry
+    # list (the bucket the one-launch-a-bucket design was timed at)
+    best = None
+    for c in owned["config 2"].add_runs:
+        for e in itx.table_entries(c["tab"], c["work"][0]):
+            if e[itx.E_TX] == 3 and (best is None or
+                                     e[itx.E_B] > best[1][itx.E_B]):
+                best = (c, e)
+    one = None
+    if best is not None:
+        c, e = best
+        B, K = e[itx.E_B], e[itx.E_K]
+        d32, d16 = c["desc"], c["desc16"]
+        fl = e[itx.E_FLAGS]
+        src_v = d16 if fl & itx.F_VALS16 else d32
+        src_p = d16 if fl & itx.F_POS16 else d32
+        (H, W), _ = c["planes"][e[itx.E_PLANE]]
+        plane = torch.from_numpy(rng.integers(0, 1 << bd, (H, W)).astype(
+            np.int32)).to(dev)
+        args = (src_v[e[itx.E_VALS]:e[itx.E_VALS] + B * K].to(
+                    torch.int32).view(B, K),
+                src_p[e[itx.E_POS]:e[itx.E_POS] + B * K].to(
+                    torch.int32).view(B, K),
+                (d32[e[itx.E_RSEL]:e[itx.E_RSEL] + B],
+                 d32[e[itx.E_CSEL]:e[itx.E_CSEL] + B]), 3, bd, plane,
+                d32[e[itx.E_YS]:e[itx.E_YS] + B],
+                d32[e[itx.E_XS]:e[itx.E_XS] + B])
+
+        def run_one(args=args):
             return itx_cuda.itx_bucket("add", *args)
-
-        def run_p(args=args):
-            return itx.itx_bucket("add", *args)
-        warm = time_warm(torch, run_k, 100)
-        cold = time_cold(torch, run_k, scratch, 20)
-        plain, plain_wall = time_plain(torch, run_p, 5)
-        call = ("add", c["vals"], c["pos"], c["sel"], tx, c["bd"],
-                c["plane"], c["ys"], c["xs"], None)
-        b_ms, b_by = itx_bound(np, itx, gen_itx_cuh, call)
-        shape = (f"config 2's own largest {TX_INFO[tx][0]}x"
-                 f"{TX_INFO[tx][1]} clip-add bucket, B="
-                 f"{c['vals'].shape[0]} K={c['vals'].shape[1]} bd"
-                 f"{c['bd']} on a {H}x{W} {dt} plane")
-        print(f"  itx {shape}: {warm:.5f} ms warm, {cold:.5f} ms cold, "
-              f"plain {plain:.5f} ms device, {plain_wall:.5f} ms wall, "
-              f"bound {b_ms:.5f} ms ({b_by})")
-        timed.append((warm, cold, plain, plain_wall, b_ms, b_by, shape))
-    assert timed, "config 2 ran no 16x16 or 32x32 clip-add bucket"
-    warm, cold, plain, plain_wall, b_ms, b_by, shape = timed[-1]
+        o_warm = time_warm(torch, run_one, 100)
+        o_cold = time_cold(torch, run_one, scratch, 20)
+        o_b, o_o = itx_entry_cost(np, itx, gen_itx_cuh, "add", e,
+                                  d32.cpu().numpy(), d16.cpu().numpy(),
+                                  ((H, W), 4), 4)
+        o_ms, o_by = bound(o_b, o_o)
+        one = dict(B=B, n_real=e[itx.E_NREAL], K=K, warm=o_warm,
+                   cold=o_cold, bound=o_ms, by=o_by)
+        print(f"  itx config 2's largest 32x32 clip-add bucket (B={B}, "
+              f"{e[itx.E_NREAL]} real, K={K}) as a one-entry list: "
+              f"{o_warm:.5f} ms warm, {o_cold:.5f} ms cold, bound "
+              f"{o_ms:.5f} ms ({o_by})")
     return dict(
         name="itx", route="cuda",
         source="dav1d_mirror_tpu_torch/csrc/itx.cu",
@@ -1369,7 +1708,7 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
         launches=None, max_abs_err=max_err, ms=warm, plain_ms=plain,
         plain_wall_ms=plain_wall, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, cold_ms=cold, floor_ms=floor_ms, cases=cases,
-        shape=shape, timed=timed)
+        shape=shape, one_entry_ms=turns, bucket32=one)
 
 
 def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
@@ -1400,7 +1739,7 @@ def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
                getattr(o, "__module__", "").startswith(
                    "dav1d_mirror_tpu_torch.ops")]
     targets += [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
-                (itx_cuda, "itx_bucket")]
+                (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in targets]
     for mod, n, fn in saved:
         setattr(mod, n, wrap(fn, n))
@@ -1416,13 +1755,13 @@ def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
 def itx_ops_phase(torch, itx, itx_cuda, mc_cuda, frame_exec, shapes, frame):
     """One steady config 2 frame's program (`shapes.kept_program`, frame
     `frame`) replayed on the card with the itx kernel and with its plain
-    version in its place (itx_cuda.itx_bucket swapped for
-    ops/itx.itx_bucket; the MC kernels stay): its wall ms in turns kernel,
+    version in its place (itx_cuda.itx_run swapped for ops/itx.itx_run;
+    the MC kernels stay): its wall ms in turns kernel,
     plain, plain, kernel, then the eager ops each issues by family
     (family_ops); the planes and residuals of both equal. Returns
     {route: ({family: ops}, [ms, ms])}."""
     sig, *args = shapes.kept_program
-    orig = itx_cuda.itx_bucket
+    orig = itx_cuda.itx_run
     out = {}
     results = {}
 
@@ -1430,8 +1769,8 @@ def itx_ops_phase(torch, itx, itx_cuda, mc_cuda, frame_exec, shapes, frame):
         return frame_exec.execute_program(sig, *args)
     try:
         for route in ("kernel", "plain", "plain", "kernel"):
-            itx_cuda.itx_bucket = orig if route == "kernel" else \
-                itx.itx_bucket
+            itx_cuda.itx_run = orig if route == "kernel" else \
+                itx.itx_run
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = run()
@@ -1440,12 +1779,12 @@ def itx_ops_phase(torch, itx, itx_cuda, mc_cuda, frame_exec, shapes, frame):
             results.setdefault(route, res)
             out.setdefault(route, [None, []])[1].append(ms)
         for route in ("kernel", "plain"):
-            itx_cuda.itx_bucket = orig if route == "kernel" else \
-                itx.itx_bucket
+            itx_cuda.itx_run = orig if route == "kernel" else \
+                itx.itx_run
             out[route][0] = family_ops(torch, frame_exec, mc_cuda,
                                        itx_cuda, run)
     finally:
-        itx_cuda.itx_bucket = orig
+        itx_cuda.itx_run = orig
     (pk, hk), (pp, hp) = results["kernel"], results["plain"]
     assert len(pk) == len(pp) and len(hk) == len(hp)
     assert all(torch.equal(a, b) for a, b in zip(pk + hk, pp + hp)), \
@@ -1475,6 +1814,13 @@ def report_path(name, frames, times, shapes, launches, digests, split,
           ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / staged_s:.1f}%)"
                     for k, v in sorted(split.items(),
                                        key=lambda kv: -kv[1])))
+
+
+def one_launch_per_run(shapes, launches, name):
+    """The itx kernel ran once for each run of the programs' work lists
+    (ShapeLog), and never as a one-entry list."""
+    assert launches["itx"] == shapes.itx_expected and not shapes.itx, (
+        name, launches, shapes.itx_expected, sorted(shapes.itx))
 
 
 def staged(stages, run):
@@ -1513,8 +1859,10 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
 
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     per_frame = {n: sum(e.self_device_time_total for e in kernels
-                        if f"{n}_kernel" in e.key) / 2e3
-                 for n in ("mc_hplanes", "mc_vpass", "itx")}
+                        if k in e.key) / 2e3
+                 for n, k in (("mc_hplanes", "mc_hplanes_kernel"),
+                              ("mc_vpass", "mc_vpass_kernel"),
+                              ("itx", "itx_run_kernel"))}
     per_frame["all kernels"] = sum(e.self_device_time_total
                                    for e in kernels) / 2e3
     for key in ("cuda_time_total", "cpu_time_total"):
@@ -1560,10 +1908,12 @@ def main():
         mc_cuda.HPLANES_LAUNCHES = 0
         mc_cuda.VPASS_LAUNCHES = 0
         itx_cuda.ITX_LAUNCHES = 0
+        itx_cuda.ITX_ENTRIES = 0
         out = run()
         return out, {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
                      "mc_vpass": mc_cuda.VPASS_LAUNCHES,
-                     "itx": itx_cuda.ITX_LAUNCHES}
+                     "itx": itx_cuda.ITX_LAUNCHES,
+                     "itx entries": itx_cuda.ITX_ENTRIES}
 
     # ---- config 2 path (run first: the kernel phase uses its shapes) ----
     with open(STREAM, "rb") as f:
@@ -1576,6 +1926,7 @@ def main():
     assert digest == STREAM_MD5, f"md5 {digest} != {STREAM_MD5}"
     assert min(launches.values()) > 0, \
         launches
+    one_launch_per_run(shapes, launches, "config 2")
     (digest2, _, times2), split = staged(
         stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
@@ -1598,6 +1949,7 @@ def main():
     # the keyframe on the engine's own route, and every inter frame
     # eligible (plain intra blocks only) and full-device
     assert routes_e == {"intra": 1, "mixed": 8, "hybrid": 0}, routes_e
+    one_launch_per_run(shapes_e, launches_e, "config 2 engine")
     (d_es, _, times_es), split_e = staged(stages, lambda: decode(
         api, MD5Muxer, frames, torch, intra_engine=True))
     assert d_es == STREAM_MD5, f"engine md5 {d_es} (staged pass)"
@@ -1623,6 +1975,7 @@ def main():
         f"{CONFIG3_MD5}")
     assert min(launches3.values()) > 0, \
         launches3
+    one_launch_per_run(shapes3, launches3, "config 3")
     assert any("lrw" in ops for ops in shapes3.frame_ops), \
         "config 3 ran no loop restoration op"
     (d3_staged, _, times3s), split3 = staged(
@@ -1653,6 +2006,7 @@ def main():
     assert d_t == tools_md5, f"tools md5 {d_t} != {tools_md5}"
     assert min(launches_t.values()) > 0, \
         launches_t
+    one_launch_per_run(shapes_t, launches_t, "tools")
     tools_kinds = {k for ops in shapes_t.frame_ops for k in ops}
     assert {"comp", "warp", "obmc"} <= tools_kinds, tools_kinds
     assert shapes_t.ii_blocks > 0, "the tools path ran no inter-intra block"
@@ -1703,6 +2057,7 @@ def main():
     assert d_s == sr_md5, f"super-res md5 {d_s} != {sr_md5}"
     assert min(launches_s.values()) > 0, \
         launches_s
+    one_launch_per_run(shapes_s, launches_s, "superres")
     sr_kinds = {k for ops in shapes_s.frame_ops for k in ops}
     assert {"scaled", "sres", "comp s", "obmc s"} <= sr_kinds, sr_kinds
     assert any(w0 == w1 for w0, w1 in shapes_s.widths) and \
@@ -1782,6 +2137,7 @@ def main():
     assert d4 == CONFIG4_MD5, f"config 4 md5 {d4} != {CONFIG4_MD5}"
     assert min(launches4.values()) > 0, \
         launches4
+    one_launch_per_run(shapes4, launches4, "config 4")
     (d4s, _, times4s), split4 = staged(
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
     assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"

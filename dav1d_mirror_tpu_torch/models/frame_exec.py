@@ -10,28 +10,35 @@ device tensors, slicing each op's inputs out of the uploaded buffers.
 The executor implements the op kinds of the hybrid inter path and the
 filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
 from a reference of another size), ``comp`` (average, distance-weighted,
-wedge and seg joins), ``obmc``, ``residmc``, ``residc`` and ``hresc``
-(lossless WHT), ``hresmc``, ``dbk``, ``snap``, ``cdef``, ``sres``
-(super-resolution), ``lrw``, ``lrs`` and ``out``, and the device intra
-engine's (models/intra): ``embed``, ``palset``, ``newres``, ``resrawmc``
-and ``resrawc`` (residual planes), ``intrascan`` and ``crop``. Every other
-kind raises ``NotImplementedError`` saying why, before any op runs.
+wedge and seg joins), ``obmc``, the residual buckets (``residmc``, ``residc`` and ``hresc``
+(lossless WHT), ``hresmc``) and their work lists (``itxrun``), ``dbk``,
+``snap``, ``cdef``, ``sres`` (super-resolution), ``lrw``, ``lrs`` and
+``out``, and the device intra engine's (models/intra): ``embed``,
+``palset``, ``newres``, ``resrawmc`` and ``resrawc`` (residual planes),
+``intrascan`` and ``crop``. Every other kind raises
+``NotImplementedError`` saying why, before any op runs.
 
 Ops update the planes in place, in the reference's op order: puts and
 warps, compound blocks, OBMC laps (top, then left), then residuals. An op
 that reads the plane it writes reads its whole batch before it writes any
 of it (OBMC), or reads and writes only its own disjoint units (the
-residual buckets, one launch of the itx kernel each: ops/itx_cuda).
+residuals). The planner emits each run of consecutive residual bucket
+records (the reference interpreter's form, which the tests replay) and
+after it one ``itxrun`` record: the run's work list (``ItxRun``,
+ops/itx.build_table) in the int32 buffer. This executor runs the
+``itxrun`` record, one launch of the itx kernel a run
+(ops/itx_cuda.itx_run), and passes over the bucket records it covers.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import itx_cuda, mc_cuda
+from ..ops import itx, itx_cuda, mc_cuda
 from ..ops.cdef import cdef_frame
 from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
+from ..ops.itx_meta import WHT_WHT
 from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
                       comp_join_wmask, gather_units, mc_hv_combos,
                       mc_scaled_batch, mc_unit_batch, obmc_blend_batch,
@@ -182,6 +189,92 @@ class FrameProgram:
         return sig, desc, desc16, desc8
 
 
+# residual bucket record kinds -> the mode of the itx kernel that runs them
+RESID_KINDS = {"residc": "add", "residmc": "add", "hresc": "hres",
+               "hresmc": "hres", "resrawc": "raw", "resrawmc": "raw"}
+
+
+def resid_entry(rec, n_real=None):
+    """The work-list entry (ops/itx.build_table's dict) of one residual
+    bucket record: its tx size, plane, coefficient handles (int16 or
+    int32), selectors (or the fixed WHT), origins and real rows (n_real,
+    default every row)."""
+    kind = rec[0]
+    pl, h_rs = 0, None
+    h_ys = h_xs = (0, ())
+    if kind in ("residc", "resrawc"):
+        if kind == "residc":
+            _, pl, _, _, tx, txtp, h_v, h_p, h_ys, h_xs = rec
+        else:
+            _, pl, tx, txtp, _, _, h_v, h_p, h_ys, h_xs = rec
+    elif kind in ("residmc", "resrawmc"):
+        _, pl, _, _, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
+    elif kind == "hresc":
+        _, tx, txtp, _, _, h_v, h_p = rec
+    elif kind == "hresmc":
+        _, tx, _, _, h_v, h_p, h_rs, h_cs = rec
+    else:
+        raise ValueError(f"not a residual record: {kind!r}")
+    B, K = h_v[1]
+    flags = (itx.F_VALS16 if len(h_v) == 3 else 0) | \
+        (itx.F_POS16 if len(h_p) == 3 else 0)
+    assert tuple(h_p[1]) == (B, K), (h_p, h_v)
+    e = dict(tx=tx, plane=pl, K=K, B=B, n_real=B if n_real is None
+             else n_real, vals=h_v[0], pos=h_p[0], ys=h_ys[0], xs=h_xs[0])
+    if h_rs is None:
+        if txtp != WHT_WHT:
+            raise ValueError(f"{kind}: fixed type {txtp}, only WHT_WHT")
+        e.update(rsel=0, csel=0)
+        flags |= itx.F_WHT | itx.F_FIXED
+    else:
+        assert len(h_rs) == len(h_cs) == 2, "selectors ride the int32 buffer"
+        e.update(rsel=h_rs[0], csel=h_cs[0])
+    assert len(h_ys) == len(h_xs) == 2, "origins ride the int32 buffer"
+    e["flags"] = flags
+    return e
+
+
+class ItxRun:
+    """One run of consecutive residual bucket records of one mode:
+    ``op`` emits each record (the reference interpreter's form) and keeps
+    its work-list entry; leaving the ``with`` block emits the run's
+    ``itxrun`` record, its table in the int32 buffer:
+    ("itxrun", mode, table handle, (entries, items, items), hres views)."""
+
+    def __init__(self, prog, mode):
+        self.prog = prog
+        self.mode = mode
+        self.entries = []
+
+    def op(self, *rec, n_real=None):
+        assert RESID_KINDS[rec[0]] == self.mode, (rec[0], self.mode)
+        self.prog.op(*rec)
+        self.entries.append(resid_entry(rec, n_real))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.entries and exc[0] is None:
+            table, work, views = itx.build_table(self.mode, self.entries)
+            self.prog.op("itxrun", self.mode, self.prog.emit(table), work,
+                         views)
+
+
+def download_views(ts):
+    """numpy copies of device tensors: one host copy for each base tensor
+    that they view (an itxrun's flat hres output), sliced on the host."""
+    flats = {}
+    out = []
+    for t in ts:
+        base = t if t._base is None else t._base
+        if id(base) not in flats:
+            flats[id(base)] = base.cpu().numpy().reshape(-1)
+        off = t.storage_offset() - base.storage_offset()
+        out.append(flats[id(base)][off:off + t.numel()].reshape(t.shape))
+    return out
+
+
 def plane_to_torch(arr, device):
     """Upload one numpy plane in a dtype PyTorch computes with: uint8
     stays uint8; uint16 (10/12-bit) planes go up as int16, which holds
@@ -206,7 +299,8 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
 HANDLED = ("hpx", "puthv_x", "put", "warp", "scaled", "comp", "obmc",
-           "residmc", "residc", "hresmc", "hresc", "dbk", "snap", "cdef",
+           "residmc", "residc", "hresmc", "hresc", "itxrun", "dbk", "snap",
+           "cdef",
            "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
            "resrawmc", "resrawc", "intrascan", "crop")
 
@@ -226,12 +320,26 @@ LATER = {
 
 
 def check_ops(ops):
-    """Raise NotImplementedError for the first op this executor lacks."""
+    """Raise NotImplementedError for the first op this executor lacks, and
+    ValueError unless each run of residual bucket records is followed
+    directly by the itxrun record that covers it."""
+    pending = 0
     for rec in ops:
         kind = rec[0]
         if kind not in HANDLED:
             where = LATER.get(kind, "unknown op kind")
             raise NotImplementedError(f"frame op {kind!r}: {where}")
+        if kind in RESID_KINDS:
+            pending += 1
+        elif kind == "itxrun" and rec[3][0] != pending:
+            raise ValueError(f"itxrun of {rec[3][0]} entries after "
+                             f"{pending} residual records")
+        elif kind != "itxrun" and pending:
+            raise ValueError(f"{pending} residual records without itxrun")
+        else:
+            pending = 0
+    if pending:
+        raise ValueError(f"{pending} residual records without itxrun")
 
 
 def execute_program(sig, desc, desc16, desc8, refsrc):
@@ -364,24 +472,17 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             lap = side_tmp(pl, lw, lh, nL, subops, False)
             obmc_blend_batch(planes[pl], lap, get(h_ys), get(h_xs), lh, lw,
                              region, vert)
-        elif kind == "residc":
-            _, pl, sh, sw, tx, txtp, h_v, h_p, h_ys, h_xs = rec
-            itx_cuda.itx_bucket("add", get(h_v), get(h_p), txtp, tx, bd,
-                                planes[pl], get(h_ys), get(h_xs))
-        elif kind == "hresc":
-            _, tx, txtp, sh, sw, h_v, h_p = rec
-            hres.append(itx_cuda.itx_bucket("hres", get(h_v), get(h_p),
-                                            txtp, tx, bd, out_dtype=hres_t))
-        elif kind == "residmc":
-            _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
-            itx_cuda.itx_bucket("add", get(h_v), get(h_p),
-                                (get(h_rs), get(h_cs)), tx, bd, planes[pl],
-                                get(h_ys), get(h_xs))
-        elif kind == "hresmc":
-            _, tx, sh, sw, h_v, h_p, h_rs, h_cs = rec
-            hres.append(itx_cuda.itx_bucket(
-                "hres", get(h_v), get(h_p), (get(h_rs), get(h_cs)), tx, bd,
-                out_dtype=hres_t))
+        elif kind in RESID_KINDS:
+            pass    # run by the itxrun record that follows its run
+        elif kind == "itxrun":
+            _, mode, h_tab, work, views = rec
+            if mode == "hres":
+                hres.extend(itx_cuda.itx_run(
+                    mode, get(h_tab), work, desc, desc16, bd,
+                    hres_views=views, hres_dtype=hres_t))
+            else:
+                itx_cuda.itx_run(mode, get(h_tab), work, desc, desc16, bd,
+                                 planes if mode == "add" else snap["res"])
         elif kind == "dbk":
             (_, pl, luma, sb4, h_ev, h_eh, h_lv, h_lh, h_el, h_il) = rec
             # the *_prev neighbour-level maps are pure shifts of lv/lh
@@ -450,15 +551,6 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                           4)
         elif kind == "newres":
             snap["res"] = [torch.zeros_like(p) for p in planes]
-        elif kind == "resrawmc":
-            _, pl, sh, sw, tx, h_v, h_p, h_rs, h_cs, h_ys, h_xs = rec
-            itx_cuda.itx_bucket("raw", get(h_v), get(h_p),
-                                (get(h_rs), get(h_cs)), tx, bd,
-                                snap["res"][pl], get(h_ys), get(h_xs))
-        elif kind == "resrawc":
-            _, pl, tx, txtp, sh, sw, h_v, h_p, h_ys, h_xs = rec
-            itx_cuda.itx_bucket("raw", get(h_v), get(h_p), txtp, tx, bd,
-                                snap["res"][pl], get(h_ys), get(h_xs))
         elif kind == "intrascan":
             _, h_mrows, moffs, mfams, h_frows, foffs, ssh, ssv, npl = rec
             out = intra.intra_scan(

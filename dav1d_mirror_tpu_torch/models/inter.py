@@ -631,7 +631,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
         refspec.append(((h_vis, w_vis), tuple(slots)))
 
     # --- pack the whole device pixel stage into one program ---
-    from .frame_exec import FrameProgram, compact_cf, pack_put_case
+    from .frame_exec import (FrameProgram, ItxRun, compact_cf,
+                             pack_put_case)
     sref_idx = {k: i for i, k in enumerate(sref_keys)}
     prog = FrameProgram(
         n_planes, bd,
@@ -905,50 +906,56 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
             return [("s", np.arange(cf_real.shape[0]))]
         return [("s", np.nonzero(sp)[0]), ("d", np.nonzero(~sp)[0])]
 
-    for (pl, tx, is_wht), lst in sorted(rplans.items()):
-        w_t, h_t, _ = _TXI[tx]
-        sh, sw = min(h_t, 32), min(w_t, 32)
-        for _, idx in _split_sparse(lst.cf):
-            Bs = len(idx)
-            Ps = _p2(Bs)
-            cfs = np.zeros((Ps, sh, sw), np.int32)
-            yss = np.full(Ps, PAD_OOB, np.int32)
-            xss = np.zeros(Ps, np.int32)
-            sels = np.zeros((Ps, 2), np.int32)
-            cfs[:Bs] = lst.cf[idx]
-            yss[:Bs] = lst.ys[idx]
-            xss[:Bs] = lst.xs[idx]
-            sels[:Bs] = lst.sel[idx]
-            h_vals, h_pos = _emit_compact_cf(cfs)
-            if is_wht:
-                prog.op("residc", pl, sh, sw, tx, WHT_WHT, h_vals, h_pos,
-                        prog.emit(yss), prog.emit(xss))
-            else:
-                prog.op("residmc", pl, sh, sw, tx, h_vals, h_pos,
-                        prog.emit(sels[:, 0]), prog.emit(sels[:, 1]),
-                        prog.emit(yss), prog.emit(xss))
+    # one work list (ItxRun) for the run of clip-add buckets, one for the
+    # host-map buckets; n_real: the bucket's rows before its pad rows
+    with ItxRun(prog, "add") as run:
+        for (pl, tx, is_wht), lst in sorted(rplans.items()):
+            w_t, h_t, _ = _TXI[tx]
+            sh, sw = min(h_t, 32), min(w_t, 32)
+            for _, idx in _split_sparse(lst.cf):
+                Bs = len(idx)
+                Ps = _p2(Bs)
+                cfs = np.zeros((Ps, sh, sw), np.int32)
+                yss = np.full(Ps, PAD_OOB, np.int32)
+                xss = np.zeros(Ps, np.int32)
+                sels = np.zeros((Ps, 2), np.int32)
+                cfs[:Bs] = lst.cf[idx]
+                yss[:Bs] = lst.ys[idx]
+                xss[:Bs] = lst.xs[idx]
+                sels[:Bs] = lst.sel[idx]
+                h_vals, h_pos = _emit_compact_cf(cfs)
+                if is_wht:
+                    run.op("residc", pl, sh, sw, tx, WHT_WHT, h_vals, h_pos,
+                           prog.emit(yss), prog.emit(xss), n_real=Bs)
+                else:
+                    run.op("residmc", pl, sh, sw, tx, h_vals, h_pos,
+                           prog.emit(sels[:, 0]), prog.emit(sels[:, 1]),
+                           prog.emit(yss), prog.emit(xss), n_real=Bs)
     # host-map buckets: residuals computed in the same program, fetched
     # after execution for the decode-order host pass
     hres_meta = []
-    for (pl, tx, is_wht), lst in sorted(hplans.items()):
-        w_t, h_t, _ = _TXI[tx]
-        sh, sw = min(h_t, 32), min(w_t, 32)
-        for _, idx in _split_sparse(lst.cf):
-            Bs = len(idx)
-            Ps = _p2(Bs)
-            cfs = np.zeros((Ps, sh, sw), np.int32)
-            sel = np.zeros((Ps, 2), np.int32)
-            cfs[:Bs] = lst.cf[idx]
-            sel[:Bs] = lst.sel[idx]
-            h_vals, h_pos = _emit_compact_cf(cfs)
-            if is_wht:
-                prog.op("hresc", tx, WHT_WHT, sh, sw, h_vals, h_pos)
-            else:
-                prog.op("hresmc", tx, sh, sw, h_vals, h_pos,
-                        prog.emit(sel[:, 0]), prog.emit(sel[:, 1]))
-            hres_meta.append((pl, ResidBucket(
-                lst.cf[idx], lst.ys[idx], lst.xs[idx], lst.sel[idx],
-                lst.ci[idx], lst.cj[idx])))
+    with ItxRun(prog, "hres") as run:
+        for (pl, tx, is_wht), lst in sorted(hplans.items()):
+            w_t, h_t, _ = _TXI[tx]
+            sh, sw = min(h_t, 32), min(w_t, 32)
+            for _, idx in _split_sparse(lst.cf):
+                Bs = len(idx)
+                Ps = _p2(Bs)
+                cfs = np.zeros((Ps, sh, sw), np.int32)
+                sel = np.zeros((Ps, 2), np.int32)
+                cfs[:Bs] = lst.cf[idx]
+                sel[:Bs] = lst.sel[idx]
+                h_vals, h_pos = _emit_compact_cf(cfs)
+                if is_wht:
+                    run.op("hresc", tx, WHT_WHT, sh, sw, h_vals, h_pos,
+                           n_real=Bs)
+                else:
+                    run.op("hresmc", tx, sh, sw, h_vals, h_pos,
+                           prog.emit(sel[:, 0]), prog.emit(sel[:, 1]),
+                           n_real=Bs)
+                hres_meta.append((pl, ResidBucket(
+                    lst.cf[idx], lst.ys[idx], lst.xs[idx], lst.sel[idx],
+                    lst.ci[idx], lst.cj[idx])))
 
     if eng:
         # every remaining (plain intra) block reconstructs in this same
@@ -980,7 +987,8 @@ def execute_frame_program(built, seq, fhdr, coders, bufs, device):
     inter-intra blocks). Mutates bufs.planes and sets bufs.dev_planes."""
     from ..host import native_recon
     from ..utils import stages
-    from .frame_exec import plane_to_torch, run_frame_program
+    from .frame_exec import (download_views, plane_to_torch,
+                             run_frame_program)
     n_planes = len(bufs.planes)
     intra_frame = built.intra_frame
     with stages.scope("device", device):
@@ -1000,8 +1008,9 @@ def execute_frame_program(built, seq, fhdr, coders, bufs, device):
                     bufs.planes[pl][...] = dev_planes[pl].cpu().numpy()
             if not native_recon.available():
                 raise RuntimeError("native recon walk unavailable")
+            # one host copy for each run's flat output (download_views)
             res_buf, offs = native_recon.pack_residuals(
-                coders, built.hres_meta, [r.cpu().numpy() for r in hres])
+                coders, built.hres_meta, download_views(hres))
             for ci, coder in enumerate(coders):
                 rc = native_recon.recon_tile_native(
                     seq, fhdr, coder, bufs, built.dd_per[ci], res_buf,

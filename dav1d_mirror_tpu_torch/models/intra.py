@@ -745,23 +745,24 @@ def _emit_residuals(prog, iplans, bitdepth):
     size), the transform type as per-block data (lossless WHT buckets on
     their own), written at +PADT."""
     from ..ops.itx_meta import TX_INFO, WHT_WHT
-    from .frame_exec import compact_cf
+    from .frame_exec import ItxRun, compact_cf
     prog.op("newres")
-    for (pl, tx, is_wht), lst in sorted(iplans.items()):
-        w_t, h_t, _ = TX_INFO[tx]
-        sh, sw = min(h_t, 32), min(w_t, 32)
-        vals, pos, _ = compact_cf(lst.cf)
-        # 8 bpc coefficients fit int16; positions always do (<= 1024)
-        h_vals = prog.emit16(vals) if bitdepth == 8 else prog.emit(vals)
-        h_pos = prog.emit16(pos)
-        h_ys, h_xs = prog.emit(lst.ys + PADT), prog.emit(lst.xs + PADT)
-        if is_wht:
-            prog.op("resrawc", pl, tx, WHT_WHT, sh, sw, h_vals, h_pos, h_ys,
-                    h_xs)
-        else:
-            prog.op("resrawmc", pl, sh, sw, tx, h_vals, h_pos,
-                    prog.emit(lst.sel[:, 0]), prog.emit(lst.sel[:, 1]),
-                    h_ys, h_xs)
+    with ItxRun(prog, "raw") as run:     # one work list for the buckets
+        for (pl, tx, is_wht), lst in sorted(iplans.items()):
+            w_t, h_t, _ = TX_INFO[tx]
+            sh, sw = min(h_t, 32), min(w_t, 32)
+            vals, pos, _ = compact_cf(lst.cf)
+            # 8 bpc coefficients fit int16; positions always do (<= 1024)
+            h_vals = prog.emit16(vals) if bitdepth == 8 else prog.emit(vals)
+            h_pos = prog.emit16(pos)
+            h_ys, h_xs = prog.emit(lst.ys + PADT), prog.emit(lst.xs + PADT)
+            if is_wht:
+                run.op("resrawc", pl, tx, WHT_WHT, sh, sw, h_vals, h_pos,
+                       h_ys, h_xs)
+            else:
+                run.op("resrawmc", pl, sh, sw, tx, h_vals, h_pos,
+                       prog.emit(lst.sel[:, 0]), prog.emit(lst.sel[:, 1]),
+                       h_ys, h_xs)
 
 
 def _emit_scan(prog, seq, fhdr, coders, n_planes, ss_hor, ss_ver):

@@ -7,11 +7,12 @@ integer arithmetic, vectorized over the batch. The 1D butterflies are
 ``ops/itx_1d.py``, unchanged: they run on any operand with +, -, *, >>
 and ``.clip``, torch tensors included.
 
-``itx_bucket`` is the plain version of the inverse-transform kernel
-(``csrc/itx.cu``, wrapper ``ops/itx_cuda.py``): one residual bucket from
-its compact coefficients to the plane, as the reference executor composes
-``_expand_cf``, the transform and the clip-add scatter
-(``dav1d_mirror_tpu/models/frame_exec.py:94-133``).
+``itx_run`` is the plain version of the inverse-transform kernel
+(``csrc/itx.cu``, wrapper ``ops/itx_cuda.py``): a work list of residual
+buckets (``build_table``), one ``itx_bucket`` per entry. ``itx_bucket``
+takes one bucket from its compact coefficients to the plane, as the
+reference executor composes ``_expand_cf``, the transform and the
+clip-add scatter (``dav1d_mirror_tpu/models/frame_exec.py:94-133``).
 
 Reference parity: dav1d `src/itx_tmpl.c:40-100` (composer semantics),
 `src/itx_1d.c` (butterflies).
@@ -19,6 +20,8 @@ Reference parity: dav1d `src/itx_tmpl.c:40-100` (composer semantics),
 from __future__ import annotations
 
 import torch
+
+import numpy as np
 
 from .itx_1d import get_1d_fn, iwht4
 from .itx_meta import TX_INFO, TXTYPE_TO_1D, WHT_WHT
@@ -216,3 +219,147 @@ def itx_bucket(mode: str, vals, pos, sel, tx: int, bitdepth: int,
     if mode == "raw":
         return scatter_units(plane, res, ys, xs, h, w)
     return _add_units(plane, res, ys, xs, bitdepth)
+
+
+# ---------------------------------------------------------------------
+# the work list: csrc/itx.cu's table, and its plain version
+# ---------------------------------------------------------------------
+# the int32 fields of a table entry (csrc/itx.cu E_*): tx size, flags,
+# plane index, K, B (rows of vals, pad rows included), real rows (the
+# first n_real; the rest are pad rows), offsets of vals, pos, row and
+# column selectors (F_FIXED: the families themselves), ys and xs in their
+# buffers, offset of the entry's residuals in the run's flat hres output,
+# the entry's first work item in the map; two spare (64 bytes an entry)
+(E_TX, E_FLAGS, E_PLANE, E_K, E_B, E_NREAL, E_VALS, E_POS, E_RSEL, E_CSEL,
+ E_YS, E_XS, E_HRES, E_CTA0, E_SPARE0, E_SPARE1) = range(16)
+ENTRY = 16
+# E_FLAGS bits: WHT (tx 0 only); vals, pos in the int16 buffer (else the
+# int32 one); no pos (vals dense, K = sh * sw); fixed families
+F_WHT, F_VALS16, F_POS16, F_DENSE, F_FIXED = 1, 2, 4, 8, 16
+# threads a CTA, for every tx size (csrc/itx.cu CTA_THREADS)
+CTA_THREADS = 128
+
+
+def cta_geometry(tx: int) -> tuple[int, int]:
+    """(threads a tx block, tx blocks a CTA) of the kernel at tx size `tx`:
+    a thread for each row (min(h, 32)) and each column (w) of a block, a
+    CTA of CTA_THREADS (csrc/itx.cu TX_BLOCKS_PER_CTA)."""
+    w, h, _ = TX_INFO[tx]
+    t = max(min(h, 32), w)
+    return t, CTA_THREADS // t
+
+
+def item_order(tx: int, K: int) -> tuple:
+    """Sort key of an entry's work items in the map: the longest first
+    (64-point lines, then 32-point, ..., then the most coefficients a
+    block), so that they start in the kernel's first wave."""
+    w, h, _ = TX_INFO[tx]
+    return (-max(w, h), -K)
+
+
+def work_rows(mode: str, B: int, n_real: int) -> int:
+    """Rows the kernel visits: the real rows; in hres mode every row (a
+    pad row writes the zeros of its residuals)."""
+    return B if mode == "hres" else n_real
+
+
+def build_table(mode: str, entries):
+    """The work list of one run. entries: dicts of tx, flags, plane, K, B,
+    n_real, vals, pos, rsel, csel, ys, xs (offsets, or for F_FIXED the
+    families in rsel/csel). Returns (table, work, hres_views): the int32
+    table (ENTRY ints an entry, then the work-item -> entry map, each
+    entry's items together, longest first: item_order), work = (entries,
+    work items), and for hres one (offset, B, h, w) an entry in the flat
+    output."""
+    if mode not in MODES:
+        raise ValueError(f"build_table: mode {mode!r}")
+    tab = np.zeros((len(entries), ENTRY), np.int32)
+    views = []
+    off = 0
+    for i, e in enumerate(entries):
+        tx = e["tx"]
+        w, h, _ = TX_INFO[tx]
+        if e["flags"] & F_WHT and tx != 0:
+            raise ValueError("WHT is a 4x4 transform")
+        tab[i, E_TX] = tx
+        tab[i, E_FLAGS] = e["flags"]
+        tab[i, E_PLANE] = e.get("plane", 0)
+        for f, k in ((E_K, "K"), (E_B, "B"), (E_NREAL, "n_real"),
+                     (E_VALS, "vals"), (E_POS, "pos"), (E_RSEL, "rsel"),
+                     (E_CSEL, "csel"), (E_YS, "ys"), (E_XS, "xs")):
+            tab[i, f] = e.get(k, 0)
+        if mode == "hres":
+            tab[i, E_HRES] = off
+            views.append((off, e["B"], h, w))
+            off += e["B"] * h * w
+    order = sorted(range(len(entries)), key=lambda i: (
+        item_order(entries[i]["tx"], entries[i]["K"]), i))
+    items = []
+    for i in order:
+        e = entries[i]
+        rows = work_rows(mode, e["B"], e["n_real"])
+        tab[i, E_CTA0] = len(items)
+        items.extend([i] * -(-rows // cta_geometry(e["tx"])[1]))
+    table = np.concatenate([tab.reshape(-1), np.asarray(items, np.int32)])
+    return table, (len(entries), len(items)), tuple(views)
+
+
+def table_entries(tab, n_entries: int):
+    """The entries of a table (a 1-D int32 tensor or array) as lists of
+    ENTRY ints."""
+    flat = np.asarray(tab.cpu() if isinstance(tab, torch.Tensor) else tab)
+    return flat[:n_entries * ENTRY].reshape(n_entries, ENTRY).tolist()
+
+
+def hres_flat(hres_views, dtype, device):
+    """The run's flat hres output (uninitialized) and its (B, h, w) views,
+    one an entry."""
+    n = sum(B * h * w for _, B, h, w in hres_views)
+    flat = torch.empty(n, dtype=dtype, device=device)
+    return flat, [flat[o:o + B * h * w].view(B, h, w)
+                  for o, B, h, w in hres_views]
+
+
+def itx_run(mode: str, tab, work, desc, desc16, bitdepth: int, planes=(),
+            hres_views=(), hres_dtype=torch.int32):
+    """A work list of residual buckets, the plain version of the
+    ``csrc/itx.cu`` kernel: one ``itx_bucket`` per table entry, on its
+    real rows. tab: the run's int32 table (build_table); work: its
+    (entries, work items); desc/desc16: the int32 and int16 buffers its
+    offsets count from; planes: the destination planes of "add" and "raw"
+    (entry plane i -> planes[i]), updated in place. Returns the hres
+    views (a new flat output, the entries' residuals, pad rows zero) in
+    hres mode, else None."""
+    if mode not in MODES:
+        raise ValueError(f"itx_run: mode {mode!r}")
+    dev = desc.device
+    flat, views = (hres_flat(hres_views, hres_dtype, dev) if mode == "hres"
+                   else (None, None))
+
+    def sl(e, f, narrow, n):
+        src = desc16 if narrow else desc
+        return src[e[f]:e[f] + n].to(torch.int32)
+    for i, e in enumerate(table_entries(tab, work[0])):
+        tx, fl, K, B, n = e[E_TX], e[E_FLAGS], e[E_K], e[E_B], e[E_NREAL]
+        vals = sl(e, E_VALS, fl & F_VALS16, B * K).reshape(B, K)[:n]
+        pos = None if fl & F_DENSE else \
+            sl(e, E_POS, fl & F_POS16, B * K).reshape(B, K)[:n]
+        if fl & F_WHT:
+            sel = WHT_WHT
+        elif fl & F_FIXED:
+            sel = (torch.full((n,), e[E_RSEL], dtype=torch.int32,
+                              device=dev),
+                   torch.full((n,), e[E_CSEL], dtype=torch.int32,
+                              device=dev))
+        else:
+            sel = (desc[e[E_RSEL]:e[E_RSEL] + n],
+                   desc[e[E_CSEL]:e[E_CSEL] + n])
+        if mode == "hres":
+            views[i][:n] = itx_bucket("hres", vals, pos, sel, tx, bitdepth,
+                                      out_dtype=hres_dtype)
+            views[i][n:] = 0
+        else:
+            itx_bucket(mode, vals, pos, sel, tx, bitdepth,
+                       planes[e[E_PLANE]], desc[e[E_YS]:e[E_YS] + n],
+                       desc[e[E_XS]:e[E_XS] + n])
+    return views

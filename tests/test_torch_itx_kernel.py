@@ -6,8 +6,13 @@ only on the card, where chip_smoke.py holds it to its plain version).
   evaluated in numpy int32, equal the JAX package's ``ops/itx_1d.py``
   functions (the reference the port's copy was taken from) for every
   (family, length) pair and ``iwht4``, on random inputs and on inputs at
-  the int32 extremes, where the products wrap;
-- ``csrc/itx.cu`` launches each tx size with ``TX_INFO``'s (w, h, shift);
+  the int32 extremes, where the products wrap; so do its zero-tail
+  variants (only the first m inputs live) with the other inputs zero;
+- a zero line stays zero through every family's row pass and the
+  intermediate rounding at every bit depth (the kernel's row skip);
+- ``csrc/itx.cu`` dispatches each tx size with ``TX_INFO``'s (w, h,
+  shift) and the CTA geometry of ``ops/itx.cta_geometry``, and its entry
+  fields and flags are ``ops/itx.py``'s;
 - the plain bucket function ``ops/itx.itx_bucket`` (and the wrapper's CPU
   route) equals the JAX package's numpy path (the dense block of
   ``_expand_cf``, ``_residual_multi_core``/``_residual_core`` with xp=np
@@ -45,8 +50,8 @@ def test_header_matches_its_generator():
 
 @functools.lru_cache(maxsize=None)
 def _header_functions():
-    """{name: (n_in, [(dst, op, args)], {out index: value})} read from the
-    text of csrc/itx_1d.cuh."""
+    """{name: (n_in, [(dst, op, args)], {out index: "v<id>" or a
+    constant})} read from the text of csrc/itx_1d.cuh."""
     fns = {}
     text = (CSRC / "itx_1d.cuh").read_text()
     for m in re.finditer(r"void (itx_\w+)\(const int32_t\* in, int32_t\* "
@@ -63,8 +68,9 @@ def _header_functions():
                     r"const int32_t v(\d+) = itx_(\w+)\((.*)\);", line):
                 ops.append((int(mo.group(1)), mo.group(2),
                             [a.strip() for a in mo.group(3).split(",")]))
-            elif mw := re.fullmatch(r"out\[(\d+)\] = v(\d+);", line):
-                outs[int(mw.group(1))] = int(mw.group(2))
+            elif mw := re.fullmatch(r"out\[(\d+)\] = (v\d+|-?\d+);",
+                                    line):
+                outs[int(mw.group(1))] = mw.group(2)
             else:
                 raise AssertionError(f"{m.group(1)}: unparsed {line!r}")
         fns[m.group(1)] = (n_in, ops, outs)
@@ -99,7 +105,9 @@ def _evaluate(fn, inputs, mn, mx):
         else:
             raise AssertionError(op)
         v[dst] = np.asarray(r, np.int32)
-    return [v[outs[k]] for k in range(len(outs))]
+    shape = np.shape(inputs[0])
+    return [np.broadcast_to(np.asarray(arg(outs[k]), np.int32), shape)
+            for k in range(len(outs))]
 
 
 @pytest.mark.parametrize("family,n", gen_itx_cuh.PAIRS)
@@ -130,12 +138,106 @@ def test_header_function_equals_itx_1d(family, n):
                     np.testing.assert_array_equal(got[k], want[k])
 
 
+@pytest.mark.parametrize("family,n,m", gen_itx_cuh.TAIL_VARIANTS)
+def test_zero_tail_variant_equals_itx_1d(family, n, m):
+    """itx_<family>_<n>_in<m> reads m inputs and equals the full function
+    with the other inputs zero; itx_line_<n>_tail selects it for every
+    need <= m above the next smaller variant."""
+    fn = _header_functions()[gen_itx_cuh.fn_name(family, n, m)]
+    n_in = min(n, 32)
+    assert fn[0] == m and len(fn[2]) == n
+    assert gen_itx_cuh.op_count(family, n, m) < \
+        gen_itx_cuh.op_count(family, n)
+    lower = max([t for t in gen_itx_cuh.TAILS if t < m], default=0)
+    assert [gen_itx_cuh.tail_inputs(k, n) for k in range(lower + 1, m + 1)] \
+        == [m] * (m - lower)
+    rng = np.random.default_rng(n * 11 + m + len(family))
+    M = 64
+    for bd in (8, 10, 12):
+        row_min, row_max, col_min, col_max = clip_ranges(bd)
+        for mn, mx in ((row_min, row_max), (col_min, col_max)):
+            for x in (rng.integers(mn, mx + 1, (m, M)),
+                      rng.choice(EXTREMES + (0, 1, -1), (m, M)),
+                      rng.integers(I32.min, I32.max, (m, M), endpoint=True)):
+                x = x.astype(np.int32)
+                ins = [x[k] for k in range(m)]
+                zero = np.zeros(M, np.int32)
+                want = get_1d_fn(family, n)(ins + [zero] * (n_in - m), mn, mx)
+                got = _evaluate(fn, ins, mn, mx)
+                for k in range(n):
+                    np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_tail_inputs_match_the_header():
+    """The header's itx_tail_inputs is tools/gen_itx_cuh.tail_inputs."""
+    text = (CSRC / "itx_1d.cuh").read_text()
+    body = re.search(r"itx_tail_inputs\(int need, int n\) \{\s*return "
+                     r"(.*?);\s*\}", text, re.S).group(1)
+    expr = " ".join(body.split()).replace("&&", "and")
+    # C's a ? b : c, right-nested, as Python conditionals
+    for m in gen_itx_cuh.TAILS:
+        expr = expr.replace(f"(need <= {m} and {m} < n) ? {m} :",
+                            f"{m} if (need <= {m} and {m} < n) else")
+    expr = expr.replace("(n < 32 ? n : 32)", "min(n, 32)")
+    for n in (4, 8, 16, 32, 64):
+        for need in range(0, min(n, 32) + 1):
+            assert eval(expr, {"need": need, "n": n}) == \
+                gen_itx_cuh.tail_inputs(need, n), (need, n)
+
+
+@pytest.mark.parametrize("family,n", [p for p in gen_itx_cuh.PAIRS
+                                      if p[0] != "wht"])
+def test_zero_line_stays_zero_through_the_row_pass(family, n):
+    """The precondition of the kernel's row skip: a zero row gives a zero
+    row through the row family and the intermediate round and clip, for
+    every shift of a tx size whose rows have length n and every bit
+    depth's clip ranges."""
+    zero = [np.zeros(4, np.int32)] * min(n, 32)
+    shifts = {s for w, _, s in TX_INFO.values() if w == n}
+    for bd in (8, 10, 12):
+        row_min, row_max, col_min, col_max = clip_ranges(bd)
+        out = get_1d_fn(family, n)(zero, row_min, row_max)
+        for shift in shifts:
+            rnd = (1 << shift) >> 1
+            for o in out:
+                t = np.clip((np.asarray(o, np.int32) + rnd) >> shift,
+                            col_min, col_max)
+                assert not t.any(), (family, n, bd, shift)
+
+
+def _cu_table(src, name):
+    body = re.search(rf"constexpr int {name}\[19\] = \{{(.*?)\}};", src,
+                     re.S).group(1)
+    return [int(v) for v in body.replace("\n", " ").split(",")]
+
+
 def test_kernel_launches_each_tx_size_with_its_geometry():
+    """itx.cu's tables give each tx size TX_INFO's (w, h, shift) and
+    ops/itx.cta_geometry's blocks a CTA; the dispatch sends each size to
+    its own instantiation."""
     src = (CSRC / "itx.cu").read_text()
-    cases = {int(t): tuple(map(int, g)) for t, *g in re.findall(
-        r"case (\d+): return launch<(\d+), (\d+), (\d+), false>", src)}
-    assert cases == TX_INFO
-    assert "launch<4, 4, 0, true>" in src      # WHT, at tx 0 only
+    w, h, sh = (_cu_table(src, n) for n in ("TX_W", "TX_H", "TX_SHIFT"))
+    assert {tx: (w[tx], h[tx], sh[tx]) for tx in range(19)} == TX_INFO
+    nt = int(re.search(r"constexpr int CTA_THREADS = (\d+);", src).group(1))
+    assert nt == titx.CTA_THREADS
+    g = _cu_table(src, "TX_BLOCKS_PER_CTA")
+    for tx in range(19):
+        t, blocks = titx.cta_geometry(tx)
+        assert (nt // g[tx], g[tx]) == (t, blocks), tx
+        assert t * blocks == nt
+    body = re.search(r"void dispatch\(.*?\n\}\n", src, re.S).group(0)
+    cases = re.findall(r"case (\d+): itx_block<(\d+)>", body)
+    assert sorted(int(a) for a, _ in cases) == list(range(19))
+    assert all(a == b for a, b in cases), cases
+    e_fields = re.search(r"enum \{\s*(E_TX.*?ENTRY)\s*\};", src,
+                         re.S).group(1)
+    names = [n.strip() for n in e_fields.split(",")]
+    assert names[-1] == "ENTRY" and len(names) - 1 == titx.ENTRY
+    for i, n in enumerate(names[:-1]):
+        assert getattr(titx, n) == i, n
+    for n in ("F_WHT", "F_VALS16", "F_POS16", "F_DENSE", "F_FIXED"):
+        assert int(re.search(rf"{n} = (\d+)", src).group(1)) == \
+            getattr(titx, n), n
 
 
 # ---------------------------------------------------------------------
