@@ -5,13 +5,17 @@
 
 Run from the root of a checkout. It
 
-1. builds the package's kernels (its three CUDA sources: the MC H-plane
-   and V-pass kernels and the inverse transform, one nvcc each, side by
-   side) and its native host library from the checkout's sources;
+1. builds the package's kernels (its five CUDA sources: the MC H-plane
+   and V-pass kernels, the translational and scaled unit MC kernels and
+   the inverse transform, one nvcc each, side by side; ``-Xptxas -v``
+   must show no stack frame and no spill in the last three) and its
+   native host library from the checkout's sources;
 2. drives each path through ``Decoder(Settings(device="cuda"))``, each
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that every counter moved
-   (the itx kernel's also in the tile-sharded decode):
+   (the scaled MC kernel's on the super-res path; the itx and unit MC
+   kernels' also in the tile-sharded decode), the unit MC kernels once
+   for each put/scaled record and "t"/"s" sub-op of the programs:
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -92,8 +96,23 @@ Run from the root of a checkout. It
    clip-add run, on the same buckets as one-entry launches in turns with
    it, and on config 2's largest 32x32 bucket as a one-entry list; config
    2's frame 3 program is replayed with the kernel and with the plain
-   version in its place, counting the eager ops of each; ``-Xptxas -v``
-   must show no stack frame and no spill in the kernel;
+   version in its place, counting the eager ops of each. The unit MC
+   kernels are held to ``torch.equal`` with their plain versions
+   (mc_unit_batch or mc_scaled_batch with the scatter after it) on 685
+   synthetic cases (tools/mcu_cases; bd 8/10/12, the four (has_h, has_v)
+   cases, put and prep, every Filter2d, units 2x2 to 128x128 into planes
+   and slots, int16 and int32 descriptors, OOB16/PAD_OOB pad rows, units
+   cut by the plane's edge, duplicate slots, scaled steps 512..2048 with
+   subpel-0 columns and rows, a strided reference) and on every path's
+   own largest put, scaled, t and s call (the serial, pipelined and
+   tile-sharded paths'); they are timed warm and cold against a byte
+   bound (the reference pixels their taps read, each once) on config
+   2's largest put bucket
+   and the super-res path's largest scaled bucket (the tools path's
+   largest t and the super-res path's largest s sub-op printed too); and
+   config 2's frame 3 and the super-res path's frame 4 are replayed with
+   them and with their plain versions in their place (no plain MC
+   function may run in the kernel route), counting eager ops;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
@@ -220,6 +239,19 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
 CYCLES_PER_MS = 2.0e6        # about the H100's clock; sizes busy waits
 OPS_FRAME = 3                # the steady config 2 frame whose ops are counted
+SR_OPS_FRAME = 4             # the super-res frame (coded 1707 wide) counted
+# the unit MC kernels' synthetic cases: (uw, uh) of translational units
+# (chroma 2-wide and 2-tall, non-square, whole 128x128 blocks) and of
+# scaled ones
+MCU_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
+             (16, 4), (8, 32), (32, 32), (64, 16), (128, 128))
+MCS_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
+             (16, 16), (64, 32))
+# the kernel libraries that must build with no stack frame and no spill
+NO_SPILL = {"itx", "mc_units", "mc_scaled"}
+# record kind -> the unit MC wrapper (ops/mcu_cuda) that runs it
+MCU_KINDS = {"put": "mc_units_plane", "t": "mc_units_slots",
+             "scaled": "mc_scaled_plane", "s": "mc_scaled_slots"}
 
 
 def card_line():
@@ -232,8 +264,8 @@ def card_line():
 def build_all():
     """Build the native host library (on import) and the CUDA kernels
     (every source side by side, nvcc with -Xptxas -v, to print registers,
-    spills and stack frames). Fails if a kernel of csrc/itx.cu has a
-    stack frame or spills."""
+    spills and stack frames). Fails if a kernel of csrc/itx.cu,
+    csrc/mc_units.cu or csrc/mc_scaled.cu has a stack frame or spills."""
     t0 = time.perf_counter()
     from dav1d_mirror_tpu_torch.host import native  # builds on import
     t_native = time.perf_counter() - t0
@@ -251,13 +283,14 @@ def build_all():
                 fn = line.split("'")[1]
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {fn}: {line.strip()}")
-            if name == "itx" and "stack frame" in line:
+            if name in NO_SPILL and "stack frame" in line:
                 nums = [int(w) for w in line.replace(",", " ").split()
                         if w.isdigit()]
                 if nums != [0, 0, 0]:
                     bad.append(f"{fn}: {line.strip()}")
-    assert not bad, f"itx.cu: stack frame or spills: {bad}"
-    assert "itx" in logs or not logs, "itx.cu was not rebuilt with -v"
+    assert not bad, f"stack frame or spills: {bad}"
+    assert NO_SPILL <= set(logs) or not logs, \
+        f"not all of {sorted(NO_SPILL)} were rebuilt with -v: {sorted(logs)}"
 
 
 class ItxLog:
@@ -318,12 +351,62 @@ class ItxLog:
         self.itx_cuda.itx_run = self._orig_run
 
 
+def mcu_unit(kind, dst, rest):
+    """(uw, uh) of a unit MC wrapper call: `rest` = its arguments after
+    (destination, reference, descriptor rows)."""
+    if kind == "t":
+        return dst.shape[2], dst.shape[1]
+    return (rest[1], rest[2]) if kind == "s" else (rest[2], rest[3])
+
+
+class McuLog:
+    """Wraps the unit MC kernels' wrappers (MCU_KINDS) to keep, of the
+    calls made inside it, the largest of each record kind by outputs
+    (`mcu` {kind: its arguments and its destination's shape}); counts
+    stay the wrappers' own. Destinations are written, so only their
+    shapes and dtypes are kept; descriptors are cloned (a path may reuse
+    its buffers), references kept as they are (never written after they
+    are made)."""
+
+    def __init__(self):
+        from dav1d_mirror_tpu_torch.ops import mcu_cuda
+        self.mcu_cuda = mcu_cuda
+        self.mcu = {}
+        self._orig = {k: getattr(mcu_cuda, fn) for k, fn in MCU_KINDS.items()}
+
+    def __enter__(self):
+        def rec_mcu(kind):
+            fn = self._orig[kind]
+
+            def rec(dst, ref, desc, *rest):
+                uw, uh = mcu_unit(kind, dst, rest)
+                size = desc.shape[0] * uw * uh
+                kept = self.mcu.get(kind)
+                if kept is None or size > kept["size"]:
+                    self.mcu[kind] = dict(
+                        size=size, dst=(tuple(dst.shape), dst.dtype),
+                        args=(ref,) + tuple(
+                            a.clone() if hasattr(a, "clone") else a
+                            for a in (desc,) + rest))
+                return fn(dst, ref, desc, *rest)
+            return rec
+        for kind, fn in MCU_KINDS.items():
+            setattr(self.mcu_cuda, fn, rec_mcu(kind))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in MCU_KINDS.items():
+            setattr(self.mcu_cuda, fn, self._orig[kind])
+
+
 class ShapeLog:
-    """Wraps the three kernel wrappers during the decode to record the
+    """Wraps the kernel wrappers during the decode to record the
     shapes the main path gives them (counts stay the wrappers' own; for
-    the itx kernel, ItxLog's largest buckets, as `itx`), the
-    program executor to tally the op kinds of each frame (and the "s"
-    sub-ops of comp and obmc ops, as "comp s" and "obmc s"), and the
+    the itx kernel, ItxLog's largest buckets, as `itx`; for the unit MC
+    kernels the largest call of each record kind, as `mcu`), the
+    program executor to tally the op kinds of each frame (and the "t"
+    and "s" sub-ops of comp and obmc ops, as "comp t", "comp s", ...),
+    and the
     decoder's frame execution to count the inter-intra blocks (dd == 2:
     device put, host blend) it finished and to record each frame's coded
     and output widths. With keep_frame = i, it keeps frame i's program
@@ -356,6 +439,9 @@ class ShapeLog:
         self.hplanes_chroma_args = None  # the same of a chroma plane
         self._hpx_planes = []  # planes of the frame program's hpx ops
         self.frame_ops = []  # per frame: {op kind: count}
+        # record kind (MCU_KINDS) -> the largest call (McuLog)
+        self._mcu_log = McuLog()
+        self.mcu = self._mcu_log.mcu
         self.ii_blocks = 0   # inter-intra blocks of the decode
         self.widths = []     # per frame: (coded width, output width)
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
@@ -389,10 +475,10 @@ class ShapeLog:
                     subs = rec[7]
                 else:
                     subs = ()
-                n_s = sum(sub[0] == "s" for sub in subs)
-                if n_s:
-                    k = f"{rec[0]} s"
-                    ops[k] = ops.get(k, 0) + n_s
+                for sub in subs:
+                    if sub[0] in "ts":
+                        k = f"{rec[0]} {sub[0]}"
+                        ops[k] = ops.get(k, 0) + 1
             return ex(sig, *args)
 
         def rec_ef(built, seq, fhdr, *args):
@@ -447,6 +533,7 @@ class ShapeLog:
 
         self.mc_cuda.mc_hplanes = rec_hp
         self.mc_cuda.mc_unit_batch_hv = rec_vp
+        self._mcu_log.__enter__()
         self._itx_log.__enter__()
         self.frame_exec.execute_program = rec_ex
         self.api.execute_frame_program = rec_ef
@@ -462,6 +549,7 @@ class ShapeLog:
          scan) = self._orig
         if self.intra is not None:
             self.intra.intra_scan = scan
+        self._mcu_log.__exit__(*exc)
         self._itx_log.__exit__(*exc)
 
 
@@ -619,9 +707,9 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
     pipelined, serial (both through decode_pipelined, the serial one with
     a frame delay of 1), every pass to the path's md5, both kernel
     counters moving in the first pipelined pass; then pipelined once
-    more, staged, under ItxLog. paths: {name: (frames, md5)}. Returns
-    ({name: launches}, {name: ItxLog})."""
-    out, logs = {}, {}
+    more, staged, under ItxLog and McuLog. paths: {name: (frames, md5)}.
+    Returns ({name: launches}, {name: ItxLog}, {name: McuLog})."""
+    out, logs, mcu_logs = {}, {}, {}
     for name, settings in PIPELINED:
         frames, md5 = paths[name]
         runs = []
@@ -632,9 +720,8 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
             assert (d, n) == (md5, len(frames)), (name, kw, d, n)
             runs.append((piped, times, launches))
         launches = runs[1][2]
-        assert min(launches.values()) > 0, \
-            (name, launches)
-        with ItxLog() as logs[name]:
+        moved(launches, name)
+        with ItxLog() as logs[name], McuLog() as mcu_logs[name]:
             (ds, _, times_s), split = staged(
                 stages, lambda: decode_pipelined(api, MD5Muxer, frames,
                                                  torch, **settings))
@@ -655,7 +742,7 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
               ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
                         sorted(split.items(), key=lambda kv: -kv[1])))
         out[name] = launches
-    return out, logs
+    return out, logs, mcu_logs
 
 
 def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
@@ -675,8 +762,7 @@ def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
             api, MD5Muxer, frames, torch, shapes.on_frame))
     assert n == len(frames) == n_frames, (key, n, len(frames))
     assert d == md5, f"{key} md5 {d} != {md5}"
-    assert min(launches.values()) > 0, \
-        (key, launches)
+    moved(launches, key)
     one_launch_per_run(shapes, launches, key)
     ran = {k for ops in shapes.frame_ops for k in ops}
     assert set(kinds) <= ran, (key, sorted(ran))
@@ -744,8 +830,9 @@ def parallel_phase(torch):
     port's Decoder on the card, the band functions on config 2's and
     config 3's first-frame planes and parameters against the
     single-device filters, and the dry run's steps at its shapes (its
-    itx buckets under ItxLog). Returns (steps, frame checks, ItxLog)."""
-    from dav1d_mirror_tpu_torch.ops import itx_cuda
+    itx buckets under ItxLog, its unit MC calls under McuLog). Returns
+    (steps, frame checks, ItxLog, McuLog)."""
+    from dav1d_mirror_tpu_torch.ops import itx_cuda, mcu_cuda
     from dav1d_mirror_tpu_torch.parallel import dryrun
     from dav1d_mirror_tpu_torch.parallel.mesh import close_mesh, init_mesh
     with open(os.path.join(TOOLS_DIR, SHARDED_STREAM), "rb") as f:
@@ -754,19 +841,20 @@ def parallel_phase(torch):
     mesh = init_mesh(1, 0, f"tcp://127.0.0.1:{dryrun.free_port()}", "cuda")
     print(f"parallel: NCCL mesh of world size 1 formed in "
           f"{time.perf_counter() - t0:.2f} s")
-    # the itx kernel's launches in the tile-sharded decode alone
-    sharded_itx = []
+    # the itx and unit MC kernels' launches in the tile-sharded decode
+    sharded_itx, sharded_units = [], []
     real_decode = dryrun.sharded_stream_decode
 
     def counted_decode(*args):
-        n0 = itx_cuda.ITX_LAUNCHES
+        n0, u0 = itx_cuda.ITX_LAUNCHES, mcu_cuda.UNITS_LAUNCHES
         try:
             return real_decode(*args)
         finally:
             sharded_itx.append(itx_cuda.ITX_LAUNCHES - n0)
+            sharded_units.append(mcu_cuda.UNITS_LAUNCHES - u0)
     dryrun.sharded_stream_decode = counted_decode
     try:
-        with ItxLog() as itx_log:
+        with ItxLog() as itx_log, McuLog() as mcu_log:
             steps = dryrun.run_rank(mesh, 1, sharded)
         frame_checks = {}
         for cfg, path in (("config 2", STREAM), ("config 3", STREAM3)):
@@ -778,6 +866,7 @@ def parallel_phase(torch):
         dryrun.sharded_stream_decode = real_decode
         close_mesh()
     assert sharded_itx and sharded_itx[0] > 0, sharded_itx
+    assert sharded_units and sharded_units[0] > 0, sharded_units
     st = steps["sharded_stream_decode"]
     want = TOOLS_STREAMS[SHARDED_STREAM]
     assert (st["md5"], st["frames"]) == want, (st, want)
@@ -791,8 +880,9 @@ def parallel_phase(torch):
           f"{st['md5']} as the JAX host reference and the port's Decoder "
           f"on the card ({st['decoder_md5']}), {st['frames']} frames, "
           f"{st['ms']:.1f} ms tile-sharded against {st['decoder_ms']:.1f} "
-          f"ms through the Decoder; {sharded_itx[0]} itx launches in the "
-          f"tile-sharded decode")
+          f"ms through the Decoder; {sharded_itx[0]} itx and "
+          f"{sharded_units[0]} mc_units launches in the tile-sharded "
+          f"decode")
     for k, v in steps.items():
         print(f"parallel step {k}: equal, {v['ms']:.2f} ms")
     for k, v in frame_checks.items():
@@ -804,7 +894,9 @@ def parallel_phase(torch):
           "ranks on one GPU, and this machine has one card")
     assert any(dense for (_, _, _, dense) in itx_log.itx), \
         "the tile-sharded decode ran no dense itx bucket"
-    return steps, frame_checks, itx_log
+    assert "put" in mcu_log.mcu, \
+        f"the tile-sharded decode's unit MC calls: {sorted(mcu_log.mcu)}"
+    return steps, frame_checks, itx_log, mcu_log
 
 
 def _event(torch):
@@ -1155,6 +1247,320 @@ def own_calls_phase(torch, mc, mc_cuda, shapes, path, rows):
         row["cases"].append(label)
         row["max_abs_err"] = max(row["max_abs_err"],
                                  int((got - want).abs().max()))
+
+
+def mcu_check(torch, mc, mcu_cuda, fn, dst, args, label):
+    """One unit MC kernel call against its plain version on clones of
+    the destination `dst` (torch.equal). Returns the max abs error."""
+    got = getattr(mcu_cuda, fn)(dst.clone(), *args)
+    want = getattr(mc, fn)(dst.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), \
+        f"{fn} differs from its plain version: {label}"
+    return int((got - want).abs().max())
+
+
+def mcu_synthetic_cases(np, torch, rng, dev):
+    """(fn, label, destination, args) of the unit MC kernels' synthetic
+    cases on `dev` (inputs from tools/mcu_cases): bd 8/10/12 x the four
+    (has_h, has_v) cases x put and prep x MCU_UNITS, each into a plane
+    (units on a grid whose last row and column the plane's edge cuts,
+    three pad rows: int16 descriptors with OOB16 or int32 with PAD_OOB,
+    by unit) and into whole slots (pad rows repeating the last unit and
+    slot); scaled: bd 8/10/12 x put and prep x MCS_UNITS into a plane and
+    at flat offsets of 8x8-cell slots, steps 512..2048 with subpel-0
+    columns and rows, plus a strided reference view. Small units come 300
+    to a bucket (several CTAs, the last one partial)."""
+    from dav1d_mirror_tpu_torch.models.frame_exec import OOB16
+    from dav1d_mirror_tpu_torch.tools.mcu_cases import (
+        grid_origins, pad_dup, scaled_rows, slot_bases, unit_rows)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = []
+    for bd in (8, 10, 12):
+        refs = rng.integers(0, 1 << bd, (3, 70, 150)).astype(np.int32)
+        refs_t = T(refs)
+        for hh, hv in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            for prep in (False, True):
+                for k, (uw, uh) in enumerate(MCU_UNITS):
+                    small = uw * uh <= 64
+                    n = 300 if small else 12
+                    gy, gx = (17, 21) if small else (4, 4)
+                    H, W = (gy - 1) * uh + uh // 2 + 1, \
+                        (gx - 1) * uw + uw // 2 + 1
+                    arr = pad_dup(unit_rows(rng, n, refs.shape, uw, uh), 3)
+                    ys, xs = grid_origins(rng, n + 3, uw, uh, H, W, 3)
+                    narrow = k % 2 == 0
+                    if narrow:
+                        ys[-3:] = OOB16
+                    dt = np.int16 if narrow else np.int32
+                    plane = T(rng.integers(0, 1 << bd, (H, W)).astype(
+                        np.int32))
+                    tag = (f"bd{bd} h{hh}v{hv} {'prep' if prep else 'put'} "
+                           f"{uw}x{uh}")
+                    cases.append((
+                        "mc_units_plane",
+                        f"{tag} B={n}+3 plane {H}x{W} "
+                        f"{'int16/OOB16' if narrow else 'int32/PAD_OOB'}",
+                        plane, (refs_t, T(arr.astype(dt)), T(ys.astype(dt)),
+                                T(xs.astype(dt)), uw, uh, bool(hh),
+                                bool(hv), bd, prep)))
+                    N = 80 if small else 8
+                    ns = N - 10 if small else 5
+                    slots = pad_dup(rng.permutation(N - 1)[:ns].astype(
+                        np.int32), 3)
+                    arr = pad_dup(unit_rows(rng, ns, refs.shape, uw, uh), 3)
+                    cases.append((
+                        "mc_units_slots", f"{tag} B={ns}+3 slots N={N}",
+                        T(np.zeros((N, uh, uw), np.int32)),
+                        (refs_t, T(arr), T(slots), bool(hh), bool(hv), bd,
+                         prep)))
+        srefs = rng.integers(0, 1 << bd, (2, 60, 90)).astype(np.int32)
+        srefs_t = T(srefs)
+        for prep in (False, True):
+            for uw, uh in MCS_UNITS:
+                small = uw * uh <= 64
+                n = 300 if small else 12
+                gy, gx = (17, 21) if small else (4, 4)
+                H, W = (gy - 1) * uh + 1, (gx - 1) * uw + 3
+                rows = pad_dup(scaled_rows(rng, n, srefs.shape, uw, uh), 3)
+                ys, xs = grid_origins(rng, n + 3, uw, uh, H, W, 3)
+                tag = f"bd{bd} {'prep' if prep else 'put'} {uw}x{uh}"
+                plane = T(rng.integers(0, 1 << bd, (H, W)).astype(np.int32))
+                cases.append(("mc_scaled_plane",
+                              f"scaled {tag} B={n}+3 plane {H}x{W}", plane,
+                              (srefs_t, T(rows), T(ys), T(xs), uw, uh, bd,
+                               prep)))
+                # sub-rect writes into slots of whole 8x8 cells
+                bwp, bhp = max(uw, 8), max(uh, 8)
+                N = 40 if small else 4
+                base = pad_dup(slot_bases(N, bwp, bhp, uw, uh)[:n], 3)
+                rows = pad_dup(scaled_rows(rng, len(base) - 3, srefs.shape,
+                                           uw, uh), 3)
+                cases.append(("mc_scaled_slots",
+                              f"scaled {tag} B={len(base) - 3}+3 slots "
+                              f"{N}x{bhp}x{bwp}",
+                              T(np.zeros((N, bhp, bwp), np.int32)),
+                              (srefs_t, T(rows), T(base), uw, uh, bd,
+                               prep)))
+    # a scaled reference is a crop [:h, :w] of a wider plane, read in
+    # place at its strides
+    full = T(rng.integers(0, 256, (1, 66, 99)).astype(np.int32))
+    view = full[:, :50, :80]
+    rows = scaled_rows(rng, 64, view.shape, 8, 8)
+    ys, xs = grid_origins(rng, 64, 8, 8, 72, 72, 0)
+    cases.append(("mc_scaled_plane", "scaled bd8 put 8x8 strided view",
+                  T(np.zeros((72, 72), np.int32)),
+                  (view, T(rows), T(ys), T(xs), 8, 8, 8, False)))
+    return cases
+
+
+def mcu_own_case(torch, kept, bd_of):
+    """(destination, args) to replay a ShapeLog.mcu record: the kept
+    descriptors and references, a destination of the kept shape filled
+    with pixels of the call's bit depth."""
+    (shape, dtype), args = kept["dst"], kept["args"]
+    dev = args[0].device
+    g = torch.Generator(device=dev).manual_seed(len(shape) * 7)
+    dst = torch.randint(0, 1 << bd_of(args), shape, dtype=dtype,
+                        device=dev, generator=g)
+    return dst, args
+
+
+def _mcu_bd(kind):
+    """The bit depth's position among a wrapper's arguments after the
+    destination (MCU_KINDS)."""
+    return {"put": 8, "t": 5, "scaled": 6, "s": 5}[kind]
+
+
+def mcu_own_calls(torch, mc, mcu_cuda, shapes, path, rows):
+    """Each unit MC kernel against its plain version (torch.equal) on a
+    path's own largest call of each record kind. Adds the cases to the
+    kernel rows."""
+    by_name = {r["name"]: r for r in rows}
+    for kind, kept in sorted(shapes.mcu.items()):
+        fn = MCU_KINDS[kind]
+        row = by_name["mc_scaled" if kind in ("scaled", "s") else
+                      "mc_units"]
+        dst, args = mcu_own_case(torch, kept, lambda a: a[_mcu_bd(kind)])
+        uw, uh = mcu_unit(kind, dst, args[2:])
+        label = (f"{path} own {kind} B={args[1].shape[0]} {uw}x{uh} "
+                 f"into {tuple(dst.shape)} bd{args[_mcu_bd(kind)]}")
+        err = mcu_check(torch, mc, mcu_cuda, fn, dst, args, label)
+        row["cases"].append(label)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def _taps_nz(np, mc, ftype, sub, small):
+    """(..., 8) bool: the nonzero taps of the subpel filters of `ftype`
+    (0..2) at subpel `sub` (1..15), 4-tap rows where `small`."""
+    row = np.where(small, 3 + (ftype & 1), ftype)
+    return mc.SUBPEL[row, np.clip(sub, 1, 15) - 1] != 0
+
+
+def _tap_need(np, off, nz, n):
+    """(B, n) bool: the window positions that the taps `nz` (B, m, 8)
+    at offsets `off` (B, m) read, clamped into [0, n) as the gathers
+    clamp them."""
+    need = np.zeros((off.shape[0], n), bool)
+    idx = np.clip(off[:, :, None] + np.arange(8), 0, n - 1)
+    b = np.broadcast_to(np.arange(off.shape[0])[:, None, None], idx.shape)
+    need[b[nz], idx[nz]] = True
+    return need
+
+
+def _touched(np, shape, ref, org_y, need_r, org_x, need_c):
+    """Reference pixels the units read, each counted once: unit b reads
+    the rows clamp(org_y[b] + r) with need_r[b, r] at the columns
+    clamp(org_x[b] + c) with need_c[b, c] of reference ref[b]."""
+    R, H, W = shape
+    rows = np.clip(org_y[:, None] + np.arange(need_r.shape[1]), 0, H - 1)
+    cols = np.clip(org_x[:, None] + np.arange(need_c.shape[1]), 0, W - 1)
+    mask = np.zeros((R, H, W), bool)
+    for b in range(len(ref)):
+        mask[ref[b], rows[b][need_r[b]][:, None], cols[b][need_c[b]]] = True
+    return int(mask.sum())
+
+
+def mcu_bound(np, mc, kind, dst, args):
+    """(least ms, what bounds it, real units) of one unit MC call at the
+    H100's rates. Bytes: the reference pixels that the real units' taps
+    read (nonzero taps only, 4-tap rows for sides <= 4, copy phases one
+    tap; overlapping windows counted once), their descriptors and
+    origins, and the pixels written inside the destination (pad rows
+    write nothing; duplicate slots count once). Operations: 16 a tap
+    pass output on the rows that pass needs."""
+    uw, uh = mcu_unit(kind, dst, args[2:])
+    desc = args[1].cpu().numpy().astype(np.int64)
+    esz = args[1].element_size()
+    if kind in ("put", "scaled"):
+        ys = args[2].cpu().numpy().astype(np.int64)
+        xs = args[3].cpu().numpy().astype(np.int64)
+        H, W = dst.shape
+        rows_in = np.clip(np.minimum(ys + uh, H) - np.maximum(ys, 0), 0,
+                          None)
+        cols_in = np.clip(np.minimum(xs + uw, W) - np.maximum(xs, 0), 0,
+                          None)
+        written = rows_in * cols_in
+        real = written > 0
+        origin = 2 * args[2].element_size()
+    else:
+        slots = args[2].cpu().numpy()
+        real = np.zeros(len(slots), bool)
+        real[np.unique(slots, return_index=True)[1]] = True
+        written = np.full(len(slots), uh * uw)
+        origin = args[2].element_size()
+    d = desc[real]
+    B = len(d)
+    if kind in ("put", "t"):
+        # output y of a filtered axis reads window positions y + k
+        hh, hv = (args[6], args[7]) if kind == "put" else (args[3], args[4])
+        f2d = mc._F2D[np.clip(d[:, 5], 0, 8)]
+        need = []
+        for on, n, t, sub in ((hv, uh, f2d[:, 1], d[:, 4]),
+                              (hh, uw, f2d[:, 0], d[:, 3])):
+            if not on:
+                need.append(np.ones((B, n), bool))
+                continue
+            nz = _taps_nz(np, mc, t, sub, n <= 4)[:, None]
+            need.append(_tap_need(np, np.broadcast_to(np.arange(n), (B, n)),
+                                  np.broadcast_to(nz, (B, n, 8)), n + 7))
+        need_r, need_c = need
+        org_y, org_x = d[:, 1], d[:, 2]
+        ops = need_r.sum(1) * uw * 16 * hh + uh * uw * 16 * hv
+        n_desc = 6
+    else:
+        # output y reads mid rows (phy >> 10) + k, a copy phase k = 3 only
+        f2d = mc._F2D[np.clip(d[:, 7], 0, 8)]
+        need = []
+        for f, step, n, t in ((d[:, 4], d[:, 6], uh, f2d[:, 1]),
+                              (d[:, 3], d[:, 5], uw, f2d[:, 0])):
+            ph = f[:, None] + np.arange(n) * step[:, None]
+            sub = (ph & 0x3FF) >> 6
+            nz = _taps_nz(np, mc, t[:, None], sub, n <= 4)
+            nz = np.where((sub == 0)[:, :, None], np.arange(8) == 3, nz)
+            need.append(_tap_need(np, ph >> 10, nz, 2 * n + 10))
+        need_r, need_c = need
+        org_y, org_x = d[:, 1] - 3, d[:, 2] - 3
+        ops = need_r.sum(1) * uw * 16 + uh * uw * 16
+        n_desc = 9
+    px = _touched(np, tuple(args[0].shape), d[:, 0], org_y, need_r, org_x,
+                  need_c)
+    n_bytes = float(px * args[0].element_size() + np.sum(
+        real * (n_desc * esz + origin + written * dst.element_size())))
+    ms, by = bound(n_bytes, float(np.sum(ops)))
+    return ms, by, int(real.sum())
+
+
+def mcu_phase(torch, np, mc, mcu_cuda, owned, scratch, floor_ms):
+    """The two unit MC kernels against their plain versions on the card
+    (torch.equal): the synthetic cases (mcu_synthetic_cases) and each
+    path's own largest call of each record kind (`owned` {path:
+    ShapeLog}); then times config 2's largest put bucket (mc_units) and
+    the super-res path's largest scaled bucket (mc_scaled), warm and with
+    a cold L2, against their byte bounds, with the plain versions' device
+    and wall time, and prints the other own calls' times (the tools
+    path's largest t sub-op, the super-res path's largest s sub-op).
+    Returns the two kernel rows."""
+    rng = np.random.default_rng(2031)
+    rows = {name: dict(name=name, route="cuda", cases=[], max_abs_err=0,
+                       launches=None, library_ms=None, floor_ms=floor_ms)
+            for name in ("mc_units", "mc_scaled")}
+    rows["mc_units"].update(
+        source="dav1d_mirror_tpu_torch/csrc/mc_units.cu",
+        replaces="dav1d_mirror_tpu/ops/mc_tpu.py:53 (mc_unit_batch, with "
+                 "scatter_units :266 or set_slots :310 after it; XLA-fused "
+                 "on the TPU, not a Pallas kernel)")
+    rows["mc_scaled"].update(
+        source="dav1d_mirror_tpu_torch/csrc/mc_scaled.cu",
+        replaces="dav1d_mirror_tpu/ops/mc_tpu.py:473 (mc_scaled_batch, "
+                 "with scatter_units :266 or scatter_slot_units :316 after "
+                 "it; XLA-fused on the TPU, not a Pallas kernel)")
+    t0 = time.perf_counter()
+    for fn, label, dst, args in mcu_synthetic_cases(np, torch, rng,
+                                                    torch.device("cuda")):
+        row = rows["mc_scaled" if "scaled" in fn else "mc_units"]
+        row["max_abs_err"] = max(row["max_abs_err"], mcu_check(
+            torch, mc, mcu_cuda, fn, dst, args, label))
+        row["cases"].append(label)
+    print(f"  unit MC synthetic cases: mc_units {len(rows['mc_units']['cases'])}"
+          f", mc_scaled {len(rows['mc_scaled']['cases'])}, all torch.equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    n_own = 0
+    for path, shapes in owned.items():
+        mcu_own_calls(torch, mc, mcu_cuda, shapes, path, list(rows.values()))
+        n_own += len(shapes.mcu)
+    print(f"  unit MC own calls: {n_own} cases on {len(owned)} paths "
+          f"({', '.join(owned)}), all torch.equal")
+    # (path, record kind) -> the kernel row it times, or None: printed
+    for (path, kind), name in ((("config 2", "put"), "mc_units"),
+                               (("tools", "t"), None),
+                               (("superres", "scaled"), "mc_scaled"),
+                               (("superres", "s"), None)):
+        fn = MCU_KINDS[kind]
+        dst, args = mcu_own_case(torch, owned[path].mcu[kind],
+                                 lambda a: a[_mcu_bd(kind)])
+        b_ms, b_by, real = mcu_bound(np, mc, kind, dst, args)
+        uw, uh = mcu_unit(kind, dst, args[2:])
+
+        def run(fn=fn, dst=dst, args=args):
+            return getattr(mcu_cuda, fn)(dst, *args)
+        warm = time_warm(torch, run, 100)
+        cold = time_cold(torch, run, scratch, 20)
+        shape = (f"{path}'s largest {kind} call: B={args[1].shape[0]} "
+                 f"({real} real) {uw}x{uh} into {tuple(dst.shape)} "
+                 f"bd{args[_mcu_bd(kind)]}")
+        print(f"  {fn} at {shape}: {warm:.5f} ms warm, {cold:.5f} ms cold, "
+              f"bound {b_ms:.5f} ms ({b_by}), "
+              f"{100 * b_ms / warm:.1f}% of bound warm")
+        if name:
+            p_ms, p_wall = time_plain(
+                torch, lambda: getattr(mc, fn)(dst, *args), 10)
+            rows[name].update(ms=warm, cold_ms=cold, bound_ms=b_ms,
+                              bound_by=b_by, plain_ms=p_ms,
+                              plain_wall_ms=p_wall, shape=shape)
+    return [rows["mc_units"], rows["mc_scaled"]]
 
 
 # coefficients at the int16/int32 extremes: the butterflies' products wrap
@@ -1711,12 +2117,13 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
         shape=shape, one_entry_ms=turns, bucket32=one)
 
 
-def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
+def family_ops(torch, frame_exec, wrapped, run):
     """run() under an op counter that gives each aten op to the op
     function it ran in: each function of ops/ that frame_exec calls
-    (mc_unit_batch, scatter_units, comp_join_wavg, ...) and the three
-    kernel wrappers; "executor" for the rest (descriptor slices, casts,
-    zeros and stacks of execute_program itself). Returns {family: ops}."""
+    (scatter_units, comp_join_wavg, ...) and the kernel wrappers
+    (`wrapped`: (module, name) pairs); "executor" for the rest
+    (descriptor slices, casts, zeros and stacks of execute_program
+    itself). Returns {family: ops}."""
     from torch.utils._python_dispatch import TorchDispatchMode
     stack = ["executor"]
     tally = {}
@@ -1738,9 +2145,7 @@ def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
                if callable(o) and not isinstance(o, type) and
                getattr(o, "__module__", "").startswith(
                    "dav1d_mirror_tpu_torch.ops")]
-    targets += [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
-                (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket")]
-    saved = [(mod, n, getattr(mod, n)) for mod, n in targets]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in targets + wrapped]
     for mod, n, fn in saved:
         setattr(mod, n, wrap(fn, n))
     try:
@@ -1752,44 +2157,81 @@ def family_ops(torch, frame_exec, mc_cuda, itx_cuda, run):
     return tally
 
 
-def itx_ops_phase(torch, itx, itx_cuda, mc_cuda, frame_exec, shapes, frame):
-    """One steady config 2 frame's program (`shapes.kept_program`, frame
-    `frame`) replayed on the card with the itx kernel and with its plain
-    version in its place (itx_cuda.itx_run swapped for ops/itx.itx_run;
-    the MC kernels stay): its wall ms in turns kernel,
-    plain, plain, kernel, then the eager ops each issues by family
-    (family_ops); the planes and residuals of both equal. Returns
-    {route: ({family: ops}, [ms, ms])}."""
-    sig, *args = shapes.kept_program
-    orig = itx_cuda.itx_run
+def ops_phase(torch, frame_exec, wrapped, program, swaps, label,
+              forbid=()):
+    """A frame's program (a ShapeLog's `kept_program`) replayed on the
+    card with the kernels and with the plain versions of `swaps`
+    ((module, name, plain function)) in their place (the other kernels
+    stay): its wall ms in turns kernel, plain, plain, kernel, then the
+    eager ops each issues by family (family_ops over `wrapped`); the
+    planes and residuals of both equal. The functions of `forbid`
+    ((module, name)) must not run in the kernel route. Returns {route:
+    ({family: ops}, [ms, ms])}."""
+    sig, *args = program
+    orig = [getattr(mod, n) for mod, n, _ in swaps]
+    calls = {n: 0 for _, n in forbid}
     out = {}
     results = {}
+
+    def use(route):
+        for (mod, n, plain), fn in zip(swaps, orig):
+            setattr(mod, n, fn if route == "kernel" else plain)
+
+    def spy(mod, n):
+        fn = getattr(mod, n)
+
+        def inner(*a, **k):
+            calls[n] += 1
+            return fn(*a, **k)
+        return fn, inner
 
     def run():
         return frame_exec.execute_program(sig, *args)
     try:
         for route in ("kernel", "plain", "plain", "kernel"):
-            itx_cuda.itx_run = orig if route == "kernel" else \
-                itx.itx_run
+            use(route)
+            spies = [(mod, n) + spy(mod, n) for mod, n in forbid] \
+                if route == "kernel" else []
+            for mod, n, _, inner in spies:
+                setattr(mod, n, inner)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = run()
-            torch.cuda.synchronize()
+            try:
+                res = run()
+                torch.cuda.synchronize()
+            finally:
+                for mod, n, fn, _ in spies:
+                    setattr(mod, n, fn)
             ms = (time.perf_counter() - t0) * 1e3
             results.setdefault(route, res)
             out.setdefault(route, [None, []])[1].append(ms)
         for route in ("kernel", "plain"):
-            itx_cuda.itx_run = orig if route == "kernel" else \
-                itx.itx_run
-            out[route][0] = family_ops(torch, frame_exec, mc_cuda,
-                                       itx_cuda, run)
+            use(route)
+            out[route][0] = family_ops(torch, frame_exec, wrapped, run)
     finally:
-        itx_cuda.itx_run = orig
+        use("kernel")
+    assert not any(calls.values()), (label, "kernel route called", calls)
     (pk, hk), (pp, hp) = results["kernel"], results["plain"]
     assert len(pk) == len(pp) and len(hk) == len(hp)
     assert all(torch.equal(a, b) for a, b in zip(pk + hk, pp + hp)), \
-        f"config 2 frame {frame}: kernel and plain routes differ"
+        f"{label}: kernel and plain routes differ"
     return {k: tuple(v) for k, v in out.items()}
+
+
+def print_ops(what, label, ops):
+    """Print an ops_phase result."""
+    (k_fam, k_ms), (p_fam, p_ms) = ops["kernel"], ops["plain"]
+    print(f"{what} ops: {label}'s program replayed on the card: "
+          f"{sum(k_fam.values())} eager ops with the kernels, "
+          f"{sum(p_fam.values())} with the plain version in their place; "
+          f"wall ms " + ", ".join(f"{t:.1f}" for t in k_ms) +
+          " with the kernels, " + ", ".join(f"{t:.1f}" for t in p_ms) +
+          " plain (turns kernel, plain, plain, kernel); equal planes and "
+          "residuals")
+    for route, (fams, _) in ops.items():
+        print(f"{what} ops by family, {label}, {route} route: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(fams.items(),
+                                          key=lambda kv: -kv[1])))
 
 
 def report_path(name, frames, times, shapes, launches, digests, split,
@@ -1816,11 +2258,31 @@ def report_path(name, frames, times, shapes, launches, digests, split,
                                        key=lambda kv: -kv[1])))
 
 
+def moved(launches, name, scaled=False):
+    """Every kernel counter moved in a path's run; the scaled MC kernel's
+    only on a path with scaled references (`scaled`)."""
+    idle = [k for k, v in launches.items()
+            if v <= 0 and (scaled or k != "mc_scaled")]
+    assert not idle, (name, idle, launches)
+
+
 def one_launch_per_run(shapes, launches, name):
     """The itx kernel ran once for each run of the programs' work lists
-    (ShapeLog), and never as a one-entry list."""
+    (ShapeLog), and never as a one-entry list; each unit MC kernel once
+    for each record or sub-op it runs (put, comp t, obmc t; scaled, comp
+    s, obmc s)."""
     assert launches["itx"] == shapes.itx_expected and not shapes.itx, (
         name, launches, shapes.itx_expected, sorted(shapes.itx))
+    ops = {}
+    for fr in shapes.frame_ops:
+        for k, v in fr.items():
+            ops[k] = ops.get(k, 0) + v
+    want = {"mc_units": sum(ops.get(k, 0) for k in
+                            ("put", "comp t", "obmc t")),
+            "mc_scaled": sum(ops.get(k, 0) for k in
+                             ("scaled", "comp s", "obmc s"))}
+    got = {k: launches[k] for k in want}
+    assert got == want, (name, "unit MC launches", got, "records", want)
 
 
 def staged(stages, run):
@@ -1862,6 +2324,8 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
                         if k in e.key) / 2e3
                  for n, k in (("mc_hplanes", "mc_hplanes_kernel"),
                               ("mc_vpass", "mc_vpass_kernel"),
+                              ("mc_units", "mc_units_kernel"),
+                              ("mc_scaled", "mc_scaled_kernel"),
                               ("itx", "itx_run_kernel"))}
     per_frame["all kernels"] = sum(e.self_device_time_total
                                    for e in kernels) / 2e3
@@ -1898,7 +2362,8 @@ def main():
     from dav1d_mirror_tpu_torch.host.demux import open_demuxer
     from dav1d_mirror_tpu_torch.host.ivf import parse_ivf
     from dav1d_mirror_tpu_torch.models import frame_exec, intra
-    from dav1d_mirror_tpu_torch.ops import itx, itx_cuda, mc, mc_cuda
+    from dav1d_mirror_tpu_torch.ops import itx, itx_cuda, mc, mc_cuda, \
+        mcu_cuda
     from dav1d_mirror_tpu_torch.output import MD5Muxer
     from dav1d_mirror_tpu_torch.utils import stages
 
@@ -1907,11 +2372,15 @@ def main():
         returns (run's result, {kernel: launches during it})."""
         mc_cuda.HPLANES_LAUNCHES = 0
         mc_cuda.VPASS_LAUNCHES = 0
+        mcu_cuda.UNITS_LAUNCHES = 0
+        mcu_cuda.SCALED_LAUNCHES = 0
         itx_cuda.ITX_LAUNCHES = 0
         itx_cuda.ITX_ENTRIES = 0
         out = run()
         return out, {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
                      "mc_vpass": mc_cuda.VPASS_LAUNCHES,
+                     "mc_units": mcu_cuda.UNITS_LAUNCHES,
+                     "mc_scaled": mcu_cuda.SCALED_LAUNCHES,
                      "itx": itx_cuda.ITX_LAUNCHES,
                      "itx entries": itx_cuda.ITX_ENTRIES}
 
@@ -1924,8 +2393,7 @@ def main():
             api, MD5Muxer, frames, torch, shapes.on_frame))
     assert n_pics == len(frames) == 9, (n_pics, len(frames))
     assert digest == STREAM_MD5, f"md5 {digest} != {STREAM_MD5}"
-    assert min(launches.values()) > 0, \
-        launches
+    moved(launches, "config 2")
     one_launch_per_run(shapes, launches, "config 2")
     (digest2, _, times2), split = staged(
         stages, lambda: decode(api, MD5Muxer, frames, torch))
@@ -1939,11 +2407,12 @@ def main():
             api, MD5Muxer, frames, torch, shapes_e.on_frame,
             intra_engine=True))
     assert n_e == 9 and d_e == STREAM_MD5, f"engine md5 {d_e} ({n_e})"
-    # the same MC work as the hybrid route: 176 launches of each MC
+    # the same MC work as the hybrid route: as many launches of each MC
     # kernel (the residual buckets differ: the engine's are per plane and
     # tx size, the hybrid's split sparse and dense)
-    assert min(launches_e.values()) > 0 and all(
-        launches_e[k] == launches[k] for k in ("mc_hplanes", "mc_vpass")), \
+    moved(launches_e, "config 2 engine")
+    assert all(launches_e[k] == launches[k]
+               for k in ("mc_hplanes", "mc_vpass", "mc_units")), \
         (launches_e, launches)
     routes_e = check_engine_routes(shapes_e, "config 2 engine")
     # the keyframe on the engine's own route, and every inter frame
@@ -1973,8 +2442,7 @@ def main():
     assert (d3, d3_plain) == (CONFIG3_MD5[True], CONFIG3_MD5[False]), (
         f"config 3 md5 with grain {d3}, without {d3_plain}; expected "
         f"{CONFIG3_MD5}")
-    assert min(launches3.values()) > 0, \
-        launches3
+    moved(launches3, "config 3")
     one_launch_per_run(shapes3, launches3, "config 3")
     assert any("lrw" in ops for ops in shapes3.frame_ops), \
         "config 3 ran no loop restoration op"
@@ -2004,8 +2472,7 @@ def main():
             api, MD5Muxer, frames_t, torch, shapes_t.on_frame))
     assert n_t == len(frames_t) == tools_n, (n_t, len(frames_t))
     assert d_t == tools_md5, f"tools md5 {d_t} != {tools_md5}"
-    assert min(launches_t.values()) > 0, \
-        launches_t
+    moved(launches_t, "tools")
     one_launch_per_run(shapes_t, launches_t, "tools")
     tools_kinds = {k for ops in shapes_t.frame_ops for k in ops}
     assert {"comp", "warp", "obmc"} <= tools_kinds, tools_kinds
@@ -2051,12 +2518,12 @@ def main():
         _, _, _, frames_s = parse_ivf(f.read())
     sr_md5, sr_n = TOOLS_STREAMS[SUPERRES_STREAM]
     with ShapeLog(mc_cuda, frame_exec, api) as shapes_s:
+        shapes_s.keep_frame = SR_OPS_FRAME
         (d_s, n_s, times_s), launches_s = counted(lambda: decode(
             api, MD5Muxer, frames_s, torch, shapes_s.on_frame))
     assert n_s == len(frames_s) == sr_n, (n_s, len(frames_s))
     assert d_s == sr_md5, f"super-res md5 {d_s} != {sr_md5}"
-    assert min(launches_s.values()) > 0, \
-        launches_s
+    moved(launches_s, "superres", scaled=True)
     one_launch_per_run(shapes_s, launches_s, "superres")
     sr_kinds = {k for ops in shapes_s.frame_ops for k in ops}
     assert {"scaled", "sres", "comp s", "obmc s"} <= sr_kinds, sr_kinds
@@ -2135,8 +2602,7 @@ def main():
             api, MD5Muxer, frames4, torch, shapes4.on_frame))
     assert n4 == len(frames4) == 3, (n4, len(frames4))
     assert d4 == CONFIG4_MD5, f"config 4 md5 {d4} != {CONFIG4_MD5}"
-    assert min(launches4.values()) > 0, \
-        launches4
+    moved(launches4, "config 4")
     one_launch_per_run(shapes4, launches4, "config 4")
     (d4s, _, times4s), split4 = staged(
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
@@ -2144,12 +2610,12 @@ def main():
 
     # ---- the pipelined paths: config 2 and the tools path through the
     # four-stage pipeline, against their serial decodes above ----
-    piped, piped_itx = pipelined_phase(api, MD5Muxer, torch, stages,
-                                       counted, {
-        "config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
+    piped, piped_itx, piped_mcu = pipelined_phase(
+        api, MD5Muxer, torch, stages, counted,
+        {"config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
 
     # ---- the parallel paths at world size 1 on the card ----
-    _, _, sharded_itx = parallel_phase(torch)
+    _, _, sharded_itx, sharded_mcu = parallel_phase(torch)
 
     # ---- 2. kernel phase ----
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
@@ -2167,8 +2633,31 @@ def main():
          **{key: prof["shapes"] for key, prof in profiles.items()}},
         torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
         rows[0]["floor_ms"]))
-    itx_ops = itx_ops_phase(torch, itx, itx_cuda, mc_cuda, frame_exec,
-                            shapes, OPS_FRAME)
+    owned = {"config 2": shapes, "config 3": shapes3, "tools": shapes_t,
+             "config 4": shapes4, "superres": shapes_s, "engine": shapes_e,
+             "pipelined config 2": piped_mcu["config 2"],
+             "pipelined tools": piped_mcu["tools"], "sharded": sharded_mcu,
+             **{key: prof["shapes"] for key, prof in profiles.items()}}
+    rows.extend(mcu_phase(
+        torch, np, mc, mcu_cuda, owned,
+        torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
+        rows[0]["floor_ms"]))
+    wrapped = [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
+               (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket")] + [
+        (mcu_cuda, fn) for fn in MCU_KINDS.values()]
+    c2_label = f"config 2 frame {OPS_FRAME}"
+    itx_ops = ops_phase(torch, frame_exec, wrapped, shapes.kept_program,
+                        [(itx_cuda, "itx_run", itx.itx_run)], c2_label)
+    # the unit MC kernels' plain versions in their place; in the kernel
+    # route no put, scaled, t or s branch may reach a plain MC function
+    mcu_ops = {label: ops_phase(
+        torch, frame_exec, wrapped, prog,
+        [(mcu_cuda, fn, getattr(mc, fn)) for fn in MCU_KINDS.values()],
+        label, [(mc, n) for n in ("mc_unit_batch", "mc_scaled_batch",
+                                  *MCU_KINDS.values())])
+        for label, prog in ((c2_label, shapes.kept_program),
+                            (f"super-res frame {SR_OPS_FRAME}",
+                             shapes_s.kept_program))}
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
@@ -2202,7 +2691,7 @@ def main():
               f"(10-bit 4:4:4) decode")
         for c in r["cases"]:
             if c.startswith(("config 3", "tools", "superres", "pro",
-                             "high")) or " own largest " in c:
+                             "high")) or " own " in c:
                 print(f"  {r['name']} equal to plain: {c}")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_config3", "launches_tools", "launches_config4",
@@ -2213,18 +2702,9 @@ def main():
             "library_ms", "cold_ms", "floor_ms")
     table = [{k: r[k] for k in keys} for r in rows]
     print("kernels: " + json.dumps(table))
-    k_ops, p_ops = itx_ops["kernel"], itx_ops["plain"]
-    print(f"itx ops: config 2 frame {OPS_FRAME}'s program replayed on the "
-          f"card: {sum(k_ops[0].values())} eager ops with the itx kernel, "
-          f"{sum(p_ops[0].values())} with its plain version in its place "
-          f"(the MC kernels in both); wall ms " +
-          ", ".join(f"{t:.1f}" for t in k_ops[1]) + " with the kernel, " +
-          ", ".join(f"{t:.1f}" for t in p_ops[1]) + " plain (turns kernel, "
-          "plain, plain, kernel); equal planes and residuals")
-    for route, (fams, _) in itx_ops.items():
-        print(f"itx ops by family, {route} route: " + ", ".join(
-            f"{k} {v}" for k, v in sorted(fams.items(),
-                                          key=lambda kv: -kv[1])))
+    print_ops("itx", c2_label, itx_ops)
+    for label, ops in mcu_ops.items():
+        print_ops("unit MC", label, ops)
 
     # ---- 3. path reports ----
     report_path("config 2", frames, times, shapes, launches,

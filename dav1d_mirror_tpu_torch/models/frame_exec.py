@@ -28,22 +28,25 @@ after it one ``itxrun`` record: the run's work list (``ItxRun``,
 ops/itx.build_table) in the int32 buffer. This executor runs the
 ``itxrun`` record, one launch of the itx kernel a run
 (ops/itx_cuda.itx_run), and passes over the bucket records it covers.
+The ``put`` and ``scaled`` records and the "t" and "s" sub-ops of the
+compound and OBMC side batches are one launch each of the unit MC
+kernels (ops/mcu_cuda), which write straight into the plane or the
+slot buffer and read the descriptors in place (int16 or int32).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import itx, itx_cuda, mc_cuda
+from ..ops import itx, itx_cuda, mc_cuda, mcu_cuda
 from ..ops.cdef import cdef_frame
 from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
 from ..ops.itx_meta import WHT_WHT
 from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
                       comp_join_wmask, gather_units, mc_hv_combos,
-                      mc_scaled_batch, mc_unit_batch, obmc_blend_batch,
-                      resize_plane, scatter_slot_units, scatter_units,
-                      set_slots, warp8x8_batch)
+                      obmc_blend_batch, resize_plane, scatter_slot_units,
+                      scatter_units, warp8x8_batch)
 from . import intra
 
 
@@ -352,15 +355,18 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     check_ops(ops)
     dev = desc.device
 
-    def get(h):
-        if len(h) == 3:      # narrow side buffers (emit16/emit8)
-            off, shape, bits = h
-            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-            src = desc16 if bits == 16 else desc8
-            return src[off:off + n].reshape(shape).to(torch.int32)
-        off, shape = h
+    def view(h):
+        """The descriptor slice as stored: int32, or int16/int8 from the
+        narrow side buffers (emit16/emit8). The MC unit kernels read
+        int16 in place."""
+        off, shape = h[0], h[1]
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        return desc[off:off + n].reshape(shape)
+        src = desc if len(h) == 2 else desc16 if h[2] == 16 else desc8
+        return src[off:off + n].reshape(shape)
+
+    def get(h):
+        t = view(h)
+        return t if len(h) == 2 else t.to(torch.int32)
 
     refs = []
     for (hv, wv), slots in refspec:
@@ -391,20 +397,16 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         for s in subops:
             if s[0] == "t":
                 _, hh, hv, h_arr, h_sl = s
-                a = get(h_arr)
-                out = mc_unit_batch(
-                    (refs[pl], a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4],
-                     a[:, 5]), bwp, bhp, hh, hv, bd, prep)
-                set_slots(tmp, get(h_sl), out)
+                mcu_cuda.mc_units_slots(tmp, refs[pl], view(h_arr),
+                                        view(h_sl), hh, hv, bd, prep)
             elif s[0] == "w":
                 _, h_rows, h_base = s
                 out = warp8x8_batch(refs[pl], get(h_rows), bd, prep)
                 scatter_slot_units(tmp, get(h_base), out, 8, 8, bwp)
             else:   # "s"
                 _, sid, uw, uh, h_rows, h_base = s
-                out = mc_scaled_batch(srefs[sid], get(h_rows), uw, uh,
-                                      2 * uw + 10, 2 * uh + 10, bd, prep)
-                scatter_slot_units(tmp, get(h_base), out, uh, uw, bwp)
+                mcu_cuda.mc_scaled_slots(tmp, srefs[sid], view(h_rows),
+                                         view(h_base), uw, uh, bd, prep)
         return tmp
 
     for rec in ops:
@@ -414,12 +416,9 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             hp[cid] = mc_cuda.mc_hplanes(refs[pl], get(h_combos), bd)
         elif kind == "put":
             _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
-            a = get(h_arr)
-            out = mc_unit_batch(
-                (refs[pl], a[:, 0], a[:, 1], a[:, 2], a[:, 3],
-                 a[:, 4], a[:, 5]), uw, uh, hh, hv, bd, False)
-            scatter_units(planes[pl], out, _ys_oob(get(h_ys)), get(h_xs),
-                          uh, uw)
+            mcu_cuda.mc_units_plane(planes[pl], refs[pl], view(h_arr),
+                                    view(h_ys), view(h_xs), uw, uh, hh, hv,
+                                    bd)
         elif kind == "puthv_x":
             (_, pl, uw, uh, cid, h_slot, h_oy, h_ox, h_my, h_tv,
              h_ys, h_xs) = rec
@@ -434,9 +433,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             scatter_units(planes[pl], out, get(h_ys), get(h_xs), 8, 8)
         elif kind == "scaled":
             _, pl, sid, uw, uh, h_rows, h_ys, h_xs = rec
-            out = mc_scaled_batch(srefs[sid], get(h_rows), uw, uh,
-                                  2 * uw + 10, 2 * uh + 10, bd, False)
-            scatter_units(planes[pl], out, get(h_ys), get(h_xs), uh, uw)
+            mcu_cuda.mc_scaled_plane(planes[pl], srefs[sid], view(h_rows),
+                                     view(h_ys), view(h_xs), uw, uh, bd)
         elif kind == "comp":
             (_, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx) = rec
             tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True)

@@ -1,5 +1,6 @@
 """Build, load and argument checks shared by the wrappers of the
-hand-written CUDA kernels (``ops/mc_cuda.py``, ``ops/itx_cuda.py``).
+hand-written CUDA kernels (``ops/mc_cuda.py``, ``ops/mcu_cuda.py``,
+``ops/itx_cuda.py``).
 
 Every source ``csrc/<name>.cu`` of ``SOURCES`` is compiled with ``nvcc``
 for ``sm_90a`` at first use, one ``nvcc`` per source, run side by side,
@@ -23,12 +24,13 @@ import torch
 _PKG = os.path.join(os.path.dirname(__file__), os.pardir)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build", "kernels")
-SOURCES = ("mc_hplanes", "mc_vpass", "itx")
+SOURCES = ("mc_hplanes", "mc_vpass", "mc_units", "mc_scaled", "itx")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs = {}
 _lock = threading.Lock()
+_table_on = set()    # (library, device index) with its table uploaded
 
 
 def nvcc():
@@ -95,9 +97,27 @@ def load(name, bind):
     return _libs[name]
 
 
-def check(t, name, dtype, ndim, device):
-    """Raise unless t is a contiguous tensor of `dtype` with `ndim` dims
-    on `device` (dtype may be a tuple of allowed dtypes)."""
+def load_on(name, bind, dev, table):
+    """load(name, bind), with the library's __constant__ table set on
+    `dev` once (``<name>_init(table)``; the caller has made `dev`
+    current). `table` is a contiguous numpy array."""
+    lib = load(name, bind)
+    key = (name, dev.index)
+    if key not in _table_on:
+        with _lock:
+            if key not in _table_on:
+                init = getattr(lib, f"{name}_init")
+                init.restype = ct.c_int
+                init.argtypes = [ct.c_void_p]
+                raise_on(lib, name, init(table.ctypes.data))
+                _table_on.add(key)
+    return lib
+
+
+def check(t, name, dtype, ndim, device, contiguous=True):
+    """Raise unless t is a tensor of `dtype` with `ndim` dims on
+    `device` (dtype may be a tuple of allowed dtypes), contiguous unless
+    the caller reads it at its strides."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor")
     if t.device != device:
@@ -106,7 +126,7 @@ def check(t, name, dtype, ndim, device):
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
 

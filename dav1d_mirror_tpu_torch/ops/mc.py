@@ -255,6 +255,40 @@ def scatter_units(plane, units, ys, xs, uh, uw):
 
 
 # ---------------------------------------------------------------------
+# Unit MC with its destination write: the plain versions of the two
+# CUDA kernels csrc/mc_units.cu and csrc/mc_scaled.cu (wrappers in
+# ops/mcu_cuda.py). Descriptors may be int16 or int32 views of the
+# frame's descriptor buffers; each is widened here.
+# ---------------------------------------------------------------------
+def _cols(arr):
+    return arr.to(torch.int32).unbind(1)
+
+
+def mc_units_plane(plane, ref_stack, arr, ys, xs, uw: int, uh: int,
+                   has_h: bool, has_v: bool, bitdepth: int,
+                   prep: bool = False):
+    """mc_unit_batch on the (B, 6) rows `arr` (ref, oy, ox, mx, my, f2d)
+    written into `plane` at (ys, xs) by scatter_units: pixels outside the
+    plane are dropped, so are PAD_OOB and OOB16 pad rows. In place;
+    returns the plane."""
+    out = mc_unit_batch((ref_stack, *_cols(arr)), uw, uh, has_h, has_v,
+                        bitdepth, prep)
+    return scatter_units(plane, out, ys.to(torch.int32),
+                         xs.to(torch.int32), uh, uw)
+
+
+def mc_units_slots(buf, ref_stack, arr, slots, has_h: bool, has_v: bool,
+                   bitdepth: int, prep: bool):
+    """mc_unit_batch of whole (bhp, bwp) slots of the (N, bhp, bwp) slot
+    buffer `buf`, written by set_slots (duplicate slots carry identical
+    values). In place; returns buf."""
+    _, uh, uw = buf.shape
+    out = mc_unit_batch((ref_stack, *_cols(arr)), uw, uh, has_h, has_v,
+                        bitdepth, prep)
+    return set_slots(buf, slots, out)
+
+
+# ---------------------------------------------------------------------
 # compound joins (dav1d mc_tmpl.c avg:589, w_avg:604, mask:620,
 # w_mask:683) on (B, h, w) int32 prep-domain pairs
 # ---------------------------------------------------------------------
@@ -536,6 +570,26 @@ def mc_scaled_batch(ref_stack, args, uw: int, uh: int, win_w: int,
     return torch.where(
         copy_row, ((vcopy + irnd) >> ib).clamp(0, bd_max),
         ((vfilt + ((1 << (6 + ib)) >> 1)) >> (6 + ib)).clamp(0, bd_max))
+
+
+def mc_scaled_plane(plane, ref_stack, rows, ys, xs, uw: int, uh: int,
+                    bitdepth: int, prep: bool = False):
+    """mc_scaled_batch on the (B, 9) rows (windows of (2uh+10, 2uw+10))
+    written into `plane` at (ys, xs) by scatter_units. In place; returns
+    the plane."""
+    out = mc_scaled_batch(ref_stack, rows, uw, uh, 2 * uw + 10,
+                          2 * uh + 10, bitdepth, prep)
+    return scatter_units(plane, out, ys, xs, uh, uw)
+
+
+def mc_scaled_slots(buf, ref_stack, rows, base, uw: int, uh: int,
+                    bitdepth: int, prep: bool):
+    """mc_scaled_batch written at the flat offsets `base` of the
+    (N, bhp, bwp) slot buffer `buf` by scatter_slot_units. In place;
+    returns buf."""
+    out = mc_scaled_batch(ref_stack, rows, uw, uh, 2 * uw + 10,
+                          2 * uh + 10, bitdepth, prep)
+    return scatter_slot_units(buf, base, out, uh, uw, buf.shape[2])
 
 
 # ---------------------------------------------------------------------

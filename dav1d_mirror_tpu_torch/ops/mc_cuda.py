@@ -20,7 +20,7 @@ import threading
 import torch
 
 from . import mc
-from .cuda_build import check, cuda_device, load, raise_on
+from .cuda_build import check, cuda_device, load, load_on, raise_on
 
 HPLANES_LAUNCHES = 0
 VPASS_LAUNCHES = 0
@@ -28,7 +28,6 @@ VPASS_LAUNCHES = 0
 # the launch counts are bumped from whichever thread launches (the
 # pipelined decoder's pixel worker, a caller's own thread)
 _count_lock = threading.Lock()
-_table_on = set()    # (library, device index) with the subpel table set
 
 
 def _bind(lib, name):
@@ -41,9 +40,6 @@ def _bind(lib, name):
         fn.argtypes = [vp] * 7 + [ct.c_int] * 9 + [vp]
         lib.mc_empty_launch.restype = ct.c_int
         lib.mc_empty_launch.argtypes = [vp]
-    init = getattr(lib, f"{name}_init")
-    init.restype = ct.c_int
-    init.argtypes = [vp]
 
 
 def _lib(name):
@@ -53,13 +49,7 @@ def _lib(name):
 def _lib_on(name, dev):
     """The kernel library, with its __constant__ subpel table set on
     `dev` (the caller has made `dev` current)."""
-    lib = _lib(name)
-    key = (name, dev.index)
-    if key not in _table_on:
-        raise_on(lib, name, getattr(lib, f"{name}_init")(
-            mc.SUBPEL.ctypes.data))
-        _table_on.add(key)
-    return lib
+    return load_on(name, lambda lib: _bind(lib, name), dev, mc.SUBPEL)
 
 
 def mc_hplanes(ref_stack, combos, bitdepth):

@@ -40,12 +40,11 @@ from ..models.inter import _p2, _pad_rows, _units_for_block_raw
 from ..models.intra import IntraPlan, build_intra_plan, intra_scan, \
     wave_families
 from ..ops import ipred as P
-from ..ops import itx_cuda
+from ..ops import itx_cuda, mcu_cuda
 from ..ops.ipred import PAD, PADT
 from ..ops.itx import itx_multi_sel
 from ..ops.itx_meta import TX_INFO, WHT_WHT
-from ..ops.mc import PAD_OOB, comp_join_wavg, mc_unit_batch, \
-    scatter_units, set_slots
+from ..ops.mc import PAD_OOB, comp_join_wavg, scatter_units
 from ..ops.spec_consts import calc_eih
 from .filter_shard import _prep_lvls, band_deblock_plane, cdef_banded
 from .mesh import all_gather_slabs, axis_info, mesh_device
@@ -389,8 +388,8 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
       * reference planes are whole on every rank (MVs may point anywhere
         in the ref; dav1d's analogue is the shared address space its
         frame threads read ref rows from, thread_task.c:403-431);
-      * each rank runs its tile's 8-tap MC unit batches
-        (ops/mc.mc_unit_batch), compound avg/weighted-avg joins and the
+      * each rank runs its tile's 8-tap MC unit batches (the unit MC
+        kernel, ops/mcu_cuda), compound avg/weighted-avg joins and the
         type-as-data residual scatter, with no collective until the
         tiles are all-gathered;
       * the in-loop filters cross tile boundaries and run band-sharded
@@ -432,16 +431,16 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
               for pl in range(n_planes)]
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=dev)
 
     for pl in range(n_planes):
         for k in sorted(put[pl]):
             uw, uh, hh, hv = k
-            a = t(_pad_rows(np.asarray(put[pl][k], np.int32), 6))
-            out = mc_unit_batch((refstk[pl], a[:, 0], a[:, 1], a[:, 2],
-                                 a[:, 3], a[:, 4], a[:, 5]), uw, uh,
-                                bool(hh), bool(hv), bitdepth, False)
-            scatter_units(planes[pl], out, a[:, 6], a[:, 7], uh, uw)
+            a = _pad_rows(np.asarray(put[pl][k], np.int32), 6)
+            mcu_cuda.mc_units_plane(planes[pl], refstk[pl], t(a[:, :6]),
+                                    t(a[:, 6]), t(a[:, 7]), uw, uh,
+                                    bool(hh), bool(hv), bitdepth)
 
     # compound buckets: slot Np-1 is sacrificial (pad sides set_slots into
     # it; its destination is PAD_OOB, so the scatter drops it)
@@ -477,12 +476,9 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
                     # pad lanes repeat the last real side into the
                     # sacrificial slot
                     rr[len(s):] = rr[len(s) - 1]
-                    rr_t = t(rr)
-                    outm = mc_unit_batch(
-                        (refstk[pl], rr_t[:, 0], rr_t[:, 1], rr_t[:, 2],
-                         rr_t[:, 3], rr_t[:, 4], rr_t[:, 5]), bwp, bhp,
-                        bool(hh), bool(hv), bitdepth, True)
-                    set_slots(tmps[si], t(sl), outm)
+                    mcu_cuda.mc_units_slots(tmps[si], refstk[pl], t(rr),
+                                            t(sl), bool(hh), bool(hv),
+                                            bitdepth, True)
         joined = comp_join_wavg(
             torch.zeros((Np, bhp, bwp), dtype=torch.int32, device=dev),
             tmps[0], tmps[1], torch.arange(Np, device=dev),

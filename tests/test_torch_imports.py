@@ -34,8 +34,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "from dav1d_mirror_tpu_torch import api\n"
         "from dav1d_mirror_tpu_torch.ops import (cuda_build, itx_cuda, mc,"
-        " mc_cuda)\n"
-        "from dav1d_mirror_tpu_torch.tools import gen_itx_cuh\n"
+        " mc_cuda, mcu_cuda)\n"
+        "from dav1d_mirror_tpu_torch.tools import gen_itx_cuh, mcu_cases\n"
         "from dav1d_mirror_tpu_torch import cli, output\n"
         "from dav1d_mirror_tpu_torch.utils import trace\n"
         "from dav1d_mirror_tpu_torch.models import intra\n"
