@@ -14,8 +14,11 @@ Run from the root of a checkout. It
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that every counter moved
    (the scaled MC kernel's on the super-res path; the itx and unit MC
-   kernels' also in the tile-sharded decode), the unit MC kernels once
-   for each put/scaled record and "t"/"s" sub-op of the programs:
+   kernels' also in the tile-sharded decode), each unit MC kernel once
+   for each program with its work (an mcurun or mcsrun record: the
+   frame's put/scaled records and "t"/"s" sub-ops in one work list) and
+   never as a one-entry list (the pipelined paths as their serial
+   decodes):
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -97,19 +100,22 @@ Run from the root of a checkout. It
    it, and on config 2's largest 32x32 bucket as a one-entry list; config
    2's frame 3 program is replayed with the kernel and with the plain
    version in its place, counting the eager ops of each. The unit MC
-   kernels are held to ``torch.equal`` with their plain versions
-   (mc_unit_batch or mc_scaled_batch with the scatter after it) on 685
-   synthetic cases (tools/mcu_cases; bd 8/10/12, the four (has_h, has_v)
-   cases, put and prep, every Filter2d, units 2x2 to 128x128 into planes
-   and slots, int16 and int32 descriptors, OOB16/PAD_OOB pad rows, units
-   cut by the plane's edge, duplicate slots, scaled steps 512..2048 with
-   subpel-0 columns and rows, a strided reference) and on every path's
-   own largest put, scaled, t and s call (the serial, pipelined and
-   tile-sharded paths'); they are timed warm and cold against a byte
-   bound (the reference pixels their taps read, each once) on config
-   2's largest put bucket
-   and the super-res path's largest scaled bucket (the tools path's
-   largest t and the super-res path's largest s sub-op printed too); and
+   kernels (work-list kernels: one launch a frame's run) are held to
+   ``torch.equal`` with their plain versions (ops/mc.mc_units_run,
+   mc_scaled_run: mc_unit_batch or mc_scaled_batch with the scatter
+   after it, an entry at a time) on 12 mixed synthetic runs
+   (tools/mcu_cases; bd 8/10/12, the four (has_h, has_v) cases, put and
+   prep, units 2x2 to 128x128, int16 and int32 descriptors, plane and
+   arena destinations, OOB16/PAD_OOB pad rows, units cut by the plane's
+   edge, scaled steps 512..2048 on a strided reference view), on 685
+   one-entry synthetic cases (every Filter2d, duplicate slots, subpel-0
+   columns and rows) and on every path's own largest run of each kind
+   (the serial and pipelined paths') and the tile-sharded decode's own
+   one-entry calls; config 2 frame 3's and the tools path's frame 2
+   mcurun and the super-res path's frame 4 mcsrun are timed warm and
+   cold against a byte bound (the reference pixels their taps read,
+   each once a reference) and against the same entries as one-entry
+   launches, with their largest bucket as a one-entry launch; and
    config 2's frame 3 and the super-res path's frame 4 are replayed with
    them and with their plain versions in their place (no plain MC
    function may run in the kernel route), counting eager ops;
@@ -240,6 +246,7 @@ SCRATCH_BYTES = 256 << 20    # the cold-L2 write: 5x the H100's 50 MB L2
 CYCLES_PER_MS = 2.0e6        # about the H100's clock; sizes busy waits
 OPS_FRAME = 3                # the steady config 2 frame whose ops are counted
 SR_OPS_FRAME = 4             # the super-res frame (coded 1707 wide) counted
+TOOLS_RUN_FRAME = 2          # the tools frame whose unit MC run is timed
 # the unit MC kernels' synthetic cases: (uw, uh) of translational units
 # (chroma 2-wide and 2-tall, non-square, whole 128x128 blocks) and of
 # scaled ones
@@ -249,9 +256,20 @@ MCS_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
              (16, 16), (64, 32))
 # the kernel libraries that must build with no stack frame and no spill
 NO_SPILL = {"itx", "mc_units", "mc_scaled"}
-# record kind -> the unit MC wrapper (ops/mcu_cuda) that runs it
+# record kind -> the unit MC wrapper (ops/mcu_cuda) that runs it as a
+# one-entry list
 MCU_KINDS = {"put": "mc_units_plane", "t": "mc_units_slots",
              "scaled": "mc_scaled_plane", "s": "mc_scaled_slots"}
+# run record kind -> the unit MC work-list wrapper (ops/mcu_cuda), its
+# plain version (ops/mc) and kernel row
+MCU_RUNS = {"mcurun": "mc_units_run", "mcsrun": "mc_scaled_run"}
+MCU_ROW = {"mcurun": "mc_units", "mcsrun": "mc_scaled"}
+# the mixed synthetic runs of the unit MC kernels (tools/mcu_cases): seeds
+# a bit depth
+MCU_RUN_SEEDS = 2
+# one-entry launches queued a timing, at most (more fill the launch
+# queue, and the host could then not queue ahead of the card)
+QUEUE_LAUNCHES = 300
 
 
 def card_line():
@@ -360,21 +378,52 @@ def mcu_unit(kind, dst, rest):
 
 
 class McuLog:
-    """Wraps the unit MC kernels' wrappers (MCU_KINDS) to keep, of the
-    calls made inside it, the largest of each record kind by outputs
-    (`mcu` {kind: its arguments and its destination's shape}); counts
-    stay the wrappers' own. Destinations are written, so only their
-    shapes and dtypes are kept; descriptors are cloned (a path may reuse
-    its buffers), references kept as they are (never written after they
-    are made)."""
+    """Wraps the unit MC kernels' wrappers to keep, of the calls made
+    inside it, the largest work list of each run kind by items (`runs`
+    {run kind (MCU_RUNS): its call}), the runs of the frame being kept
+    (`kept`, while `keep` is set) and the largest one-entry call of each
+    record kind (MCU_KINDS) by outputs (`mcu` {kind: its arguments and
+    its destination's shape}); counts stay the wrappers' own.
+    Destinations are written, so only their shapes and dtypes are kept
+    (and the arena's size); tables and descriptor buffers are cloned (a
+    path may reuse its buffers), references kept as they are (never
+    written after they are made)."""
 
     def __init__(self):
         from dav1d_mirror_tpu_torch.ops import mcu_cuda
         self.mcu_cuda = mcu_cuda
         self.mcu = {}
+        self.runs = {}
+        self.kept = {}
+        self.keep = False
         self._orig = {k: getattr(mcu_cuda, fn) for k, fn in MCU_KINDS.items()}
+        self._orig_runs = {k: getattr(mcu_cuda, fn)
+                           for k, fn in MCU_RUNS.items()}
 
     def __enter__(self):
+        def rec_run(kind):
+            fn = self._orig_runs[kind]
+
+            def rec(tab, work, *rest):
+                *bufs, planes, refs, arena, bd = rest
+                kept = self.runs.get(kind)
+                big = kept is None or work[1] > kept["work"][1]
+                if big or self.keep:
+                    call = dict(
+                        tab=tab.clone(), work=work,
+                        bufs=tuple(b.clone() for b in bufs),
+                        planes=[(tuple(p.shape), p.dtype) for p in planes],
+                        refs=list(refs), bd=bd,
+                        arena_n=0 if arena is None else arena.numel())
+                    if big:
+                        self.runs[kind] = call
+                    if self.keep:
+                        self.kept[kind] = call
+                return fn(tab, work, *rest)
+            return rec
+        for kind, fn in MCU_RUNS.items():
+            setattr(self.mcu_cuda, fn, rec_run(kind))
+
         def rec_mcu(kind):
             fn = self._orig[kind]
 
@@ -397,20 +446,23 @@ class McuLog:
     def __exit__(self, *exc):
         for kind, fn in MCU_KINDS.items():
             setattr(self.mcu_cuda, fn, self._orig[kind])
+        for kind, fn in MCU_RUNS.items():
+            setattr(self.mcu_cuda, fn, self._orig_runs[kind])
 
 
 class ShapeLog:
     """Wraps the kernel wrappers during the decode to record the
     shapes the main path gives them (counts stay the wrappers' own; for
     the itx kernel, ItxLog's largest buckets, as `itx`; for the unit MC
-    kernels the largest call of each record kind, as `mcu`), the
-    program executor to tally the op kinds of each frame (and the "t"
-    and "s" sub-ops of comp and obmc ops, as "comp t", "comp s", ...),
-    and the
-    decoder's frame execution to count the inter-intra blocks (dd == 2:
-    device put, host blend) it finished and to record each frame's coded
-    and output widths. With keep_frame = i, it keeps frame i's program
-    (the execute_program arguments) as `kept_program`."""
+    kernels McuLog's largest run of each kind, as `mcu_runs`, and
+    largest one-entry call of each record kind, as `mcu`), the program
+    executor to tally the op kinds of each frame (and the "t" and "s"
+    sub-ops of comp and obmc ops, as "comp t", "comp s", ...) and its
+    slot arena's bytes, and the decoder's frame execution to count the
+    inter-intra blocks (dd == 2: device put, host blend) it finished and
+    to record each frame's coded and output widths. With keep_frame = i,
+    it keeps frame i's program (the execute_program arguments) as
+    `kept_program` and its unit MC runs' calls as `mcu_kept`."""
 
     def __init__(self, mc_cuda, frame_exec, api, intra=None):
         self._itx_log = ItxLog()
@@ -442,6 +494,9 @@ class ShapeLog:
         # record kind (MCU_KINDS) -> the largest call (McuLog)
         self._mcu_log = McuLog()
         self.mcu = self._mcu_log.mcu
+        self.mcu_runs = self._mcu_log.runs
+        self.mcu_kept = self._mcu_log.kept
+        self.arena = []      # per frame: slot arena bytes
         self.ii_blocks = 0   # inter-intra blocks of the decode
         self.widths = []     # per frame: (coded width, output width)
         self._orig = (mc_cuda.mc_hplanes, mc_cuda.mc_unit_batch_hv,
@@ -451,6 +506,7 @@ class ShapeLog:
 
     def on_frame(self, i):
         self.frame_ops.append({})
+        self.arena.append(0)
         self.scans.append([])
         self.scan_ops.append(0)
 
@@ -459,8 +515,10 @@ class ShapeLog:
 
         def rec_ex(sig, *args):
             ops = self.frame_ops[-1]
-            if len(self.frame_ops) - 1 == self.keep_frame and \
-                    self.kept_program is None:
+            keep = len(self.frame_ops) - 1 == self.keep_frame and \
+                self.kept_program is None and any(
+                    rec[0] in MCU_RUNS for rec in sig[0])
+            if keep:
                 self.kept_program = (sig,) + args
             # the program's hpx ops call mc_hplanes in this order
             self._hpx_planes = [rec[1] for rec in sig[0] if rec[0] == "hpx"]
@@ -479,7 +537,13 @@ class ShapeLog:
                     if sub[0] in "ts":
                         k = f"{rec[0]} {sub[0]}"
                         ops[k] = ops.get(k, 0) + 1
-            return ex(sig, *args)
+                if rec[0] == "mcarena":
+                    self.arena[-1] += 4 * rec[1]
+            self._mcu_log.keep = keep
+            try:
+                return ex(sig, *args)
+            finally:
+                self._mcu_log.keep = False
 
         def rec_ef(built, seq, fhdr, *args):
             self.widths.append(tuple(fhdr.width))
@@ -1376,8 +1440,8 @@ def _mcu_bd(kind):
 
 def mcu_own_calls(torch, mc, mcu_cuda, shapes, path, rows):
     """Each unit MC kernel against its plain version (torch.equal) on a
-    path's own largest call of each record kind. Adds the cases to the
-    kernel rows."""
+    path's own largest one-entry call of each record kind (the
+    tile-sharded decode's). Adds the cases to the kernel rows."""
     by_name = {r["name"]: r for r in rows}
     for kind, kept in sorted(shapes.mcu.items()):
         fn = MCU_KINDS[kind]
@@ -1385,11 +1449,84 @@ def mcu_own_calls(torch, mc, mcu_cuda, shapes, path, rows):
                       "mc_units"]
         dst, args = mcu_own_case(torch, kept, lambda a: a[_mcu_bd(kind)])
         uw, uh = mcu_unit(kind, dst, args[2:])
-        label = (f"{path} own {kind} B={args[1].shape[0]} {uw}x{uh} "
-                 f"into {tuple(dst.shape)} bd{args[_mcu_bd(kind)]}")
+        label = (f"{path} own one-entry {kind} B={args[1].shape[0]} "
+                 f"{uw}x{uh} into {tuple(dst.shape)} "
+                 f"bd{args[_mcu_bd(kind)]}")
         err = mcu_check(torch, mc, mcu_cuda, fn, dst, args, label)
         row["cases"].append(label)
         row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def mcu_run_args(torch, np, call, rng):
+    """The arguments of a recorded run (McuLog) in the order of
+    ops/mcu_cuda.mc_units_run / mc_scaled_run: its table and buffers,
+    planes of its shapes filled with pixels of its bit depth, its
+    references and a zero arena of its size."""
+    dev = call["tab"].device
+    planes = [torch.from_numpy(rng.integers(0, 1 << call["bd"], sh).astype(
+        np.int32)).to(dev) for sh, _ in call["planes"]]
+    arena = torch.zeros(call["arena_n"], dtype=torch.int32, device=dev)
+    return (call["tab"], call["work"], *call["bufs"], planes, call["refs"],
+            arena)
+
+
+def mcu_run_compare(torch, mc, mcu_cuda, kind, args, bd, label):
+    """A unit MC run kernel against its plain version (torch.equal) on
+    clones of the planes and arena of `args` (mcu_run_args). Returns
+    the max abs difference (0)."""
+    def fresh():
+        return args[:-3] + ([p.clone() for p in args[-3]], args[-2],
+                            args[-1].clone())
+    got, want = fresh(), fresh()
+    getattr(mcu_cuda, MCU_RUNS[kind])(*got, bd)
+    getattr(mc, MCU_RUNS[kind])(*want, bd)
+    torch.cuda.synchronize()
+    pairs = list(zip(got[-3] + [got[-1]], want[-3] + [want[-1]]))
+    assert all(torch.equal(g, w) for g, w in pairs), \
+        f"{MCU_RUNS[kind]} differs from its plain version: {label}"
+    return max([int((g - w).abs().max()) for g, w in pairs if g.numel()]
+               + [0])
+
+
+def run_entry_calls(mc, kind, args, bd):
+    """[(record kind, destination, wrapper args)]: the one-entry calls
+    (MCU_KINDS) that the entries of a run stand for, on every row (pad
+    rows included, as one launch a record ran them); descriptors views
+    of the run's buffers, destinations its planes or views of its arena.
+    args: mcu_run_args."""
+    tab, work = args[0], args[1]
+    *bufs, planes, refs, arena = args[2:]
+    d32, d16 = bufs[0], bufs[-1]
+    out = []
+    for e in mc.mc_table_entries(tab, work[0]):
+        fl, B, uw, uh = e[mc.M_FLAGS], e[mc.M_B], e[mc.M_UW], e[mc.M_UH]
+
+        def sl(f, flag, n, e=e, fl=fl):
+            return (d16 if fl & flag else d32)[e[f]:e[f] + n]
+        ref, prep = refs[e[mc.M_REF]], bool(fl & mc.MF_PREP)
+        slot = arena[e[mc.M_DST]:e[mc.M_DST] + e[mc.M_DSTN]]
+        if kind == "mcurun":
+            arr = sl(mc.M_DESC, mc.MF_DESC16, 6 * B).view(B, 6)
+            ys = sl(mc.M_YS, mc.MF_YS16, B)
+            hv = (bool(fl & mc.MF_H), bool(fl & mc.MF_V))
+            if fl & mc.MF_ARENA:
+                out.append(("t", slot.view(-1, uh, uw),
+                            (ref, arr, ys, *hv, bd, prep)))
+            else:
+                out.append(("put", planes[e[mc.M_PLANE]],
+                            (ref, arr, ys, sl(mc.M_XS, mc.MF_XS16, B), uw,
+                             uh, *hv, bd, prep)))
+        else:
+            rows = sl(mc.M_DESC, 0, 9 * B).view(B, 9)
+            ys = sl(mc.M_YS, 0, B)
+            if fl & mc.MF_ARENA:
+                out.append(("s", slot.view(1, -1, e[mc.M_ROWW]),
+                            (ref, rows, ys, uw, uh, bd, prep)))
+            else:
+                out.append(("scaled", planes[e[mc.M_PLANE]],
+                            (ref, rows, ys, sl(mc.M_XS, 0, B), uw, uh, bd,
+                             prep)))
+    return out
 
 
 def _taps_nz(np, mc, ftype, sub, small):
@@ -1410,27 +1547,31 @@ def _tap_need(np, off, nz, n):
     return need
 
 
-def _touched(np, shape, ref, org_y, need_r, org_x, need_c):
-    """Reference pixels the units read, each counted once: unit b reads
-    the rows clamp(org_y[b] + r) with need_r[b, r] at the columns
+def _mark(np, mask, ref, org_y, need_r, org_x, need_c):
+    """Set in `mask` (R, H, W) the reference pixels the units read: unit
+    b reads the rows clamp(org_y[b] + r) with need_r[b, r] at the columns
     clamp(org_x[b] + c) with need_c[b, c] of reference ref[b]."""
-    R, H, W = shape
+    R, H, W = mask.shape
     rows = np.clip(org_y[:, None] + np.arange(need_r.shape[1]), 0, H - 1)
     cols = np.clip(org_x[:, None] + np.arange(need_c.shape[1]), 0, W - 1)
-    mask = np.zeros((R, H, W), bool)
     for b in range(len(ref)):
         mask[ref[b], rows[b][need_r[b]][:, None], cols[b][need_c[b]]] = True
+
+
+def _touched(np, shape, ref, org_y, need_r, org_x, need_c):
+    """Reference pixels the units read, each counted once (_mark)."""
+    mask = np.zeros(shape, bool)
+    _mark(np, mask, ref, org_y, need_r, org_x, need_c)
     return int(mask.sum())
 
 
-def mcu_bound(np, mc, kind, dst, args):
-    """(least ms, what bounds it, real units) of one unit MC call at the
-    H100's rates. Bytes: the reference pixels that the real units' taps
-    read (nonzero taps only, 4-tap rows for sides <= 4, copy phases one
-    tap; overlapping windows counted once), their descriptors and
-    origins, and the pixels written inside the destination (pad rows
-    write nothing; duplicate slots count once). Operations: 16 a tap
-    pass output on the rows that pass needs."""
+def _mcu_reads(np, mc, kind, dst, args):
+    """What one unit MC call reads and writes: (ref, org_y, need_r,
+    org_x, need_c) of _mark over its real units, the bytes of their
+    descriptors and origins and of the pixels written inside the
+    destination (pad rows write nothing; duplicate slots count once),
+    the operations (16 a tap pass output on the rows that pass needs)
+    and the real units."""
     uw, uh = mcu_unit(kind, dst, args[2:])
     desc = args[1].cpu().numpy().astype(np.int64)
     esz = args[1].element_size()
@@ -1485,24 +1626,133 @@ def mcu_bound(np, mc, kind, dst, args):
         org_y, org_x = d[:, 1] - 3, d[:, 2] - 3
         ops = need_r.sum(1) * uw * 16 + uh * uw * 16
         n_desc = 9
-    px = _touched(np, tuple(args[0].shape), d[:, 0], org_y, need_r, org_x,
-                  need_c)
-    n_bytes = float(px * args[0].element_size() + np.sum(
-        real * (n_desc * esz + origin + written * dst.element_size())))
-    ms, by = bound(n_bytes, float(np.sum(ops)))
-    return ms, by, int(real.sum())
+    other = float(np.sum(real * (n_desc * esz + origin +
+                                 written * dst.element_size())))
+    return ((d[:, 0], org_y, need_r, org_x, need_c), other,
+            float(np.sum(ops)), int(real.sum()))
+
+
+def mcu_bound(np, mc, kind, dst, args):
+    """(least ms, what bounds it, real units) of one unit MC call at the
+    H100's rates. Bytes: the reference pixels that the real units' taps
+    read (nonzero taps only, 4-tap rows for sides <= 4, copy phases one
+    tap; overlapping windows counted once), their descriptors and
+    origins, and the pixels written inside the destination (_mcu_reads).
+    Operations: 16 a tap pass output on the rows that pass needs."""
+    reads, other, ops, real = _mcu_reads(np, mc, kind, dst, args)
+    px = _touched(np, tuple(args[0].shape), *reads)
+    ms, by = bound(px * args[0].element_size() + other, ops)
+    return ms, by, real
+
+
+def mcu_run_bound(np, mc, kind, args, bd):
+    """(least ms, what bounds it, real units, entries) of one run
+    (mcu_run_args): its entries' _mcu_reads, each reference pixel that
+    any real unit's taps read counted once for each reference, and the
+    table read once."""
+    masks = {}
+    n_bytes, n_ops, n_real = 4.0 * args[0].numel(), 0.0, 0
+    calls = run_entry_calls(mc, kind, args, bd)
+    for rk, dst, a in calls:
+        reads, other, ops, real = _mcu_reads(np, mc, rk, dst, a)
+        mask = masks.setdefault(id(a[0]), np.zeros(tuple(a[0].shape), bool))
+        _mark(np, mask, *reads)
+        n_bytes, n_ops, n_real = n_bytes + other, n_ops + ops, n_real + real
+    n_bytes += 4 * sum(int(m.sum()) for m in masks.values())
+    ms, by = bound(n_bytes, n_ops)
+    return ms, by, n_real, len(calls)
+
+
+def time_entries(torch, calls, mcu_cuda):
+    """Device ms of a run's entries as one-entry launches (run_entry_
+    calls, every row), QUEUE_LAUNCHES a timing, the timings summed."""
+    total = 0.0
+    for i in range(0, len(calls), QUEUE_LAUNCHES):
+        chunk = calls[i:i + QUEUE_LAUNCHES]
+
+        def run(chunk=chunk):
+            for rk, dst, a in chunk:
+                getattr(mcu_cuda, MCU_KINDS[rk])(dst, *a)
+        reps = max(1, QUEUE_LAUNCHES // len(chunk))
+        total += time_warm(torch, run, reps)
+    return total
+
+
+def mcu_timed_run(torch, np, mc, mcu_cuda, kind, call, scratch, label,
+                  rng, plain=True):
+    """Time one recorded run (McuLog) of `kind` on the card: warm and
+    cold, in turns with its entries as one-entry launches (one-entry,
+    run, run, one-entry), against its byte bound; with `plain`, its
+    plain version's device and wall time (one call: it issues tens of
+    thousands of ops); its largest entry (by outputs, pad rows included)
+    as a one-entry launch, warm and cold, against that call's bound.
+    Prints them; returns a dict of the numbers."""
+    bd = call["bd"]
+    args = mcu_run_args(torch, np, call, rng)
+    work = call["work"]
+    calls = run_entry_calls(mc, kind, args, bd)
+
+    def run_k():
+        return getattr(mcu_cuda, MCU_RUNS[kind])(*args, bd)
+
+    def run_p():
+        return getattr(mc, MCU_RUNS[kind])(*args, bd)
+    turns = [time_entries(torch, calls, mcu_cuda),
+             time_warm(torch, run_k, 100), time_warm(torch, run_k, 100),
+             time_entries(torch, calls, mcu_cuda)]
+    warm = min(turns[1:3])
+    cold = time_cold(torch, run_k, scratch, 20)
+    p_ms, p_wall = time_plain(torch, run_p, 1) if plain else (None, None)
+    b_ms, b_by, n_real, n_ent = mcu_run_bound(np, mc, kind, args, bd)
+    smem = 4 * (2 * work[2] + work[3])
+    shape = (f"{label}: {work[0]} entries, {n_real} real units, "
+             f"{work[1]} items, bd{bd}, dynamic shared memory {smem} bytes "
+             f"a CTA (two stages of {work[2]} ints, mid {work[3]}), arena "
+             f"{4 * call['arena_n']} bytes")
+    print(f"  {MCU_RUNS[kind]} {shape}: {warm:.5f} ms warm, {cold:.5f} ms "
+          f"cold, " + (f"plain {p_ms:.5f} ms device, {p_wall:.5f} ms wall, "
+                       if plain else "") +
+          f"bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / warm:.1f}% of "
+          f"bound warm")
+    print(f"  {MCU_RUNS[kind]} {label}: the same {n_ent} entries as "
+          f"one-entry launches, in turns (one-entry, run, run, one-entry): "
+          + ", ".join(f"{t:.5f}" for t in turns) +
+          f" ms; one-entry / run {min(turns[0], turns[3]) / warm:.1f}x")
+    # its largest entry as a one-entry launch
+    rk, dst, a = max(calls, key=lambda c: c[2][1].shape[0] * int(np.prod(
+        mcu_unit(c[0], c[1], c[2][2:]))))
+    uw, uh = mcu_unit(rk, dst, a[2:])
+    fn = getattr(mcu_cuda, MCU_KINDS[rk])
+    o_warm = time_warm(torch, lambda: fn(dst, *a), 100)
+    o_cold = time_cold(torch, lambda: fn(dst, *a), scratch, 20)
+    o_ms, o_by, o_real = mcu_bound(np, mc, rk, dst, a)
+    print(f"  {MCU_KINDS[rk]} {label}'s largest {rk} bucket as a one-entry "
+          f"launch: B={a[1].shape[0]} ({o_real} real) {uw}x{uh}: "
+          f"{o_warm:.5f} ms warm, {o_cold:.5f} ms cold, bound {o_ms:.5f} ms "
+          f"({o_by}), {100 * o_ms / o_warm:.1f}% of bound warm")
+    return dict(ms=warm, cold_ms=cold, bound_ms=b_ms, bound_by=b_by,
+                plain_ms=p_ms, plain_wall_ms=p_wall, shape=shape,
+                one_entry_ms=turns, largest=dict(
+                    kind=rk, B=a[1].shape[0], real=o_real, warm=o_warm,
+                    cold=o_cold, bound=o_ms))
 
 
 def mcu_phase(torch, np, mc, mcu_cuda, owned, scratch, floor_ms):
     """The two unit MC kernels against their plain versions on the card
-    (torch.equal): the synthetic cases (mcu_synthetic_cases) and each
-    path's own largest call of each record kind (`owned` {path:
-    ShapeLog}); then times config 2's largest put bucket (mc_units) and
-    the super-res path's largest scaled bucket (mc_scaled), warm and with
-    a cold L2, against their byte bounds, with the plain versions' device
-    and wall time, and prints the other own calls' times (the tools
-    path's largest t sub-op, the super-res path's largest s sub-op).
+    (torch.equal): mixed synthetic runs (tools/mcu_cases: every unit
+    size, (has_h, has_v), put and prep, descriptor width, plane and arena
+    destinations, pad rows, edge-cut units, scaled steps; bd 8/10/12,
+    MCU_RUN_SEEDS seeds), the one-entry synthetic cases
+    (mcu_synthetic_cases), each path's own largest run of each kind and
+    the one-entry calls of the paths that make them (`owned` {path:
+    ShapeLog or McuLog}: the tile-sharded decode's). Then times config 2
+    frame 3's mcurun (the mc_units row), super-res frame 4's mcsrun (the
+    mc_scaled row) and the tools path's frame 2 mcurun (its plain version
+    not timed), each against its byte bound and its entries as one-entry
+    launches (mcu_timed_run).
     Returns the two kernel rows."""
+    from dav1d_mirror_tpu_torch.tools import mcu_cases
+    dev = torch.device("cuda")
     rng = np.random.default_rng(2031)
     rows = {name: dict(name=name, route="cuda", cases=[], max_abs_err=0,
                        launches=None, library_ms=None, floor_ms=floor_ms)
@@ -1517,49 +1767,60 @@ def mcu_phase(torch, np, mc, mcu_cuda, owned, scratch, floor_ms):
         replaces="dav1d_mirror_tpu/ops/mc_tpu.py:473 (mc_scaled_batch, "
                  "with scatter_units :266 or scatter_slot_units :316 after "
                  "it; XLA-fused on the TPU, not a Pallas kernel)")
-    t0 = time.perf_counter()
-    for fn, label, dst, args in mcu_synthetic_cases(np, torch, rng,
-                                                    torch.device("cuda")):
-        row = rows["mc_scaled" if "scaled" in fn else "mc_units"]
-        row["max_abs_err"] = max(row["max_abs_err"], mcu_check(
-            torch, mc, mcu_cuda, fn, dst, args, label))
+
+    def note(kind, label, err):
+        row = rows[MCU_ROW[kind]]
         row["cases"].append(label)
-    print(f"  unit MC synthetic cases: mc_units {len(rows['mc_units']['cases'])}"
-          f", mc_scaled {len(rows['mc_scaled']['cases'])}, all torch.equal "
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    t0 = time.perf_counter()
+    for seed in range(MCU_RUN_SEEDS):
+        for bd in (8, 10, 12):
+            for kind, make, units in (
+                    ("mcurun", mcu_cases.units_run_case, MCU_UNITS),
+                    ("mcsrun", mcu_cases.scaled_run_case, MCS_UNITS)):
+                case = make(rng, bd, units)
+                label = (f"mixed run seed {seed} bd{bd}: {case['work'][0]} "
+                         f"entries, {case['work'][1]} items")
+                note(kind, label, mcu_run_compare(
+                    torch, mc, mcu_cuda, kind,
+                    mcu_cases.run_case_args(case, dev), bd, label))
+    n_runs = sum(len(r["cases"]) for r in rows.values())
+    for fn, label, dst, args in mcu_synthetic_cases(np, torch, rng, dev):
+        kind = "mcsrun" if "scaled" in fn else "mcurun"
+        note(kind, f"one-entry {label}", mcu_check(
+            torch, mc, mcu_cuda, fn, dst, args, label))
+    print(f"  unit MC synthetic cases: {n_runs} mixed runs and "
+          f"{sum(len(r['cases']) for r in rows.values()) - n_runs} "
+          f"one-entry cases, all torch.equal "
           f"({time.perf_counter() - t0:.1f} s)")
     n_own = 0
+    t0 = time.perf_counter()
     for path, shapes in owned.items():
+        for kind, call in sorted(shapes.runs.items() if isinstance(
+                shapes, McuLog) else shapes.mcu_runs.items()):
+            label = (f"{path} own largest {kind}: {call['work'][0]} "
+                     f"entries, {call['work'][1]} items, bd{call['bd']}")
+            note(kind, label, mcu_run_compare(
+                torch, mc, mcu_cuda, kind,
+                mcu_run_args(torch, np, call, rng), call["bd"], label))
+            n_own += 1
         mcu_own_calls(torch, mc, mcu_cuda, shapes, path, list(rows.values()))
         n_own += len(shapes.mcu)
     print(f"  unit MC own calls: {n_own} cases on {len(owned)} paths "
-          f"({', '.join(owned)}), all torch.equal")
-    # (path, record kind) -> the kernel row it times, or None: printed
-    for (path, kind), name in ((("config 2", "put"), "mc_units"),
-                               (("tools", "t"), None),
-                               (("superres", "scaled"), "mc_scaled"),
-                               (("superres", "s"), None)):
-        fn = MCU_KINDS[kind]
-        dst, args = mcu_own_case(torch, owned[path].mcu[kind],
-                                 lambda a: a[_mcu_bd(kind)])
-        b_ms, b_by, real = mcu_bound(np, mc, kind, dst, args)
-        uw, uh = mcu_unit(kind, dst, args[2:])
-
-        def run(fn=fn, dst=dst, args=args):
-            return getattr(mcu_cuda, fn)(dst, *args)
-        warm = time_warm(torch, run, 100)
-        cold = time_cold(torch, run, scratch, 20)
-        shape = (f"{path}'s largest {kind} call: B={args[1].shape[0]} "
-                 f"({real} real) {uw}x{uh} into {tuple(dst.shape)} "
-                 f"bd{args[_mcu_bd(kind)]}")
-        print(f"  {fn} at {shape}: {warm:.5f} ms warm, {cold:.5f} ms cold, "
-              f"bound {b_ms:.5f} ms ({b_by}), "
-              f"{100 * b_ms / warm:.1f}% of bound warm")
+          f"({', '.join(owned)}), all torch.equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for path, kind, frame, name in (
+            ("config 2", "mcurun", OPS_FRAME, "mc_units"),
+            ("tools", "mcurun", TOOLS_RUN_FRAME, None),
+            ("superres", "mcsrun", SR_OPS_FRAME, "mc_scaled")):
+        got = mcu_timed_run(torch, np, mc, mcu_cuda, kind,
+                            owned[path].mcu_kept[kind], scratch,
+                            f"{path} frame {frame}'s {kind}", rng,
+                            plain=name is not None)
         if name:
-            p_ms, p_wall = time_plain(
-                torch, lambda: getattr(mc, fn)(dst, *args), 10)
-            rows[name].update(ms=warm, cold_ms=cold, bound_ms=b_ms,
-                              bound_by=b_by, plain_ms=p_ms,
-                              plain_wall_ms=p_wall, shape=shape)
+            rows[name].update(got)
+    print(f"  unit MC timings: {time.perf_counter() - t0:.1f} s")
     return [rows["mc_units"], rows["mc_scaled"]]
 
 
@@ -2248,6 +2509,8 @@ def report_path(name, frames, times, shapes, launches, digests, split,
     for i, ops in enumerate(shapes.frame_ops):
         print(f"{name} frame {i} ops: " + ", ".join(
             f"{k} {v}" for k, v in sorted(ops.items())))
+    print(f"{name} unit MC slot arena bytes a frame: " + ", ".join(
+        str(b) for b in shapes.arena))
     print(f"{name}: frame 0 (keyframe, cold) {ms[0]:.1f} ms; frame 1 "
           f"(first inter) {ms[1]:.1f} ms; steady fps over frames "
           f"2-{len(frames) - 1}: {len(steady) / sum(steady):.3f}")
@@ -2269,20 +2532,24 @@ def moved(launches, name, scaled=False):
 def one_launch_per_run(shapes, launches, name):
     """The itx kernel ran once for each run of the programs' work lists
     (ShapeLog), and never as a one-entry list; each unit MC kernel once
-    for each record or sub-op it runs (put, comp t, obmc t; scaled, comp
-    s, obmc s)."""
+    for each program with its work (an mcurun record: puts, comp t,
+    obmc t; an mcsrun record: scaled, comp s, obmc s), never as a
+    one-entry list. Prints the unit MC launches and records."""
     assert launches["itx"] == shapes.itx_expected and not shapes.itx, (
         name, launches, shapes.itx_expected, sorted(shapes.itx))
     ops = {}
     for fr in shapes.frame_ops:
         for k, v in fr.items():
             ops[k] = ops.get(k, 0) + v
-    want = {"mc_units": sum(ops.get(k, 0) for k in
-                            ("put", "comp t", "obmc t")),
-            "mc_scaled": sum(ops.get(k, 0) for k in
-                             ("scaled", "comp s", "obmc s"))}
+    want = {MCU_ROW[k]: ops.get(k, 0) for k in MCU_RUNS}
     got = {k: launches[k] for k in want}
-    assert got == want, (name, "unit MC launches", got, "records", want)
+    assert got == want and not shapes.mcu, (
+        name, "unit MC launches", got, "runs", want, sorted(shapes.mcu))
+    recs = {k: sum(ops.get(r, 0) for r in rs) for k, rs in (
+        ("mc_units", ("put", "comp t", "obmc t")),
+        ("mc_scaled", ("scaled", "comp s", "obmc s")))}
+    print(f"{name}: unit MC launches {got}, one a program with its work, "
+          f"for {recs} records and sub-ops")
 
 
 def staged(stages, run):
@@ -2324,8 +2591,8 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
                         if k in e.key) / 2e3
                  for n, k in (("mc_hplanes", "mc_hplanes_kernel"),
                               ("mc_vpass", "mc_vpass_kernel"),
-                              ("mc_units", "mc_units_kernel"),
-                              ("mc_scaled", "mc_scaled_kernel"),
+                              ("mc_units", "mc_units_run_kernel"),
+                              ("mc_scaled", "mc_scaled_run_kernel"),
                               ("itx", "itx_run_kernel"))}
     per_frame["all kernels"] = sum(e.self_device_time_total
                                    for e in kernels) / 2e3
@@ -2351,6 +2618,11 @@ def main():
     sys.path.insert(0, HERE)
 
     # ---- 1. card and build ----
+    t_start = time.perf_counter()
+
+    def mark(what):
+        """Print the command's seconds so far, before the next phase."""
+        print(f"time: {time.perf_counter() - t_start:.1f} s, before {what}")
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2384,6 +2656,7 @@ def main():
                      "itx": itx_cuda.ITX_LAUNCHES,
                      "itx entries": itx_cuda.ITX_ENTRIES}
 
+    mark('config 2 path')
     # ---- config 2 path (run first: the kernel phase uses its shapes) ----
     with open(STREAM, "rb") as f:
         _, _, _, frames = parse_ivf(f.read())
@@ -2399,6 +2672,7 @@ def main():
         stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
 
+    mark('the engine path')
     # ---- the engine path: config 2 with the device intra engine, twice
     # (the second pass staged), then a third pass counting the eager ops
     # of each frame's wave scan ----
@@ -2430,6 +2704,7 @@ def main():
     assert d_c == STREAM_MD5, f"engine md5 {d_c} (op-counting pass)"
     assert shapes_c.scans == shapes_e.scans, "the scans differ by pass"
 
+    mark('config 3 path')
     # ---- config 3 path: with grain, without grain, staged ----
     with open(STREAM3, "rb") as f:
         _, _, _, frames3 = parse_ivf(f.read())
@@ -2463,11 +2738,13 @@ def main():
         assert d == corpus_md5[name], f"{name}: md5 {d}"
         print(f"{name}: md5 {d} as in md5.txt, LR ops {kinds}")
 
+    mark('tools path')
     # ---- tools path: compound, warp, OBMC, inter-intra; twice ----
     with open(os.path.join(TOOLS_DIR, TOOLS_STREAM), "rb") as f:
         _, _, _, frames_t = parse_ivf(f.read())
     tools_md5, tools_n = TOOLS_STREAMS[TOOLS_STREAM]
     with ShapeLog(mc_cuda, frame_exec, api) as shapes_t:
+        shapes_t.keep_frame = TOOLS_RUN_FRAME
         (d_t, n_t, times_t), launches_t = counted(lambda: decode(
             api, MD5Muxer, frames_t, torch, shapes_t.on_frame))
     assert n_t == len(frames_t) == tools_n, (n_t, len(frames_t))
@@ -2499,6 +2776,7 @@ def main():
         print(f"{name}: md5 {d} as recorded, {n} frames, ops {kinds}, "
               f"{s_shapes.ii_blocks} inter-intra blocks")
 
+    mark('Decoder.apply_grain')
     # ---- Decoder.apply_grain: config 3 decoded without grain, each
     # picture grained on its own ----
     dec = api.Decoder(api.Settings(device="cuda", apply_grain=False))
@@ -2513,6 +2791,7 @@ def main():
     print(f"config 3 through Decoder.apply_grain: md5 {mux.digest()} as "
           f"recorded, {mux.n} frames")
 
+    mark('super-res path')
     # ---- super-res path: scaled MC and super-res; twice ----
     with open(os.path.join(TOOLS_DIR, SUPERRES_STREAM), "rb") as f:
         _, _, _, frames_s = parse_ivf(f.read())
@@ -2552,12 +2831,14 @@ def main():
         print(f"{name}: md5 {d} as in md5.txt, {n} frames, ops {kinds}, "
               f"coded/output widths {c_shapes.widths}")
 
+    mark('the profile paths')
     # ---- the profile paths: 12-bit 4:2:2 and 10-bit 4:4:4 ----
     profiles = {key: profile_phase(api, MD5Muxer, torch, stages, counted,
                                    mc_cuda, frame_exec, parse_ivf, key,
                                    name, kinds)
                 for key, name, kinds in PROFILE_PATHS}
 
+    mark('the intra corpus streams on both routes')
     # ---- the intra corpus streams on both routes ----
     for name in ENGINE_CORPUS:
         with open(os.path.join(STREAMS, name), "rb") as f:
@@ -2578,10 +2859,12 @@ def main():
                   f"routes {rts}, scans (waves, units, filter cells) "
                   f"{[x for sc in c_shapes.scans for x in sc]}")
 
+    mark('the small format streams on both routes')
     # ---- the small format streams on both routes ----
     formats_phase(api, MD5Muxer, torch, mc_cuda, frame_exec, intra,
                   parse_ivf, corpus_md5)
 
+    mark('the CLI on the card, with the engine')
     # ---- the CLI on the card, with the engine ----
     t0 = time.perf_counter()
     cli_cmd = [sys.executable, "-m", "dav1d_mirror_tpu_torch.cli", "-i",
@@ -2594,6 +2877,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s: "
           + " / ".join(r.stderr.strip().splitlines()[-2:]))
 
+    mark('config 4')
     # ---- config 4: 4K 10-bit, 2x2 tiles ----
     with open(STREAM4, "rb") as f:
         _, _, _, frames4 = parse_ivf(f.read())
@@ -2608,15 +2892,23 @@ def main():
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
     assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"
 
+    mark('the pipelined paths')
     # ---- the pipelined paths: config 2 and the tools path through the
     # four-stage pipeline, against their serial decodes above ----
     piped, piped_itx, piped_mcu = pipelined_phase(
         api, MD5Muxer, torch, stages, counted,
         {"config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
+    # the same programs: one unit MC launch a program with its work, as
+    # in the serial decodes
+    for name, serial in (("config 2", launches), ("tools", launches_t)):
+        assert all(piped[name][k] == serial[k] for k in MCU_ROW.values()), \
+            (name, "pipelined unit MC launches", piped[name], serial)
 
+    mark('the parallel paths at world size 1 on the card')
     # ---- the parallel paths at world size 1 on the card ----
     _, _, sharded_itx, sharded_mcu = parallel_phase(torch)
 
+    mark('2. kernel phase')
     # ---- 2. kernel phase ----
     rows = kernel_phase(torch, np, mc, mc_cuda, shapes)
     own_calls_phase(torch, mc, mc_cuda, shapes3, "config 3", rows)
@@ -2624,6 +2916,7 @@ def main():
     own_calls_phase(torch, mc, mc_cuda, shapes_s, "superres", rows)
     for key, prof in profiles.items():
         own_calls_phase(torch, mc, mc_cuda, prof["shapes"], key, rows)
+    mark("the itx phase")
     rows.append(itx_phase(
         torch, np, itx, itx_cuda, frame_exec,
         {"config 2": shapes, "config 3": shapes3, "tools": shapes_t,
@@ -2638,23 +2931,26 @@ def main():
              "pipelined config 2": piped_mcu["config 2"],
              "pipelined tools": piped_mcu["tools"], "sharded": sharded_mcu,
              **{key: prof["shapes"] for key, prof in profiles.items()}}
+    mark("the unit MC phase")
     rows.extend(mcu_phase(
         torch, np, mc, mcu_cuda, owned,
         torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
         rows[0]["floor_ms"]))
     wrapped = [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
                (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket")] + [
-        (mcu_cuda, fn) for fn in MCU_KINDS.values()]
+        (mcu_cuda, fn) for fn in (*MCU_KINDS.values(), *MCU_RUNS.values())]
     c2_label = f"config 2 frame {OPS_FRAME}"
+    mark("the ops phases")
     itx_ops = ops_phase(torch, frame_exec, wrapped, shapes.kept_program,
                         [(itx_cuda, "itx_run", itx.itx_run)], c2_label)
     # the unit MC kernels' plain versions in their place; in the kernel
-    # route no put, scaled, t or s branch may reach a plain MC function
+    # route no unit MC work may reach a plain MC function
     mcu_ops = {label: ops_phase(
         torch, frame_exec, wrapped, prog,
-        [(mcu_cuda, fn, getattr(mc, fn)) for fn in MCU_KINDS.values()],
+        [(mcu_cuda, fn, getattr(mc, fn)) for fn in MCU_RUNS.values()],
         label, [(mc, n) for n in ("mc_unit_batch", "mc_scaled_batch",
-                                  *MCU_KINDS.values())])
+                                  *MCU_KINDS.values(),
+                                  *MCU_RUNS.values())])
         for label, prog in ((c2_label, shapes.kept_program),
                             (f"super-res frame {SR_OPS_FRAME}",
                              shapes_s.kept_program))}
@@ -2706,6 +3002,7 @@ def main():
     for label, ops in mcu_ops.items():
         print_ops("unit MC", label, ops)
 
+    mark('3. path reports')
     # ---- 3. path reports ----
     report_path("config 2", frames, times, shapes, launches,
                 {"expected": STREAM_MD5, "got": digest}, split, sum(times2))
@@ -2761,6 +3058,7 @@ def main():
                         f"{frame_ms:.1f} ms steady frame)"
                         for k, v in per_frame.items()))
 
+    mark('fuzz')
     # ---- fuzz: corrupt streams decode on the card as on the CPU,
     # and a clean decode still matches after them ----
     n_copies, n_dec, n_err, fuzz_s = fuzz_phase(api, MD5Muxer, torch, np,
@@ -2775,6 +3073,7 @@ def main():
           f"contained error; {fuzz_s:.1f} s; inter_basic after it: md5 {d} "
           f"as in md5.txt")
 
+    mark('4. result lines')
     # ---- 4. result lines ----
     print(json.dumps({"kernels": table}))
     print(card)

@@ -28,17 +28,26 @@ after it one ``itxrun`` record: the run's work list (``ItxRun``,
 ops/itx.build_table) in the int32 buffer. This executor runs the
 ``itxrun`` record, one launch of the itx kernel a run
 (ops/itx_cuda.itx_run), and passes over the bucket records it covers.
-The ``put`` and ``scaled`` records and the "t" and "s" sub-ops of the
-compound and OBMC side batches are one launch each of the unit MC
-kernels (ops/mcu_cuda), which write straight into the plane or the
-slot buffer and read the descriptors in place (int16 or int32).
+The planner also gathers the frame's unit MC (``McRun``): every ``put``
+and ``scaled`` record and every "t" and "s" sub-op of the compound and
+OBMC side batches is an entry of one of two work lists, and every
+compound side and OBMC lap batch has its slot buffer in one flat int32
+arena. Before the frame's first MC record it emits ``mcarena`` (the
+arena's size and each comp/obmc record's offsets), ``mcurun`` and
+``mcsrun`` (the tables, in the int32 buffer). Unit MC reads only the
+reference stacks, and its units write disjoint pixels or slots, so the
+executor runs all of it there: one launch of each unit MC kernel a
+frame (ops/mcu_cuda.mc_units_run, mc_scaled_run), which writes straight
+into the planes or the arena and reads the descriptors in place (int16
+or int32). It then passes over the ``put`` and ``scaled`` records, and
+runs only the "w" sub-ops of a side batch into its arena slots.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import itx, itx_cuda, mc_cuda, mcu_cuda
+from ..ops import itx, itx_cuda, mc, mc_cuda, mcu_cuda
 from ..ops.cdef import cdef_frame
 from ..ops.loopfilter import deblock_plane
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
@@ -115,6 +124,7 @@ class FrameProgram:
         self.out_dtype = np.dtype(out_dtype).name if out_dtype else None
         self.ops = []
         self._chunks = []
+        self._emitted = {}     # int32 offset -> the array emitted there
         self._off = 0
         self._chunks16 = []
         self._off16 = 0
@@ -128,8 +138,13 @@ class FrameProgram:
         a = np.ascontiguousarray(np.asarray(arr, dtype=np.int32))
         h = (self._off, a.shape)
         self._chunks.append(a.reshape(-1))
+        self._emitted[self._off] = a
         self._off += a.size
         return h
+
+    def array(self, h):
+        """The int32 array emitted as handle h."""
+        return self._emitted[h[0]]
 
     def emit16(self, arr):
         """Emit into the int16 side buffer. Callers must guarantee values
@@ -264,6 +279,103 @@ class ItxRun:
                          views)
 
 
+def _narrow(h):
+    """1 if the handle lies in the int16 side buffer (emit16)."""
+    return int(len(h) == 3 and h[2] == 16)
+
+
+class McRun:
+    """The unit MC work lists of one frame program, made where the
+    planner starts the frame's MC records. ``op`` emits each record (the
+    reference interpreter's form); of a ``put`` or ``scaled`` record, and
+    of each "t" or "s" sub-op of a ``comp`` or ``obmc`` record, it keeps
+    a work-list entry (ops/mc.mc_build_table's dict) on its first
+    `n_real` rows (a comp: a tuple a side, one count a sub-op; an obmc:
+    one count a sub-op; "w" sub-ops' counts unused), and it gives each
+    compound side and each OBMC lap batch its slot buffer in the frame's
+    arena. ``close`` inserts, where the MC records start, ("mcarena",
+    arena ints, offsets) when the frame has comp or obmc records
+    (offsets: a tuple each, in record order: a comp's two sides', an
+    obmc's lap batch's), then ("mcurun", table handle, work) and
+    ("mcsrun", table handle, work) for the lists with entries."""
+
+    def __init__(self, prog):
+        self.prog = prog
+        self.at = len(prog.ops)
+        self.units, self.scaled = [], []
+        self.arena = 0
+        self.offsets = []
+
+    def _slots(self, pl, subops, n_real, N, bhp, bwp, prep):
+        """Entries of one slot batch's "t" and "s" sub-ops; returns the
+        batch's arena offset."""
+        off, n = self.arena, N * bhp * bwp
+        self.arena += n
+        prep = mc.MF_PREP * bool(prep) | mc.MF_ARENA
+        for s, nr in zip(subops, n_real):
+            if s[0] == "t":
+                _, hh, hv, h_arr, h_sl = s
+                self.units.append(dict(
+                    uw=bwp, uh=bhp, ref=pl, B=h_arr[1][0], n_real=nr,
+                    desc=h_arr[0], ys=h_sl[0], dst=off, dstn=n,
+                    flags=prep | mc.MF_H * hh | mc.MF_V * hv |
+                    mc.MF_DESC16 * _narrow(h_arr) |
+                    mc.MF_YS16 * _narrow(h_sl)))
+            elif s[0] == "s":
+                _, sid, uw, uh, h_rows, h_base = s
+                assert len(h_rows) == len(h_base) == 2, "scaled: int32 rows"
+                self.scaled.append(dict(
+                    uw=uw, uh=uh, ref=sid, B=h_rows[1][0], n_real=nr,
+                    desc=h_rows[0], ys=h_base[0], dst=off, dstn=n,
+                    row_w=bwp, flags=prep,
+                    steps=mc.mc_steps(self.prog.array(h_rows)[:nr])))
+        return off
+
+    def op(self, *rec, n_real):
+        self.prog.op(*rec)
+        kind = rec[0]
+        if kind == "put":
+            _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
+            self.units.append(dict(
+                uw=uw, uh=uh, ref=pl, plane=pl, B=h_arr[1][0],
+                n_real=n_real, desc=h_arr[0], ys=h_ys[0], xs=h_xs[0],
+                flags=mc.MF_H * hh | mc.MF_V * hv |
+                mc.MF_DESC16 * _narrow(h_arr) | mc.MF_YS16 * _narrow(h_ys) |
+                mc.MF_XS16 * _narrow(h_xs)))
+        elif kind == "scaled":
+            _, pl, sid, uw, uh, h_rows, h_ys, h_xs = rec
+            assert len(h_rows) == len(h_ys) == len(h_xs) == 2, \
+                "scaled: int32 descriptors"
+            rows = self.prog.array(h_rows)[:n_real]
+            self.scaled.append(dict(
+                uw=uw, uh=uh, ref=sid, plane=pl, B=h_rows[1][0],
+                n_real=n_real, desc=h_rows[0], ys=h_ys[0], xs=h_xs[0],
+                flags=0, steps=mc.mc_steps(rows)))
+        elif kind == "comp":
+            _, pl, bwp, bhp, N, sides = rec[:6]
+            self.offsets.append(tuple(
+                self._slots(pl, side, nr, N, bhp, bwp, True)
+                for side, nr in zip(sides, n_real)))
+        elif kind == "obmc":
+            _, pl, lh, lw, _, _, nL, subops = rec[:8]
+            self.offsets.append((self._slots(pl, subops, n_real, nL, lh,
+                                             lw, False),))
+        else:
+            raise ValueError(f"McRun: not an MC record: {kind!r}")
+
+    def close(self):
+        """Insert the arena and run records where the MC records start."""
+        recs = []
+        if self.offsets:
+            recs.append(("mcarena", self.arena, tuple(self.offsets)))
+        for kind, entries, scaled in (("mcurun", self.units, False),
+                                      ("mcsrun", self.scaled, True)):
+            if entries:
+                table, work = mc.mc_build_table(scaled, entries)
+                recs.append((kind, self.prog.emit(table), work))
+        self.prog.ops[self.at:self.at] = recs
+
+
 def download_views(ts):
     """numpy copies of device tensors: one host copy for each base tensor
     that they view (an itxrun's flat hres output), sliced on the host."""
@@ -301,9 +413,9 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("hpx", "puthv_x", "put", "warp", "scaled", "comp", "obmc",
-           "residmc", "residc", "hresmc", "hresc", "itxrun", "dbk", "snap",
-           "cdef",
+HANDLED = ("mcarena", "mcurun", "mcsrun", "hpx", "puthv_x", "put", "warp",
+           "scaled", "comp", "obmc", "residmc", "residc", "hresmc", "hresc",
+           "itxrun", "dbk", "snap", "cdef",
            "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
            "resrawmc", "resrawc", "intrascan", "crop")
 
@@ -322,16 +434,45 @@ LATER = {
 }
 
 
+def _mc_needs(rec):
+    """{run kind: entries} that a unit MC record needs: a put or scaled
+    record one, a comp or obmc record one a "t" or "s" sub-op."""
+    kind = rec[0]
+    if kind in ("put", "scaled"):
+        return {"mcurun" if kind == "put" else "mcsrun": 1}
+    subs = rec[5][0] + rec[5][1] if kind == "comp" else rec[7]
+    return {"mcurun": sum(s[0] == "t" for s in subs),
+            "mcsrun": sum(s[0] == "s" for s in subs)}
+
+
+MC_KINDS = ("put", "scaled", "comp", "obmc")
+MC_RUNS = ("mcarena", "mcurun", "mcsrun")
+
+
 def check_ops(ops):
     """Raise NotImplementedError for the first op this executor lacks, and
     ValueError unless each run of residual bucket records is followed
-    directly by the itxrun record that covers it."""
+    directly by the itxrun record that covers it, and unless the frame's
+    put, scaled, "t" and "s" work is covered by the mcurun and mcsrun
+    records and its comp and obmc records by the mcarena record, all
+    three (those present) before the first of them."""
     pending = 0
+    need = {"mcurun": 0, "mcsrun": 0, "mcarena": 0}
+    runs = {}
     for rec in ops:
         kind = rec[0]
         if kind not in HANDLED:
             where = LATER.get(kind, "unknown op kind")
             raise NotImplementedError(f"frame op {kind!r}: {where}")
+        if kind in MC_RUNS:
+            if kind in runs or any(need.values()):
+                raise ValueError(f"{kind} after the frame's first unit MC "
+                                 "record, or twice")
+            runs[kind] = rec
+        elif kind in MC_KINDS:
+            for k, n in _mc_needs(rec).items():
+                need[k] += n
+            need["mcarena"] += kind in ("comp", "obmc")
         if kind in RESID_KINDS:
             pending += 1
         elif kind == "itxrun" and rec[3][0] != pending:
@@ -343,6 +484,13 @@ def check_ops(ops):
             pending = 0
     if pending:
         raise ValueError(f"{pending} residual records without itxrun")
+    for kind, n in need.items():
+        rec = runs.get(kind)
+        have = 0 if rec is None else len(rec[2]) if kind == "mcarena" \
+            else rec[2][0]
+        if have != n:
+            raise ValueError(f"{kind} of {have} entries for {n} unit MC "
+                             f"records or sub-ops")
 
 
 def execute_program(sig, desc, desc16, desc8, refsrc):
@@ -355,17 +503,13 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     check_ops(ops)
     dev = desc.device
 
-    def view(h):
-        """The descriptor slice as stored: int32, or int16/int8 from the
-        narrow side buffers (emit16/emit8). The MC unit kernels read
-        int16 in place."""
+    def get(h):
+        """The descriptor slice as int32: from the int32 buffer, or
+        widened from the narrow side buffers (emit16/emit8)."""
         off, shape = h[0], h[1]
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
         src = desc if len(h) == 2 else desc16 if h[2] == 16 else desc8
-        return src[off:off + n].reshape(shape)
-
-    def get(h):
-        t = view(h)
+        t = src[off:off + n].reshape(shape)
         return t if len(h) == 2 else t.to(torch.int32)
 
     refs = []
@@ -388,37 +532,41 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     hres = []
     # residuals fit int16 at 8 bpc (dav1d's own coef type)
     hres_t = torch.int16 if bd == 8 else torch.int32
+    arena = None      # the comp sides' and OBMC laps' slot buffers
+    slot_offs = iter(())
 
-    def side_tmp(pl, bwp, bhp, N, subops, prep):
+    def side_tmp(pl, bwp, bhp, N, subops, prep, off):
         """(N, bhp, bwp) slot batch of one compound side or one OBMC lap
-        bucket: whole-block translational units ("t"), 8x8 warp units
-        ("w") and units from a scaled reference ("s")."""
-        tmp = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
+        bucket, at `off` in the arena: the mcurun and mcsrun records have
+        written its whole-block translational units ("t") and its units
+        from a scaled reference ("s"); its 8x8 warp units ("w") go in
+        here."""
+        tmp = arena[off:off + N * bhp * bwp].view(N, bhp, bwp)
         for s in subops:
-            if s[0] == "t":
-                _, hh, hv, h_arr, h_sl = s
-                mcu_cuda.mc_units_slots(tmp, refs[pl], view(h_arr),
-                                        view(h_sl), hh, hv, bd, prep)
-            elif s[0] == "w":
+            if s[0] == "w":
                 _, h_rows, h_base = s
                 out = warp8x8_batch(refs[pl], get(h_rows), bd, prep)
                 scatter_slot_units(tmp, get(h_base), out, 8, 8, bwp)
-            else:   # "s"
-                _, sid, uw, uh, h_rows, h_base = s
-                mcu_cuda.mc_scaled_slots(tmp, srefs[sid], view(h_rows),
-                                         view(h_base), uw, uh, bd, prep)
         return tmp
 
     for rec in ops:
         kind = rec[0]
-        if kind == "hpx":
+        if kind == "mcarena":
+            arena = torch.zeros(rec[1], dtype=torch.int32, device=dev)
+            slot_offs = iter(rec[2])
+        elif kind == "mcurun":
+            _, h_tab, work = rec
+            mcu_cuda.mc_units_run(get(h_tab), work, desc, desc16, planes,
+                                  refs, arena, bd)
+        elif kind == "mcsrun":
+            _, h_tab, work = rec
+            mcu_cuda.mc_scaled_run(get(h_tab), work, desc, planes, srefs,
+                                   arena, bd)
+        elif kind in ("put", "scaled"):
+            pass    # run by the mcurun / mcsrun record before them
+        elif kind == "hpx":
             _, pl, cid, h_combos = rec
             hp[cid] = mc_cuda.mc_hplanes(refs[pl], get(h_combos), bd)
-        elif kind == "put":
-            _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
-            mcu_cuda.mc_units_plane(planes[pl], refs[pl], view(h_arr),
-                                    view(h_ys), view(h_xs), uw, uh, hh, hv,
-                                    bd)
         elif kind == "puthv_x":
             (_, pl, uw, uh, cid, h_slot, h_oy, h_ox, h_my, h_tv,
              h_ys, h_xs) = rec
@@ -431,13 +579,10 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             _, pl, h_rows, h_ys, h_xs = rec
             out = warp8x8_batch(refs[pl], get(h_rows), bd, False)
             scatter_units(planes[pl], out, get(h_ys), get(h_xs), 8, 8)
-        elif kind == "scaled":
-            _, pl, sid, uw, uh, h_rows, h_ys, h_xs = rec
-            mcu_cuda.mc_scaled_plane(planes[pl], srefs[sid], view(h_rows),
-                                     view(h_ys), view(h_xs), uw, uh, bd)
         elif kind == "comp":
             (_, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx) = rec
-            tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True)
+            offs = next(slot_offs)
+            tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True, offs[i])
                     for i in (0, 1)]
             out = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
             for j in joins:
@@ -467,7 +612,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             scatter_units(planes[pl], out, get(h_dy), get(h_dx), bhp, bwp)
         elif kind == "obmc":
             _, pl, lh, lw, region, vert, nL, subops, h_ys, h_xs = rec
-            lap = side_tmp(pl, lw, lh, nL, subops, False)
+            lap = side_tmp(pl, lw, lh, nL, subops, False,
+                           next(slot_offs)[0])
             obmc_blend_batch(planes[pl], lap, get(h_ys), get(h_xs), lh, lw,
                              region, vert)
         elif kind in RESID_KINDS:
@@ -581,11 +727,12 @@ def run_frame_program(prog: FrameProgram, refsrc, device):
 # ---------------------------------------------------------------------
 # pack helper shared with the planner (models/inter)
 # ---------------------------------------------------------------------
-def pack_put_case(prog: FrameProgram, pl, key, arr):
+def pack_put_case(prog: FrameProgram, pl, key, arr, run: McRun = None):
     """One translational-put bucket. arr: pow2-padded (B, 8) rows
-    (ref, oy, ox, mx, my, f2d, dst_y, dst_x) with PAD_OOB dst_y pads.
-    All columns ride the int16 side (coords < 8K, the dst_y OOB sentinel
-    narrowed to OOB16)."""
+    (ref, oy, ox, mx, my, f2d, dst_y, dst_x) with PAD_OOB dst_y pads
+    after its real rows. All columns ride the int16 side (coords < 8K,
+    the dst_y OOB sentinel narrowed to OOB16). A ``put`` record goes
+    through `run` (the frame's McRun), when given."""
     uw, uh, has_h, has_v = key
     h_ys = emit_ys16(prog, arr[:, 6])
     h_xs = prog.emit16(arr[:, 7])
@@ -598,5 +745,9 @@ def pack_put_case(prog: FrameProgram, pl, key, arr):
                 prog.emit16(arr[:, 1]), prog.emit16(ox),
                 prog.emit16(arr[:, 4]), prog.emit16(tv), h_ys, h_xs)
     else:
-        prog.op("put", pl, uw, uh, bool(has_h), bool(has_v),
-                prog.emit16(arr[:, :6]), h_ys, h_xs)
+        rec = ("put", pl, uw, uh, bool(has_h), bool(has_v),
+               prog.emit16(arr[:, :6]), h_ys, h_xs)
+        if run is None:
+            prog.op(*rec)
+        else:
+            run.op(*rec, n_real=int(np.sum(arr[:, 6] != PAD_OOB)))

@@ -631,7 +631,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
         refspec.append(((h_vis, w_vis), tuple(slots)))
 
     # --- pack the whole device pixel stage into one program ---
-    from .frame_exec import (FrameProgram, ItxRun, compact_cf,
+    from .frame_exec import (FrameProgram, ItxRun, McRun, compact_cf,
                              pack_put_case)
     sref_idx = {k: i for i, k in enumerate(sref_keys)}
     prog = FrameProgram(
@@ -639,6 +639,11 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
         [] if intra_frame else [p.shape for p in bufs.planes],
         refspec, srefspec,
         out_dtype=None if intra_frame else bufs.planes[0].dtype)
+
+    # the frame's unit MC work lists (McRun): its put and scaled records
+    # and the "t" and "s" sub-ops of its comp and obmc records, n_real
+    # the rows before their pad rows
+    mcr = McRun(prog)
 
     # translational put batches
     for pl in range(0 if intra_frame else n_planes):
@@ -649,7 +654,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                 [varr, np.asarray(got, np.int32).reshape(-1, 8)]))
         for key in sorted(merged_put):
             arr = np.asarray(merged_put[key], np.int32).reshape(-1, 8)
-            pack_put_case(prog, pl, key, _pad_rows(arr, 6))
+            pack_put_case(prog, pl, key, _pad_rows(arr, 6), mcr)
 
     # warp put batches
     for pl in range(0 if intra_frame else n_planes):
@@ -675,8 +680,9 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                           True, P)
             xs = _pad_vec(np.asarray([x for _, _, x in lst], np.int32),
                           False, P)
-            prog.op("scaled", pl, sref_idx[(pl, ref_i)], uw, uh,
-                    prog.emit(rows), prog.emit(ys), prog.emit(xs))
+            mcr.op("scaled", pl, sref_idx[(pl, ref_i)], uw, uh,
+                   prog.emit(rows), prog.emit(ys), prog.emit(xs),
+                   n_real=len(lst))
 
     # compound batches (luma first: seg chroma masks derive from the
     # luma preps)
@@ -699,7 +705,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                 for row, uw, uh, sy, sx in payload:
                     sunits.setdefault((uw, uh, row[0]), []).append(
                         (slot, row, sy, sx))
-        subops = []
+        subops, n_real = [], []
         for (hh, hv), lst in sorted(tcases.items()):
             P = _p2(len(lst))
             arr = _pad_rows(np.asarray([u[:6] for _, u in lst], np.int32),
@@ -708,6 +714,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                              False, P)
             subops.append(("t", bool(hh), bool(hv), prog.emit(arr),
                            prog.emit(slots)))
+            n_real.append(len(lst))
         if wunits:
             P = _p2(len(wunits))
             rows = _pad_rows(np.asarray([r for _, r, _, _ in wunits],
@@ -716,6 +723,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                 [s * bhp * bwp + sy * bwp + sx
                  for s, _, sy, sx in wunits], np.int32), False, P)
             subops.append(("w", prog.emit(rows), prog.emit(base)))
+            n_real.append(len(wunits))
         for (uw, uh, ref_i), lst in sorted(sunits.items()):
             P = _p2(len(lst))
             rows = np.asarray([r for _, r, _, _ in lst], np.int32)
@@ -726,7 +734,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                  for s, _, sy, sx in lst], np.int32), False, P)
             subops.append(("s", sref_idx[(pl, ref_i)], uw, uh,
                            prog.emit(rows), prog.emit(base)))
-        return tuple(subops)
+            n_real.append(len(lst))
+        return tuple(subops), tuple(n_real)
 
     for pl in range(0 if intra_frame else n_planes):
         ssh = ss_hor if pl else 0
@@ -742,8 +751,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
             group = group + [dict(last, dst=(PAD_OOB, 0))
                              for _ in range(npad)]
             N = len(group)
-            sides = tuple(_pack_side(pl, bwp, bhp, group, i, ssh, ssv)
-                          for i in (0, 1))
+            sides, side_n = zip(*(_pack_side(pl, bwp, bhp, group, i, ssh,
+                                             ssv) for i in (0, 1)))
 
             joins = []
             idx_by_kind = {}
@@ -790,8 +799,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                                         np.int32))
             h_dx = prog.emit(np.asarray([e["dst"][1] for e in group],
                                         np.int32))
-            prog.op("comp", pl, bwp, bhp, N, sides, tuple(joins),
-                    ss_hor, ss_ver, h_dy, h_dx)
+            mcr.op("comp", pl, bwp, bhp, N, sides, tuple(joins), ss_hor,
+                   ss_ver, h_dy, h_dx, n_real=side_n)
 
     # OBMC lap batches (after ALL puts; top phase, then left)
     for phase in (0, 1):
@@ -811,7 +820,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                             (slot, row[:6]))
                     else:
                         sunits.setdefault(row[0], []).append((slot, row))
-                subops = []
+                subops, n_real = [], []
                 for (hh, hv), l2 in sorted(tcases.items()):
                     P = _p2(len(l2))
                     arr = _pad_rows(np.asarray([u for _, u in l2],
@@ -820,6 +829,7 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                                                 np.int32), False, P)
                     subops.append(("t", bool(hh), bool(hv),
                                    prog.emit(arr), prog.emit(slots)))
+                    n_real.append(len(l2))
                 for ref_i, l2 in sorted(sunits.items()):
                     P = _p2(len(l2))
                     rows = np.asarray([r for _, r in l2], np.int32)
@@ -831,13 +841,15 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                                                np.int32), False, P)
                     subops.append(("s", sref_idx[(pl, ref_i)], lw, lh,
                                    prog.emit(rows), prog.emit(base)))
+                    n_real.append(len(l2))
                 h_ys = prog.emit(np.asarray([d[0] for _, _, d in lst],
                                             np.int32))
                 h_xs = prog.emit(np.asarray([d[1] for _, _, d in lst],
                                             np.int32))
-                prog.op("obmc", pl, lh, lw,
-                        region if phase == 0 else lw, phase == 1, nL,
-                        tuple(subops), h_ys, h_xs)
+                mcr.op("obmc", pl, lh, lw, region if phase == 0 else lw,
+                       phase == 1, nL, tuple(subops), h_ys, h_xs,
+                       n_real=tuple(n_real))
+    mcr.close()
 
     # --- residual inverse transforms, ALL blocks ---
     # Device-covered inter blocks scatter-add straight onto the plane

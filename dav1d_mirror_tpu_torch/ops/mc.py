@@ -21,6 +21,13 @@ blend (``obmc_blend_batch``). Blocks whose reference has another size
 than the frame run ``mc_scaled_batch``; super-resolution upscales a plane
 with ``resize_plane``.
 
+``mc_units_plane`` / ``mc_units_slots`` / ``mc_scaled_plane`` /
+``mc_scaled_slots`` run one bucket with its destination write, and
+``mc_units_run`` / ``mc_scaled_run`` a frame's work list of them
+(``mc_build_table``): the plain versions of the unit MC kernels
+``csrc/mc_units.cu`` and ``csrc/mc_scaled.cu`` (wrappers in
+``ops/mcu_cuda.py``).
+
 Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224, avg:589,
 w_avg:604, mask:620, w_mask:683, warp_affine_8x8:758 / 8x8t:793,
 blend_v:655 / blend_h:668, put/prep_8tap_scaled:172/287, resize:877.
@@ -590,6 +597,197 @@ def mc_scaled_slots(buf, ref_stack, rows, base, uw: int, uh: int,
     out = mc_scaled_batch(ref_stack, rows, uw, uh, 2 * uw + 10,
                           2 * uh + 10, bitdepth, prep)
     return scatter_slot_units(buf, base, out, uh, uw, buf.shape[2])
+
+
+# ---------------------------------------------------------------------
+# the unit MC work lists: the table of csrc/mc_units.cu and
+# csrc/mc_scaled.cu, and their plain versions. One entry a bucket (a put
+# or scaled record, or a "t" or "s" sub-op of a compound side or an OBMC
+# lap); its units are read from the frame's descriptor buffers in place.
+# ---------------------------------------------------------------------
+# the int32 fields of an entry: unit width and height, flags, reference
+# (mc_units: the plane's reference stack; mc_scaled: the srefspec view),
+# destination plane, rows B (pad rows included) and real rows (the first
+# n_real), offsets of the descriptor rows, of ys (a plane's rows, a
+# slot, or an "s" unit's flat base) and of xs, the slot buffer's offset
+# in the arena and its elements, its row width ("s"), units an item, the
+# entry's first item, and (mc_scaled) its real rows' largest steps,
+# dx | dy << 12, 0 if not known (64 bytes an entry)
+(M_UW, M_UH, M_FLAGS, M_REF, M_PLANE, M_B, M_NREAL, M_DESC, M_YS, M_XS,
+ M_DST, M_DSTN, M_ROWW, M_G, M_ITEM0, M_STEPS) = range(16)
+MENTRY = 16
+# M_FLAGS bits: H pass, V pass, prep, the arena as destination, rows, ys
+# and xs in the int16 buffer (else the int32 one)
+MF_H, MF_V, MF_PREP, MF_ARENA, MF_DESC16, MF_YS16, MF_XS16 = (
+    1, 2, 4, 8, 16, 32, 64)
+# the geometry both kernels share (csrc/mc_units.cu MU_*, mc_scaled.cu
+# MS_*): tiles of at most MC_TILE x MC_TILE outputs, at most MC_MAX_G
+# units and MC_MAX_OUT outputs an item, a unit's side at most MC_MAX_SIDE
+# (16 tiles), and the windows of one item in at most MC_STAGE_INTS ints
+# of shared memory unless one unit's tile needs more
+MC_TILE, MC_MAX_G, MC_MAX_OUT, MC_MAX_SIDE, MC_STAGE_INTS = (
+    32, 64, 2048, 128, 6144)
+
+
+def mc_steps(rows):
+    """The M_STEPS field of scaled rows (B, 9): their largest steps,
+    dx | dy << 12 (AV1 keeps both in 1..2048)."""
+    if not len(rows):
+        return 0
+    dx, dy = int(rows[:, 5].max()), int(rows[:, 6].max())
+    if not (0 < dx < 4096 and 0 < dy < 4096):
+        return 0
+    return dx | dy << 12
+
+
+def _reach(n, step):
+    """Region rows (columns) that n outputs' phases reach at `step`: from
+    the first phase's to the last phase's eighth tap; 2 n + 8 at most,
+    and for a step not known (0) (csrc/mc_scaled.cu reach)."""
+    if not step:
+        return 2 * n + 8
+    return min(2 * n + 8, ((n - 1) * step + 1023 >> 10) + 8)
+
+
+def mc_geometry(scaled: bool, uw: int, uh: int, has_h=True, has_v=True,
+                steps=0):
+    """(tiles, units an item G, window ints a unit, mid ints a unit) of a
+    bucket of (uw, uh) units. A tile's window: mc_units (th + 7) x (tw +
+    7) with H and V (no apron on an axis without its pass), mid
+    (th + 7) x tw with both; mc_scaled the reference region its phases
+    reach at the entry's largest steps (M_STEPS), (2 th + 8) x (2 tw + 8)
+    under AV1's steps when they are not known, mid as many rows of tw."""
+    if not (1 <= uw <= MC_MAX_SIDE and 1 <= uh <= MC_MAX_SIDE):
+        raise ValueError(f"unit {uw}x{uh}: sides 1..{MC_MAX_SIDE}")
+    tw, th = min(uw, MC_TILE), min(uh, MC_TILE)
+    tiles = -(-uw // tw) * -(-uh // th)
+    if scaled:
+        mr = _reach(th, steps >> 12)
+        win, mid = mr * _reach(tw, steps & 4095), mr * tw
+    else:
+        wh, ww = th + 7 * bool(has_v), tw + 7 * bool(has_h)
+        win, mid = wh * ww, wh * tw if has_h and has_v else 0
+    g = min(MC_MAX_G, max(1, MC_MAX_OUT // (tw * th)),
+            max(1, MC_STAGE_INTS // win))
+    return tiles, g, win, mid
+
+
+def mc_build_table(scaled: bool, entries):
+    """The work list of one run. entries: dicts of uw, uh, flags, ref,
+    plane, B, n_real, desc, ys, xs, dst, dstn, row_w, steps (offsets in
+    the descriptor buffers and the arena; absent fields 0). Returns (table,
+    work): the int32 table (MENTRY ints an entry, then two an item:
+    entry * 16 + tile, first unit), the items of each entry together,
+    the largest items first (mc_item_order); work = (entries, items,
+    window ints of a shared-memory stage, mid ints), the last two the
+    largest of the run's items."""
+    tab = np.zeros((len(entries), MENTRY), np.int32)
+    geo = []
+    for i, e in enumerate(entries):
+        fl = e["flags"]
+        geo.append(mc_geometry(scaled, e["uw"], e["uh"], fl & MF_H,
+                               fl & MF_V, e.get("steps", 0)))
+        for f, k in ((M_UW, "uw"), (M_UH, "uh"), (M_FLAGS, "flags"),
+                     (M_REF, "ref"), (M_PLANE, "plane"), (M_B, "B"),
+                     (M_NREAL, "n_real"), (M_DESC, "desc"), (M_YS, "ys"),
+                     (M_XS, "xs"), (M_DST, "dst"), (M_DSTN, "dstn"),
+                     (M_ROWW, "row_w"), (M_STEPS, "steps")):
+            tab[i, f] = e.get(k, 0)
+        if not 0 <= e["n_real"] <= e["B"]:
+            raise ValueError(f"entry {i}: n_real {e['n_real']} of B "
+                             f"{e['B']}")
+        tab[i, M_G] = geo[-1][1]
+    order = sorted(range(len(entries)), key=lambda i: (
+        mc_item_order(entries[i], geo[i][1]), i))
+    items = []
+    stage = mid = 0
+    for i in order:
+        tiles, g, win, m = geo[i]
+        n = entries[i]["n_real"]
+        tab[i, M_ITEM0] = len(items) // 2
+        for u0 in range(0, n, g):
+            items.extend(x for t in range(tiles) for x in (i * 16 + t, u0))
+        if n:
+            stage = max(stage, min(g, n) * win)
+            mid = max(mid, min(g, n) * m)
+    table = np.concatenate([tab.reshape(-1), np.asarray(items, np.int32)])
+    return table, (len(entries), len(items) // 2, stage, mid)
+
+
+def mc_item_order(e, g) -> tuple:
+    """Sort key of an entry's items in the map: the most outputs times
+    passes an item first, so that they start in the kernel's first
+    wave."""
+    fl = e["flags"]
+    out = min(e["uw"], MC_TILE) * min(e["uh"], MC_TILE) * min(
+        g, max(e["n_real"], 1))
+    return (-out * (1 + bool(fl & MF_H) + bool(fl & MF_V)),)
+
+
+def mc_table_entries(tab, n_entries: int):
+    """The entries of a table (a 1-D int32 tensor or array) as lists of
+    MENTRY ints."""
+    flat = np.asarray(tab.cpu() if isinstance(tab, torch.Tensor) else tab)
+    return flat[:n_entries * MENTRY].reshape(n_entries, MENTRY).tolist()
+
+
+def _run_slices(e, desc, desc16):
+    """sl(field, flag, n): the entry's n descriptor values at `field`,
+    from the int16 buffer when its flag is set."""
+    def sl(f, flag, n):
+        src = desc16 if e[M_FLAGS] & flag else desc
+        return src[e[f]:e[f] + n]
+    return sl
+
+
+def mc_units_run(tab, work, desc, desc16, planes, refs, arena,
+                 bitdepth: int):
+    """A work list of translational unit MC buckets, the plain version
+    of the ``csrc/mc_units.cu`` kernel: one ``mc_units_plane`` or
+    ``mc_units_slots`` per table entry, on its real rows. tab: the run's
+    int32 table (mc_build_table); work: its mc_build_table counts;
+    desc/desc16: the int32 and int16 buffers its offsets count from;
+    planes: the destination planes (entry plane i -> planes[i]); refs:
+    the reference stacks (entry ref i -> refs[i]); arena: the frame's
+    flat int32 slot arena. Updates planes and arena in place."""
+    for e in mc_table_entries(tab, work[0]):
+        uw, uh, fl, n, B = (e[M_UW], e[M_UH], e[M_FLAGS], e[M_NREAL],
+                            e[M_B])
+        sl = _run_slices(e, desc, desc16)
+        arr = sl(M_DESC, MF_DESC16, 6 * B).view(B, 6)[:n]
+        ys = sl(M_YS, MF_YS16, B)[:n]
+        hh, hv, prep = bool(fl & MF_H), bool(fl & MF_V), bool(fl & MF_PREP)
+        if fl & MF_ARENA:
+            buf = arena[e[M_DST]:e[M_DST] + e[M_DSTN]].view(-1, uh, uw)
+            mc_units_slots(buf, refs[e[M_REF]], arr, ys, hh, hv, bitdepth,
+                           prep)
+        else:
+            mc_units_plane(planes[e[M_PLANE]], refs[e[M_REF]], arr, ys,
+                           sl(M_XS, MF_XS16, B)[:n], uw, uh, hh, hv,
+                           bitdepth, prep)
+
+
+def mc_scaled_run(tab, work, desc, planes, srefs, arena, bitdepth: int):
+    """A work list of scaled unit MC buckets, the plain version of the
+    ``csrc/mc_scaled.cu`` kernel: one ``mc_scaled_plane`` or
+    ``mc_scaled_slots`` per table entry, on its real rows. srefs: the
+    frame's scaled reference views (entry ref i -> srefs[i]); rows, ys
+    and xs (or the flat bases) in the int32 buffer `desc`; the rest as
+    in mc_units_run."""
+    for e in mc_table_entries(tab, work[0]):
+        uw, uh, fl, n, B = (e[M_UW], e[M_UH], e[M_FLAGS], e[M_NREAL],
+                            e[M_B])
+        sl = _run_slices(e, desc, desc)
+        rows = sl(M_DESC, 0, 9 * B).view(B, 9)[:n]
+        ys = sl(M_YS, 0, B)[:n]
+        prep = bool(fl & MF_PREP)
+        if fl & MF_ARENA:
+            buf = arena[e[M_DST]:e[M_DST] + e[M_DSTN]].view(1, -1, e[M_ROWW])
+            mc_scaled_slots(buf, srefs[e[M_REF]], rows, ys, uw, uh, bitdepth,
+                            prep)
+        else:
+            mc_scaled_plane(planes[e[M_PLANE]], srefs[e[M_REF]], rows, ys,
+                            sl(M_XS, 0, B)[:n], uw, uh, bitdepth, prep)
 
 
 # ---------------------------------------------------------------------

@@ -230,10 +230,11 @@ def _branch_program(rng, bd):
     """A one-plane program with every record the unit MC kernels run:
     three put buckets (copy, H, V; int16 descriptors, OOB16 pad rows), a
     scaled bucket, a compound block batch whose sides are a "t" and an
-    "s" sub-op, and an OBMC lap batch of the same two. The scaled
-    reference is an int32 crop of a wider plane (a strided view)."""
-    from dav1d_mirror_tpu_torch.models.frame_exec import (FrameProgram,
-                                                          pack_put_case)
+    "s" sub-op, and an OBMC lap batch of the same two, gathered into the
+    frame's two work lists by McRun. The scaled reference is an int32
+    crop of a wider plane (a strided view)."""
+    from dav1d_mirror_tpu_torch.models.frame_exec import (
+        FrameProgram, McRun, pack_put_case)
     H, W = 32, 48
     dt = np.uint8 if bd == 8 else np.uint16
     ref = rng.integers(0, 1 << bd, (H, W)).astype(dt)
@@ -241,17 +242,18 @@ def _branch_program(rng, bd):
     prog = FrameProgram(1, bd, [(H, W)],
                         refspec=[((H, W), (0,) + (-1,) * 6)],
                         srefspec=[(1, 2 * H - 5, 2 * W - 3)])
+    run = McRun(prog)
     for k, (uw, uh, hh, hv) in enumerate(((8, 8, 0, 0), (8, 4, 1, 0),
                                           (4, 8, 0, 1))):
         arr = unit_rows(rng, 6, (1, H, W), uw, uh)
         ys, xs = _dst(rng, 8, uw, uh, H, W)
         pack_put_case(prog, 0, (uw, uh, hh, hv), np.concatenate(
-            [_pad_dup(arr), ys[:, None], xs[:, None]], 1))
+            [_pad_dup(arr), ys[:, None], xs[:, None]], 1), run)
     rows = _pad_dup(scaled_rows(rng, 6, sref[None].shape, 8, 8))
     rows[:, 0] = 0
     ys, xs = _dst(rng, 8, 8, 8, H, W)
-    prog.op("scaled", 0, 0, 8, 8, prog.emit(rows), prog.emit(ys),
-            prog.emit(xs))
+    run.op("scaled", 0, 0, 8, 8, prog.emit(rows), prog.emit(ys),
+           prog.emit(xs), n_real=6)
 
     def sides(N, bwp, bhp, uw, uh, hh, hv):
         """A "t" sub-op into slots 0..N-2 and an "s" sub-op into their
@@ -263,25 +265,30 @@ def _branch_program(rng, bd):
         srows = scaled_rows(rng, len(base), sref[None].shape, uw, uh)
         srows[:, 0] = 0
         return (("t", bool(hh), bool(hv), prog.emit(arr), prog.emit(sl)),
-                ("s", 0, uw, uh, prog.emit(srows), prog.emit(base)))
-    t, s = sides(4, 8, 8, 8, 8, 1, 1)
-    t2, s2 = sides(4, 8, 8, 4, 4, 0, 1)
+                ("s", 0, uw, uh, prog.emit(srows), prog.emit(base)),
+                (N - 1, len(base)))
+    t, s, (nt, ns) = sides(4, 8, 8, 8, 8, 1, 1)
+    t2, s2, n2 = sides(4, 8, 8, 4, 4, 0, 1)
     sl = np.arange(8, dtype=np.int32) % 3
-    prog.op("comp", 0, 8, 8, 4, ((t,), (s,)),
-            (("wavg", prog.emit(sl), prog.emit(np.full(8, 8, np.int32))),),
-            1, 1, prog.emit(np.array([0, 8, 16, mc.PAD_OOB], np.int32)),
-            prog.emit(np.array([40, 40, 40, 0], np.int32)))
-    prog.op("obmc", 0, 8, 8, 8, False, 4, (t2, s2),
-            prog.emit(np.array([24, 24, 0, mc.PAD_OOB], np.int32)),
-            prog.emit(np.array([0, 8, 24, 0], np.int32)))
+    run.op("comp", 0, 8, 8, 4, ((t,), (s,)),
+           (("wavg", prog.emit(sl), prog.emit(np.full(8, 8, np.int32))),),
+           1, 1, prog.emit(np.array([0, 8, 16, mc.PAD_OOB], np.int32)),
+           prog.emit(np.array([40, 40, 40, 0], np.int32)),
+           n_real=((nt,), (ns,)))
+    run.op("obmc", 0, 8, 8, 8, False, 4, (t2, s2),
+           prog.emit(np.array([24, 24, 0, mc.PAD_OOB], np.int32)),
+           prog.emit(np.array([0, 8, 24, 0], np.int32)), n_real=n2)
+    run.close()
     return prog, (ref, sref)
 
 
 @pytest.mark.parametrize("bd", [10])
 def test_executor_branches_match_jax_interpreter(bd, monkeypatch):
-    """The executor's put, scaled, t and s branches go through the unit MC
-    wrappers, one call a record or sub-op, and the program's planes equal
-    the JAX interpreter's."""
+    """The executor runs the program's put, scaled, t and s work through
+    the unit MC run wrappers, one call of each a frame (its 3 puts and 2
+    "t" sub-ops in one list, its scaled record and 2 "s" sub-ops in the
+    other; no one-bucket call), and the program's planes equal the JAX
+    interpreter's."""
     from dav1d_mirror_tpu.models import frame_exec as jfe
     from dav1d_mirror_tpu_torch.models import frame_exec as tfe
     rng = np.random.default_rng(40 + bd)
@@ -289,7 +296,7 @@ def test_executor_branches_match_jax_interpreter(bd, monkeypatch):
     sig, desc, desc16, desc8 = prog.finalize()
     calls = {}
     for name in ("mc_units_plane", "mc_units_slots", "mc_scaled_plane",
-                 "mc_scaled_slots"):
+                 "mc_scaled_slots", "mc_units_run", "mc_scaled_run"):
         def spy(*a, _fn=getattr(mcu_cuda, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _fn(*a, **k)
@@ -298,8 +305,9 @@ def test_executor_branches_match_jax_interpreter(bd, monkeypatch):
     assert args[3][1][:2 * 32 - 5, :2 * 48 - 3].stride(0) == 2 * 48 + 6
     planes, _ = tfe.execute_program(sig, *args)
     j_planes, _ = jfe._interpreter(sig)(desc, desc16, desc8, refsrc)
-    assert calls == {"mc_units_plane": 3, "mc_units_slots": 2,
-                     "mc_scaled_plane": 1, "mc_scaled_slots": 2}
+    assert calls == {"mc_units_run": 1, "mc_scaled_run": 1}
+    runs = {r[0]: r[2] for r in sig[0] if r[0] in ("mcurun", "mcsrun")}
+    assert (runs["mcurun"][0], runs["mcsrun"][0]) == (5, 3)
     assert np.array_equal(planes[0].numpy(), np.asarray(j_planes[0]))
     assert planes[0].abs().sum() > 0
 
