@@ -5,11 +5,11 @@
 
 Run from the root of a checkout. It
 
-1. builds the package's kernels (its five CUDA sources: the MC H-plane
-   and V-pass kernels, the translational and scaled unit MC kernels and
-   the inverse transform, one nvcc each, side by side; ``-Xptxas -v``
-   must show no stack frame and no spill in the last three) and its
-   native host library from the checkout's sources;
+1. builds the package's kernels (its seven CUDA sources: the MC H-plane
+   and V-pass kernels, the translational and scaled unit MC kernels, the
+   inverse transform, deblock and CDEF, one nvcc each, side by side;
+   ``-Xptxas -v`` must show no stack frame and no spill in the last
+   five) and its native host library from the checkout's sources;
 2. drives each path through ``Decoder(Settings(device="cuda"))``, each
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that every counter moved
@@ -18,7 +18,10 @@ Run from the root of a checkout. It
    for each program with its work (an mcurun or mcsrun record: the
    frame's put/scaled records and "t"/"s" sub-ops in one work list) and
    never as a one-entry list (the pipelined paths as their serial
-   decodes):
+   decodes), the deblock kernel twice for each dbk record (a pass over a
+   plane each) and the CDEF kernels twice for each cdef record (the
+   direction search, then one filter launch for the frame's planes), both
+   also in the tile-sharded decode:
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -118,6 +121,20 @@ Run from the root of a checkout. It
    launches, with their largest bucket as a one-entry launch; and
    config 2's frame 3 and the super-res path's frame 4 are replayed with
    them and with their plain versions in their place (no plain MC
+   function may run in the kernel route), counting eager ops. The
+   deblock and CDEF kernels are held to ``torch.equal`` with their plain
+   versions (ops/loopfilter.deblock_plane and _apply_pass, ops/cdef.
+   cdef_frame, cdef_filter_plane and cdef_dir) on the synthetic cases of
+   tools/filter_cases (random and conflicting edge maps, bd 8/10/12,
+   luma and chroma of every layout and monochrome, odd sizes, a band's
+   transposed view behind its halo rows, CDEF frames, per-block maps
+   with halo rows, direction searches) and on every path's own largest
+   call of each wrapper; config 2 frame 3's deblock (three planes, six
+   launches) and CDEF (two launches) are timed warm and cold against a
+   byte and operation bound, beside their plain versions' device and
+   wall time, and so are config 4's 4K frame 2's; and config 2's frame 3
+   and config 3's frame 2 filter programs are replayed with the kernels
+   and with the plain versions in their place (no plain deblock or CDEF
    function may run in the kernel route), counting eager ops;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
@@ -247,6 +264,8 @@ CYCLES_PER_MS = 2.0e6        # about the H100's clock; sizes busy waits
 OPS_FRAME = 3                # the steady config 2 frame whose ops are counted
 SR_OPS_FRAME = 4             # the super-res frame (coded 1707 wide) counted
 TOOLS_RUN_FRAME = 2          # the tools frame whose unit MC run is timed
+C3_FILTER_FRAME = 2          # the config 3 frame whose filter ops are counted
+C4_FILTER_FRAME = 2          # the config 4 (4K) frame whose filters are timed
 # the unit MC kernels' synthetic cases: (uw, uh) of translational units
 # (chroma 2-wide and 2-tall, non-square, whole 128x128 blocks) and of
 # scaled ones
@@ -255,7 +274,7 @@ MCU_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
 MCS_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
              (16, 16), (64, 32))
 # the kernel libraries that must build with no stack frame and no spill
-NO_SPILL = {"itx", "mc_units", "mc_scaled"}
+NO_SPILL = {"itx", "mc_units", "mc_scaled", "deblock", "cdef"}
 # record kind -> the unit MC wrapper (ops/mcu_cuda) that runs it as a
 # one-entry list
 MCU_KINDS = {"put": "mc_units_plane", "t": "mc_units_slots",
@@ -267,6 +286,20 @@ MCU_ROW = {"mcurun": "mc_units", "mcsrun": "mc_scaled"}
 # the mixed synthetic runs of the unit MC kernels (tools/mcu_cases): seeds
 # a bit depth
 MCU_RUN_SEEDS = 2
+# deblock and CDEF wrappers (ops/deblock_cuda, ops/cdef_cuda) -> their
+# kernel row; the first two are the ones the frame programs call
+FILTER_FNS = {"deblock_plane": "deblock", "cdef_frame": "cdef",
+              "apply_pass": "deblock", "cdef_filter_plane": "cdef",
+              "cdef_dir": "cdef"}
+# integer operations an edge row of a deblock pass evaluates (the masks
+# and candidate sums of csrc/deblock.cu edge_filter, luma and chroma), a
+# filtered CDEF pixel (twelve constrained taps) and a direction search
+# (64 pixels into eight classes, then the weighted squares): the
+# operation side of the filter kernels' bounds
+DBK_EDGE_OPS = {True: 160, False: 60}
+HALO_ROWS = 8                # parallel/filter_shard.HALO: a band's halo
+CDEF_PIXEL_OPS = 110
+CDEF_DIR_OPS = 900
 # one-entry launches queued a timing, at most (more fill the launch
 # queue, and the host could then not queue ahead of the card)
 QUEUE_LAUNCHES = 300
@@ -282,17 +315,35 @@ def card_line():
 def build_all():
     """Build the native host library (on import) and the CUDA kernels
     (every source side by side, nvcc with -Xptxas -v, to print registers,
-    spills and stack frames). Fails if a kernel of csrc/itx.cu,
-    csrc/mc_units.cu or csrc/mc_scaled.cu has a stack frame or spills."""
+    spills and stack frames). A NO_SPILL library that is up to date is
+    checked on the ptxas lines of the build that made it (cuda_build's
+    saved log), and rebuilt with -v where that log has none. Fails if a
+    kernel of a NO_SPILL library has a stack frame or spills, or if one
+    has no ptxas lines to check."""
     t0 = time.perf_counter()
     from dav1d_mirror_tpu_torch.host import native  # builds on import
     t_native = time.perf_counter() - t0
     from dav1d_mirror_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    logs = cuda_build.build(["-Xptxas", "-v"])
+    flags = ["-Xptxas", "-v"]
+    logs = cuda_build.build(flags)
+    built = sorted(logs)
+    saved = sorted(NO_SPILL - set(logs))
+    for name in saved:
+        path = cuda_build.log_path(name)
+        if os.path.exists(path):
+            with open(path) as f:
+                logs[name] = f.read()
+    unchecked = [n for n in sorted(NO_SPILL)
+                 if "Compiling entry function" not in logs.get(n, "")]
+    if unchecked:
+        logs.update(cuda_build.build(flags, force=unchecked))
+        built += unchecked
     t_cuda = time.perf_counter() - t0
-    print(f"build: cuda kernels {t_cuda:.2f} s ({', '.join(logs) or 'cached'}),"
-          f" native host library {t_native:.2f} s ({native.LIB._name})")
+    print(f"build: cuda kernels {t_cuda:.2f} s (built "
+          f"{', '.join(built) or 'none'}; ptxas lines from saved logs: "
+          f"{', '.join(n for n in saved if n not in built) or 'none'}), "
+          f"native host library {t_native:.2f} s ({native.LIB._name})")
     bad = []
     for name, log in logs.items():
         fn = None
@@ -307,66 +358,87 @@ def build_all():
                 if nums != [0, 0, 0]:
                     bad.append(f"{fn}: {line.strip()}")
     assert not bad, f"stack frame or spills: {bad}"
-    assert NO_SPILL <= set(logs) or not logs, \
-        f"not all of {sorted(NO_SPILL)} were rebuilt with -v: {sorted(logs)}"
+    missing = [n for n in sorted(NO_SPILL)
+               if "Compiling entry function" not in logs.get(n, "")]
+    assert not missing, f"no ptxas lines to check for {missing}"
 
 
-class ItxLog:
-    """Wraps the itx kernel's wrappers to keep, of the calls made inside
-    it, the largest work list of each mode (`runs` {mode: the call's
-    arguments}, largest by work items) and the largest one-entry bucket of
-    each (mode, tx size, one transform type, dense coefficients)
-    (`itx` {key: the call's arguments}); counts stay the wrappers' own.
-    Descriptor buffers, tables, selectors and dense blocks are never
-    written after they are made; the planes are, so only their shapes and
-    dtypes are kept."""
+class CallLog:
+    """Wraps kernel wrappers (`fns`: (module, name) pairs) while inside
+    it, to keep what their calls were given; counts stay the wrappers'
+    own. A subclass's seen(name, args, kwargs) places each call: (store,
+    key, size, make), store the name of one of its dict attributes. Of
+    the calls with one (store, key) the largest by size is kept there, as
+    make() gives it; while `keep` is set, every call is also kept in
+    `kept` [(name, make())]."""
 
-    def __init__(self):
-        from dav1d_mirror_tpu_torch.ops import itx_cuda
-        self.itx_cuda = itx_cuda
-        self.itx = {}
-        self.runs = {}
-        self.add_runs = None   # a list: keep every clip-add run's call
-        self._orig = None
+    def __init__(self, fns):
+        self._orig = [(mod, n, getattr(mod, n)) for mod, n in fns]
+        self._size = {}
+        self.kept = []
+        self.keep = False
 
     def __enter__(self):
-        ib = self._orig = self.itx_cuda.itx_bucket
-        ir = self._orig_run = self.itx_cuda.itx_run
-
-        def rec_ib(mode, vals, pos, sel, tx, bd, plane=None, ys=None,
-                   xs=None, out_dtype=None):
-            key = (mode, tx, not isinstance(sel, tuple), pos is None)
-            kept = self.itx.get(key)
-            if kept is None or vals.shape[0] > kept["vals"].shape[0]:
-                self.itx[key] = dict(
-                    mode=mode, vals=vals, pos=pos, sel=sel, tx=tx, bd=bd,
-                    ys=ys, xs=xs, out_dtype=out_dtype,
-                    plane=None if plane is None else
-                    (tuple(plane.shape), plane.dtype))
-            kw = {} if out_dtype is None else {"out_dtype": out_dtype}
-            return ib(mode, vals, pos, sel, tx, bd, plane, ys, xs, **kw)
-
-        def rec_ir(mode, tab, work, desc, desc16, bd, planes=(),
-                   hres_views=(), hres_dtype=None):
-            call = dict(
-                mode=mode, tab=tab, work=work, desc=desc, desc16=desc16,
-                bd=bd, planes=[(tuple(p.shape), p.dtype) for p in planes],
-                hres_views=hres_views, hres_dtype=hres_dtype)
-            kept = self.runs.get(mode)
-            if kept is None or work[1] > kept["work"][1]:
-                self.runs[mode] = call
-            if mode == "add" and self.add_runs is not None:
-                self.add_runs.append(call)
-            kw = {} if hres_dtype is None else {"hres_dtype": hres_dtype}
-            return ir(mode, tab, work, desc, desc16, bd, planes, hres_views,
-                      **kw)
-        self.itx_cuda.itx_bucket = rec_ib
-        self.itx_cuda.itx_run = rec_ir
+        def wrap(name, fn):
+            def rec(*a, **k):
+                store, key, size, make = self.seen(name, a, k)
+                big = size > self._size.get((store, key), -1)
+                if big or self.keep:
+                    call = make()
+                    if big:
+                        self._size[(store, key)] = size
+                        getattr(self, store)[key] = call
+                    if self.keep:
+                        self.kept.append((name, call))
+                return fn(*a, **k)
+            return rec
+        for mod, n, fn in self._orig:
+            setattr(mod, n, wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        self.itx_cuda.itx_bucket = self._orig
-        self.itx_cuda.itx_run = self._orig_run
+        for mod, n, fn in self._orig:
+            setattr(mod, n, fn)
+
+
+class ItxLog(CallLog):
+    """Keeps, of the itx kernel's wrappers' calls, the largest work list
+    of each mode (`runs` {mode: the call's arguments}, largest by work
+    items) and the largest one-entry bucket of each (mode, tx size, one
+    transform type, dense coefficients) (`itx` {key: the call's
+    arguments}), and, where `add_runs` is a list, every clip-add run's
+    call. Descriptor buffers, tables, selectors and dense blocks are
+    never written after they are made; the planes are, so only their
+    shapes and dtypes are kept."""
+
+    def __init__(self):
+        from dav1d_mirror_tpu_torch.ops import itx_cuda
+        super().__init__([(itx_cuda, "itx_bucket"), (itx_cuda, "itx_run")])
+        self.itx = {}
+        self.runs = {}
+        self.add_runs = None   # a list: keep every clip-add run's call
+
+    def seen(self, name, a, k):
+        return (self._bucket if name == "itx_bucket" else self._run)(*a, **k)
+
+    @staticmethod
+    def _bucket(mode, vals, pos, sel, tx, bd, plane=None, ys=None, xs=None,
+                out_dtype=None):
+        return "itx", (mode, tx, not isinstance(sel, tuple), pos is None), \
+            vals.shape[0], lambda: dict(
+                mode=mode, vals=vals, pos=pos, sel=sel, tx=tx, bd=bd, ys=ys,
+                xs=xs, out_dtype=out_dtype, plane=None if plane is None else
+                (tuple(plane.shape), plane.dtype))
+
+    def _run(self, mode, tab, work, desc, desc16, bd, planes=(),
+             hres_views=(), hres_dtype=None):
+        call = dict(
+            mode=mode, tab=tab, work=work, desc=desc, desc16=desc16, bd=bd,
+            planes=[(tuple(p.shape), p.dtype) for p in planes],
+            hres_views=hres_views, hres_dtype=hres_dtype)
+        if mode == "add" and self.add_runs is not None:
+            self.add_runs.append(call)
+        return "runs", mode, work[1], lambda: call
 
 
 def mcu_unit(kind, dst, rest):
@@ -377,77 +449,95 @@ def mcu_unit(kind, dst, rest):
     return (rest[1], rest[2]) if kind == "s" else (rest[2], rest[3])
 
 
-class McuLog:
-    """Wraps the unit MC kernels' wrappers to keep, of the calls made
-    inside it, the largest work list of each run kind by items (`runs`
-    {run kind (MCU_RUNS): its call}), the runs of the frame being kept
-    (`kept`, while `keep` is set) and the largest one-entry call of each
-    record kind (MCU_KINDS) by outputs (`mcu` {kind: its arguments and
-    its destination's shape}); counts stay the wrappers' own.
-    Destinations are written, so only their shapes and dtypes are kept
-    (and the arena's size); tables and descriptor buffers are cloned (a
-    path may reuse its buffers), references kept as they are (never
-    written after they are made)."""
+class McuLog(CallLog):
+    """Keeps, of the unit MC kernels' wrappers' calls, the largest work
+    list of each run kind by items (`runs` {run kind (MCU_RUNS): its
+    call}), the calls of the frame being kept (`kept`, while `keep` is
+    set; run_kept gives a run kind's) and the largest one-entry call of
+    each record kind (MCU_KINDS) by outputs (`mcu` {kind: its arguments
+    and its destination's shape}). Destinations are written, so only
+    their shapes and dtypes are kept (and the arena's size); tables and
+    descriptor buffers are cloned (a path may reuse its buffers),
+    references kept as they are (never written after they are made)."""
 
     def __init__(self):
         from dav1d_mirror_tpu_torch.ops import mcu_cuda
-        self.mcu_cuda = mcu_cuda
+        self.kind_of = {fn: k for k, fn in (*MCU_KINDS.items(),
+                                            *MCU_RUNS.items())}
+        super().__init__([(mcu_cuda, fn) for fn in self.kind_of])
         self.mcu = {}
         self.runs = {}
-        self.kept = {}
-        self.keep = False
-        self._orig = {k: getattr(mcu_cuda, fn) for k, fn in MCU_KINDS.items()}
-        self._orig_runs = {k: getattr(mcu_cuda, fn)
-                           for k, fn in MCU_RUNS.items()}
 
-    def __enter__(self):
-        def rec_run(kind):
-            fn = self._orig_runs[kind]
+    def seen(self, name, a, k):
+        kind = self.kind_of[name]
+        if kind in MCU_RUNS:
+            tab, work, *rest = a
+            *bufs, planes, refs, arena, bd = rest
+            return "runs", kind, work[1], lambda: dict(
+                tab=tab.clone(), work=work,
+                bufs=tuple(b.clone() for b in bufs),
+                planes=[(tuple(p.shape), p.dtype) for p in planes],
+                refs=list(refs), bd=bd,
+                arena_n=0 if arena is None else arena.numel())
+        dst, ref, desc, *rest = a
+        uw, uh = mcu_unit(kind, dst, rest)
+        size = desc.shape[0] * uw * uh
+        return "mcu", kind, size, lambda: dict(
+            size=size, dst=(tuple(dst.shape), dst.dtype),
+            args=(ref,) + tuple(x.clone() if hasattr(x, "clone") else x
+                                for x in (desc,) + tuple(rest)))
 
-            def rec(tab, work, *rest):
-                *bufs, planes, refs, arena, bd = rest
-                kept = self.runs.get(kind)
-                big = kept is None or work[1] > kept["work"][1]
-                if big or self.keep:
-                    call = dict(
-                        tab=tab.clone(), work=work,
-                        bufs=tuple(b.clone() for b in bufs),
-                        planes=[(tuple(p.shape), p.dtype) for p in planes],
-                        refs=list(refs), bd=bd,
-                        arena_n=0 if arena is None else arena.numel())
-                    if big:
-                        self.runs[kind] = call
-                    if self.keep:
-                        self.kept[kind] = call
-                return fn(tab, work, *rest)
-            return rec
-        for kind, fn in MCU_RUNS.items():
-            setattr(self.mcu_cuda, fn, rec_run(kind))
+    def run_kept(self, kind):
+        """The last call of run kind `kind` kept while `keep` was set."""
+        return [c for n, c in self.kept if n == MCU_RUNS[kind]][-1]
 
-        def rec_mcu(kind):
-            fn = self._orig[kind]
 
-            def rec(dst, ref, desc, *rest):
-                uw, uh = mcu_unit(kind, dst, rest)
-                size = desc.shape[0] * uw * uh
-                kept = self.mcu.get(kind)
-                if kept is None or size > kept["size"]:
-                    self.mcu[kind] = dict(
-                        size=size, dst=(tuple(dst.shape), dst.dtype),
-                        args=(ref,) + tuple(
-                            a.clone() if hasattr(a, "clone") else a
-                            for a in (desc,) + rest))
-                return fn(dst, ref, desc, *rest)
-            return rec
-        for kind, fn in MCU_KINDS.items():
-            setattr(self.mcu_cuda, fn, rec_mcu(kind))
-        return self
+def _clone(v):
+    """Tensors (also inside tuples, lists and dicts) cloned, strides
+    kept."""
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_clone(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _clone(x) for k, x in v.items()}
+    return v
 
-    def __exit__(self, *exc):
-        for kind, fn in MCU_KINDS.items():
-            setattr(self.mcu_cuda, fn, self._orig[kind])
-        for kind, fn in MCU_RUNS.items():
-            setattr(self.mcu_cuda, fn, self._orig_runs[kind])
+
+def _numel(v):
+    return v.numel() if hasattr(v, "numel") else sum(map(_numel, v))
+
+
+def _first(args, kwargs):
+    """A call's first argument, given by position or by name."""
+    return args[0] if args else next(iter(kwargs.values()))
+
+
+def _pass_base(rows, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut, luma,
+               bitdepth, base=0):
+    return base
+
+
+class FilterLog(CallLog):
+    """Keeps, of the deblock and CDEF kernels' wrappers' (FILTER_FNS)
+    calls, the largest of each wrapper by the pixels of its plane or
+    planes (`calls` {wrapper: (args, kwargs)}; apply_pass's of each base,
+    as "apply_pass base N") and every call while `keep` is set (`kept`:
+    [(wrapper, (args, kwargs))]). Arguments are cloned (apply_pass writes
+    its rows, and a path may reuse its buffers)."""
+
+    def __init__(self):
+        from dav1d_mirror_tpu_torch.ops import cdef_cuda, deblock_cuda
+        super().__init__([(deblock_cuda if row == "deblock" else cdef_cuda,
+                           n) for n, row in FILTER_FNS.items()])
+        self.calls = {}
+
+    def seen(self, name, a, k):
+        key = name if name != "apply_pass" else \
+            f"{name} base {_pass_base(*a, **k)}"
+        return "calls", key, _numel(_first(a, k)), \
+            lambda: (_clone(a), _clone(k))
 
 
 class ShapeLog:
@@ -460,9 +550,13 @@ class ShapeLog:
     sub-ops of comp and obmc ops, as "comp t", "comp s", ...) and its
     slot arena's bytes, and the decoder's frame execution to count the
     inter-intra blocks (dd == 2: device put, host blend) it finished and
-    to record each frame's coded and output widths. With keep_frame = i,
-    it keeps frame i's program (the execute_program arguments) as
-    `kept_program` and its unit MC runs' calls as `mcu_kept`."""
+    to record each frame's coded and output widths; the deblock and CDEF
+    wrappers' largest calls (FilterLog's, as `filters`). With
+    keep_frame = i, it keeps frame i's program (the execute_program
+    arguments) as `kept_program` and its unit MC runs' calls (a run
+    kind's by `mcu_kept(kind)`); with keep_filter_frame = i, frame i's
+    filter program (tools/filter_ops.is_filter_program) as
+    `kept_filter` and its deblock and CDEF calls as `filter_kept`."""
 
     def __init__(self, mc_cuda, frame_exec, api, intra=None):
         self._itx_log = ItxLog()
@@ -475,6 +569,11 @@ class ShapeLog:
         self.itx_expected = 0
         self.keep_frame = None
         self.kept_program = None
+        self.keep_filter_frame = None
+        self.kept_filter = None
+        self._filter_log = FilterLog()
+        self.filters = self._filter_log.calls
+        self.filter_kept = self._filter_log.kept
         self.mc_cuda = mc_cuda
         self.frame_exec = frame_exec
         self.api = api
@@ -495,7 +594,7 @@ class ShapeLog:
         self._mcu_log = McuLog()
         self.mcu = self._mcu_log.mcu
         self.mcu_runs = self._mcu_log.runs
-        self.mcu_kept = self._mcu_log.kept
+        self.mcu_kept = self._mcu_log.run_kept
         self.arena = []      # per frame: slot arena bytes
         self.ii_blocks = 0   # inter-intra blocks of the decode
         self.widths = []     # per frame: (coded width, output width)
@@ -511,6 +610,8 @@ class ShapeLog:
         self.scan_ops.append(0)
 
     def __enter__(self):
+        from dav1d_mirror_tpu_torch.tools.filter_ops import \
+            is_filter_program
         hp, vp, ex, ef, ri, scan = self._orig
 
         def rec_ex(sig, *args):
@@ -520,6 +621,11 @@ class ShapeLog:
                     rec[0] in MCU_RUNS for rec in sig[0])
             if keep:
                 self.kept_program = (sig,) + args
+            keep_f = (self.kept_filter is None and
+                      len(self.frame_ops) - 1 == self.keep_filter_frame and
+                      is_filter_program(sig))
+            if keep_f:
+                self.kept_filter = (sig,) + args
             # the program's hpx ops call mc_hplanes in this order
             self._hpx_planes = [rec[1] for rec in sig[0] if rec[0] == "hpx"]
             for rec in sig[0]:
@@ -540,10 +646,12 @@ class ShapeLog:
                 if rec[0] == "mcarena":
                     self.arena[-1] += 4 * rec[1]
             self._mcu_log.keep = keep
+            self._filter_log.keep = keep_f
             try:
                 return ex(sig, *args)
             finally:
                 self._mcu_log.keep = False
+                self._filter_log.keep = False
 
         def rec_ef(built, seq, fhdr, *args):
             self.widths.append(tuple(fhdr.width))
@@ -599,6 +707,7 @@ class ShapeLog:
         self.mc_cuda.mc_unit_batch_hv = rec_vp
         self._mcu_log.__enter__()
         self._itx_log.__enter__()
+        self._filter_log.__enter__()
         self.frame_exec.execute_program = rec_ex
         self.api.execute_frame_program = rec_ef
         self.api.run_intra_frame = rec_ri
@@ -615,6 +724,7 @@ class ShapeLog:
             self.intra.intra_scan = scan
         self._mcu_log.__exit__(*exc)
         self._itx_log.__exit__(*exc)
+        self._filter_log.__exit__(*exc)
 
 
 def op_counter(torch):
@@ -771,9 +881,10 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
     pipelined, serial (both through decode_pipelined, the serial one with
     a frame delay of 1), every pass to the path's md5, both kernel
     counters moving in the first pipelined pass; then pipelined once
-    more, staged, under ItxLog and McuLog. paths: {name: (frames, md5)}.
-    Returns ({name: launches}, {name: ItxLog}, {name: McuLog})."""
-    out, logs, mcu_logs = {}, {}, {}
+    more, staged, under ItxLog, McuLog and FilterLog. paths: {name:
+    (frames, md5)}. Returns ({name: launches}, {name: ItxLog}, {name:
+    McuLog}, {name: FilterLog})."""
+    out, logs, mcu_logs, filter_logs = {}, {}, {}, {}
     for name, settings in PIPELINED:
         frames, md5 = paths[name]
         runs = []
@@ -785,7 +896,8 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
             runs.append((piped, times, launches))
         launches = runs[1][2]
         moved(launches, name)
-        with ItxLog() as logs[name], McuLog() as mcu_logs[name]:
+        with ItxLog() as logs[name], McuLog() as mcu_logs[name], \
+                FilterLog() as filter_logs[name]:
             (ds, _, times_s), split = staged(
                 stages, lambda: decode_pipelined(api, MD5Muxer, frames,
                                                  torch, **settings))
@@ -806,7 +918,7 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
               ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
                         sorted(split.items(), key=lambda kv: -kv[1])))
         out[name] = launches
-    return out, logs, mcu_logs
+    return out, logs, mcu_logs, filter_logs
 
 
 def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
@@ -828,6 +940,7 @@ def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
     assert d == md5, f"{key} md5 {d} != {md5}"
     moved(launches, key)
     one_launch_per_run(shapes, launches, key)
+    filter_launches(shapes, launches, key)
     ran = {k for ops in shapes.frame_ops for k in ops}
     assert set(kinds) <= ran, (key, sorted(ran))
     assert shapes.ii_blocks > 0, f"{key} ran no inter-intra block"
@@ -894,9 +1007,11 @@ def parallel_phase(torch):
     port's Decoder on the card, the band functions on config 2's and
     config 3's first-frame planes and parameters against the
     single-device filters, and the dry run's steps at its shapes (its
-    itx buckets under ItxLog, its unit MC calls under McuLog). Returns
-    (steps, frame checks, ItxLog, McuLog)."""
-    from dav1d_mirror_tpu_torch.ops import itx_cuda, mcu_cuda
+    itx buckets under ItxLog, its unit MC calls under McuLog, its band
+    deblock and CDEF calls under FilterLog). Returns (steps, frame checks,
+    ItxLog, McuLog, FilterLog)."""
+    from dav1d_mirror_tpu_torch.ops import (cdef_cuda, deblock_cuda,
+                                            itx_cuda, mcu_cuda)
     from dav1d_mirror_tpu_torch.parallel import dryrun
     from dav1d_mirror_tpu_torch.parallel.mesh import close_mesh, init_mesh
     with open(os.path.join(TOOLS_DIR, SHARDED_STREAM), "rb") as f:
@@ -905,20 +1020,25 @@ def parallel_phase(torch):
     mesh = init_mesh(1, 0, f"tcp://127.0.0.1:{dryrun.free_port()}", "cuda")
     print(f"parallel: NCCL mesh of world size 1 formed in "
           f"{time.perf_counter() - t0:.2f} s")
-    # the itx and unit MC kernels' launches in the tile-sharded decode
-    sharded_itx, sharded_units = [], []
+    # the itx, unit MC, deblock and CDEF kernels' launches in the
+    # tile-sharded decode
+    sharded_itx, sharded_units, sharded_filters = [], [], []
     real_decode = dryrun.sharded_stream_decode
 
     def counted_decode(*args):
         n0, u0 = itx_cuda.ITX_LAUNCHES, mcu_cuda.UNITS_LAUNCHES
+        d0, c0 = deblock_cuda.DEBLOCK_LAUNCHES, cdef_cuda.CDEF_LAUNCHES
         try:
             return real_decode(*args)
         finally:
             sharded_itx.append(itx_cuda.ITX_LAUNCHES - n0)
             sharded_units.append(mcu_cuda.UNITS_LAUNCHES - u0)
+            sharded_filters.append((deblock_cuda.DEBLOCK_LAUNCHES - d0,
+                                    cdef_cuda.CDEF_LAUNCHES - c0))
     dryrun.sharded_stream_decode = counted_decode
     try:
-        with ItxLog() as itx_log, McuLog() as mcu_log:
+        with ItxLog() as itx_log, McuLog() as mcu_log, \
+                FilterLog() as filter_log:
             steps = dryrun.run_rank(mesh, 1, sharded)
         frame_checks = {}
         for cfg, path in (("config 2", STREAM), ("config 3", STREAM3)):
@@ -931,6 +1051,8 @@ def parallel_phase(torch):
         close_mesh()
     assert sharded_itx and sharded_itx[0] > 0, sharded_itx
     assert sharded_units and sharded_units[0] > 0, sharded_units
+    # the stream deblocks and runs CDEF in every frame
+    assert sharded_filters and min(sharded_filters[0]) > 0, sharded_filters
     st = steps["sharded_stream_decode"]
     want = TOOLS_STREAMS[SHARDED_STREAM]
     assert (st["md5"], st["frames"]) == want, (st, want)
@@ -944,8 +1066,9 @@ def parallel_phase(torch):
           f"{st['md5']} as the JAX host reference and the port's Decoder "
           f"on the card ({st['decoder_md5']}), {st['frames']} frames, "
           f"{st['ms']:.1f} ms tile-sharded against {st['decoder_ms']:.1f} "
-          f"ms through the Decoder; {sharded_itx[0]} itx and "
-          f"{sharded_units[0]} mc_units launches in the tile-sharded "
+          f"ms through the Decoder; {sharded_itx[0]} itx, "
+          f"{sharded_units[0]} mc_units, {sharded_filters[0][0]} deblock "
+          f"and {sharded_filters[0][1]} CDEF launches in the tile-sharded "
           f"decode")
     for k, v in steps.items():
         print(f"parallel step {k}: equal, {v['ms']:.2f} ms")
@@ -960,7 +1083,10 @@ def parallel_phase(torch):
         "the tile-sharded decode ran no dense itx bucket"
     assert "put" in mcu_log.mcu, \
         f"the tile-sharded decode's unit MC calls: {sorted(mcu_log.mcu)}"
-    return steps, frame_checks, itx_log, mcu_log
+    assert {"apply_pass base 0", f"apply_pass base {HALO_ROWS}",
+            "cdef_filter_plane", "cdef_dir"} <= set(filter_log.calls), \
+        sorted(filter_log.calls)
+    return steps, frame_checks, itx_log, mcu_log, filter_log
 
 
 def _event(torch):
@@ -1815,13 +1941,224 @@ def mcu_phase(torch, np, mc, mcu_cuda, owned, scratch, floor_ms):
             ("tools", "mcurun", TOOLS_RUN_FRAME, None),
             ("superres", "mcsrun", SR_OPS_FRAME, "mc_scaled")):
         got = mcu_timed_run(torch, np, mc, mcu_cuda, kind,
-                            owned[path].mcu_kept[kind], scratch,
+                            owned[path].mcu_kept(kind), scratch,
                             f"{path} frame {frame}'s {kind}", rng,
                             plain=name is not None)
         if name:
             rows[name].update(got)
     print(f"  unit MC timings: {time.perf_counter() - t0:.1f} s")
     return [rows["mc_units"], rows["mc_scaled"]]
+
+
+def filter_plain():
+    """{wrapper: its plain version} of FILTER_FNS."""
+    from dav1d_mirror_tpu_torch.ops import cdef, loopfilter
+    return {"deblock_plane": loopfilter.deblock_plane,
+            "apply_pass": loopfilter._apply_pass,
+            "cdef_frame": cdef.cdef_frame,
+            "cdef_filter_plane": cdef.cdef_filter_plane,
+            "cdef_dir": cdef.cdef_dir}
+
+
+def filter_compare(torch, name, args, kwargs):
+    """A deblock or CDEF wrapper and its plain version on copies of one
+    call's arguments (apply_pass writes its rows): torch.equal required.
+    Returns the max abs difference (0)."""
+    from dav1d_mirror_tpu_torch.ops import cdef_cuda, deblock_cuda
+    mod = deblock_cuda if FILTER_FNS[name] == "deblock" else cdef_cuda
+    a_k, a_p = _clone(args), _clone(args)
+    got = getattr(mod, name)(*a_k, **_clone(kwargs))
+    want = filter_plain()[name](*a_p, **_clone(kwargs))
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want)), \
+        f"{name} differs from its plain version"
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0 for g, w in zip(got, want))
+
+
+def _describe(name, args, kwargs):
+    """A call's plane shapes, for a case label."""
+    first = _first(args, kwargs)
+    if isinstance(first, (tuple, list)):
+        return f"planes {', '.join(str(tuple(p.shape)) for p in first)}"
+    return f"plane {tuple(first.shape)} {first.dtype}, strides " \
+        f"{first.stride()}"
+
+
+def deblock_cost(np, args, kwargs):
+    """(bytes, operations) one deblock_plane call needs: the int32 plane
+    read once and the result written once, its six maps and the LUTs
+    read; the active edge rows of both passes evaluate DBK_EDGE_OPS. The
+    kernel's two launches move the plane twice (the vertical pass's
+    output is the horizontal pass's input): that second round trip is
+    the design's, not the function's, and is not counted."""
+    a = list(args) + [kwargs[k] for k in ("luma", "bitdepth")
+                      if k in kwargs]
+    plane, maps, (e_lut, i_lut), luma = a[0], a[1:7], a[7:9], a[9]
+    n_bytes = 2 * 4 * plane.numel() + sum(
+        m.numel() * m.element_size() for m in maps) + \
+        e_lut.numel() * e_lut.element_size() + \
+        i_lut.numel() * i_lut.element_size()
+    ev, eh, lv, lvp, lh, lhp = (m.cpu().numpy() for m in maps)
+    rows = 0
+    # x = 0 has no vertical edge, y = 0 no horizontal one
+    for e, lc, lp, first in ((ev, lv, lvp, (slice(None), 0)),
+                             (eh, lh, lhp, (0, slice(None)))):
+        act = (e >= 0) & (np.where(lc != 0, lc, lp) != 0)
+        act[first] = False
+        rows += 4 * int(act.sum())
+    return n_bytes, rows * DBK_EDGE_OPS[bool(luma)]
+
+
+def cdef_cost(np, args, kwargs):
+    """(bytes, operations) one cdef_frame call needs: each plane read and
+    written once (int32), the maps and strength tables read; every pixel
+    of a block the frame filters (active, with a strength) CDEF_PIXEL_OPS,
+    every 8x8 luma block's direction search CDEF_DIR_OPS."""
+    planes, idx, ns, ys, uvs = args[:5]
+    ssh, ssv, mono = [kwargs[k] for k in ("ss_hor", "ss_ver",
+                                          "monochrome")] \
+        if len(args) == 5 else args[7:10]
+    n = 1 if mono else 3
+    n_bytes = sum(2 * 4 * p.numel() for p in planes[:n]) + sum(
+        t.numel() * t.element_size() for t in (idx, ns, ys, uvs))
+    # the blocks the frame filters, from its maps (cdef_frame's masks)
+    bh4, bw4 = ns.shape
+    h8, w8 = (bh4 + 1) // 2, (bw4 + 1) // 2
+    idx8 = np.repeat(np.repeat(idx.cpu().numpy(), 8, 0), 8, 1)[:h8, :w8]
+    nsp = np.pad(ns.cpu().numpy(), ((0, bh4 % 2), (0, bw4 % 2)))
+    ns8 = nsp.reshape(h8, 2, w8, 2).any(axis=(1, 3))
+    sel = np.maximum(idx8, 0)
+    ly, luv = ys.cpu().numpy()[sel], uvs.cpu().numpy()[sel]
+    valid = (idx8 >= 0) & ns8
+    px = int((valid & (ly > 0)).sum()) * 64
+    if not mono:
+        px += 2 * int((valid & (luv > 0)).sum()) * (64 >> (ssh + ssv))
+    return n_bytes, px * CDEF_PIXEL_OPS + h8 * w8 * CDEF_DIR_OPS
+
+
+def filter_timed(torch, np, name, calls, scratch, label):
+    """A frame's calls of one filter wrapper (deblock_plane: its dbk
+    records; cdef_frame: its cdef record) timed as one unit with the
+    kernels, warm and cold, against the byte and operation bound, and
+    with the plain version (device and wall)."""
+    from dav1d_mirror_tpu_torch.ops import cdef_cuda, deblock_cuda
+    mod = deblock_cuda if name == "deblock_plane" else cdef_cuda
+    fn_k, fn_p = getattr(mod, name), filter_plain()[name]
+
+    def run_k():
+        for a, k in calls:
+            fn_k(*a, **k)
+
+    def run_p():
+        for a, k in calls:
+            fn_p(*a, **k)
+    warm = time_warm(torch, run_k, 50)
+    cold = time_cold(torch, run_k, scratch, 20)
+    plain, plain_wall = time_plain(torch, run_p, 3)
+    cost = deblock_cost if name == "deblock_plane" else cdef_cost
+    n_bytes = n_ops = 0
+    for a, k in calls:
+        b, o = cost(np, a, k)
+        n_bytes += b
+        n_ops += o
+    b_ms, b_by = bound(n_bytes, n_ops)
+    shape = (f"{label}'s {len(calls)} {name} calls "
+             f"({', '.join(_describe(name, a, k) for a, k in calls)})")
+    print(f"  {FILTER_FNS[name]} {shape}: {warm:.5f} ms warm, {cold:.5f} "
+          f"ms cold, plain {plain:.5f} ms device, {plain_wall:.5f} ms "
+          f"wall, bound {b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_ops} "
+          f"ops), {100 * b_ms / warm:.1f}% of bound warm, "
+          f"{100 * b_ms / cold:.1f}% cold")
+    return dict(ms=warm, cold_ms=cold, plain_ms=plain,
+                plain_wall_ms=plain_wall, bound_ms=b_ms, bound_by=b_by,
+                shape=shape)
+
+
+def filter_phase(torch, np, owned, kept, scratch, floor_ms):
+    """The deblock and CDEF kernels against their plain versions on the
+    card (torch.equal): every synthetic case of tools/filter_cases and
+    each path's own largest call of each wrapper (`owned` {path:
+    ShapeLog or FilterLog}). Then times config 2 frame 3's deblock (its
+    three deblock_plane calls, six launches) and CDEF (its cdef_frame
+    call, two launches), the two kernel rows, and the same of config 4's
+    4K frame (`kept` {path: (label, FilterLog kept calls)}; config 4
+    codes no CDEF, so its deblock alone). Returns the two kernel
+    rows."""
+    from dav1d_mirror_tpu_torch.tools import filter_cases
+    dev = torch.device("cuda")
+    rows = {name: dict(name=name, route="cuda", cases=[], max_abs_err=0,
+                       launches=None, library_ms=None, floor_ms=floor_ms)
+            for name in ("deblock", "cdef")}
+    rows["deblock"].update(
+        source="dav1d_mirror_tpu_torch/csrc/deblock.cu",
+        replaces="dav1d_mirror_tpu/ops/loopfilter_tpu.py:236 "
+                 "(deblock_plane_tpu, with _apply_pass :136 and "
+                 "_apply_pass_h :270; XLA on the TPU, not a Pallas "
+                 "kernel)")
+    rows["cdef"].update(
+        source="dav1d_mirror_tpu_torch/csrc/cdef.cu",
+        replaces="dav1d_mirror_tpu/ops/cdef_tpu.py:243 (cdef_frame_tpu, "
+                 "with cdef_dir_tpu :104 and cdef_filter_plane_tpu :146; "
+                 "XLA on the TPU, not a Pallas kernel)")
+    t0 = time.perf_counter()
+    res = filter_cases.check_all(torch, dev)
+    torch.cuda.synchronize()
+    bad = [label for label, ok in res if not ok]
+    assert not bad, f"filter kernels differ from their plain versions: {bad}"
+    for label, _ in res:
+        rows["cdef" if label.startswith("cdef") else "deblock"][
+            "cases"].append(label)
+    print(f"  deblock and CDEF synthetic cases: {len(res)}, all "
+          f"torch.equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_own = 0
+    for path, log in owned.items():
+        calls = log.filters if isinstance(log, ShapeLog) else log.calls
+        for key, (args, kwargs) in sorted(calls.items()):
+            name = key.split()[0]
+            label = (f"{path} own largest {key}: "
+                     f"{_describe(name, args, kwargs)}")
+            row = rows[FILTER_FNS[name]]
+            row["max_abs_err"] = max(row["max_abs_err"], filter_compare(
+                torch, name, args, kwargs))
+            row["cases"].append(label)
+            n_own += 1
+    print(f"  deblock and CDEF own calls: {n_own} on {len(owned)} paths, "
+          f"all torch.equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for path, (label, calls) in kept.items():
+        for name in ("deblock_plane", "cdef_frame"):
+            group = [c for n, c in calls if n == name]
+            assert group or (path, name) == ("config 4", "cdef_frame"), (
+                path, name, "no call kept")
+            if not group:
+                print(f"  {label}: no cdef record, no CDEF timing")
+                continue
+            got = filter_timed(torch, np, name, group, scratch, label)
+            if path == "config 2":
+                rows[FILTER_FNS[name]].update(got)
+    print(f"  deblock and CDEF timings: {time.perf_counter() - t0:.1f} s")
+    return [rows["deblock"], rows["cdef"]]
+
+
+def filter_launches(shapes, launches, name):
+    """The deblock kernel ran twice for each dbk record of the programs
+    (ShapeLog), the CDEF kernels twice for each cdef record, and the path
+    deblocked. Prints both."""
+    ops = {}
+    for fr in shapes.frame_ops:
+        for k, v in fr.items():
+            ops[k] = ops.get(k, 0) + v
+    want = {"deblock": 2 * ops.get("dbk", 0), "cdef": 2 * ops.get("cdef", 0)}
+    got = {k: launches[k] for k in want}
+    assert got == want and got["deblock"] > 0, (
+        name, "filter launches", got, "for records", want)
+    print(f"{name}: deblock and CDEF launches {got}, for {ops.get('dbk', 0)} "
+          f"dbk and {ops.get('cdef', 0)} cdef records")
 
 
 # coefficients at the int16/int32 extremes: the butterflies' products wrap
@@ -2378,56 +2715,20 @@ def itx_phase(torch, np, itx, itx_cuda, frame_exec, owned, scratch,
         shape=shape, one_entry_ms=turns, bucket32=one)
 
 
-def family_ops(torch, frame_exec, wrapped, run):
-    """run() under an op counter that gives each aten op to the op
-    function it ran in: each function of ops/ that frame_exec calls
-    (scatter_units, comp_join_wavg, ...) and the kernel wrappers
-    (`wrapped`: (module, name) pairs); "executor" for the rest
-    (descriptor slices, casts, zeros and stacks of execute_program
-    itself). Returns {family: ops}."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    stack = ["executor"]
-    tally = {}
-
-    class FamilyCount(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            tally[stack[-1]] = tally.get(stack[-1], 0) + 1
-            return func(*args, **(kwargs or {}))
-
-    def wrap(fn, name):
-        def inner(*a, **k):
-            stack.append(name)
-            try:
-                return fn(*a, **k)
-            finally:
-                stack.pop()
-        return inner
-    targets = [(frame_exec, n) for n, o in vars(frame_exec).items()
-               if callable(o) and not isinstance(o, type) and
-               getattr(o, "__module__", "").startswith(
-                   "dav1d_mirror_tpu_torch.ops")]
-    saved = [(mod, n, getattr(mod, n)) for mod, n in targets + wrapped]
-    for mod, n, fn in saved:
-        setattr(mod, n, wrap(fn, n))
-    try:
-        with FamilyCount():
-            run()
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
-    return tally
-
-
 def ops_phase(torch, frame_exec, wrapped, program, swaps, label,
-              forbid=()):
+              forbid=(), kernels=False):
     """A frame's program (a ShapeLog's `kept_program`) replayed on the
     card with the kernels and with the plain versions of `swaps`
     ((module, name, plain function)) in their place (the other kernels
     stay): its wall ms in turns kernel, plain, plain, kernel, then the
-    eager ops each issues by family (family_ops over `wrapped`); the
-    planes and residuals of both equal. The functions of `forbid`
-    ((module, name)) must not run in the kernel route. Returns {route:
-    ({family: ops}, [ms, ms])}."""
+    eager ops each issues by family (tools/filter_ops.family_ops over
+    `wrapped`); the planes and residuals of both equal. The functions of
+    `forbid` ((module, name)) must not run in the kernel route. With
+    `kernels`, also the device ms of the kernels one replay of each route
+    runs (tools/filter_ops.device_ms: summed, and by kernel name).
+    Returns {route: ({family: ops}, [ms, ms][, (ms, {kernel: ms})])}."""
+    from dav1d_mirror_tpu_torch.tools.filter_ops import device_ms, \
+        family_ops
     sig, *args = program
     orig = [getattr(mod, n) for mod, n, _ in swaps]
     calls = {n: 0 for _, n in forbid}
@@ -2468,7 +2769,9 @@ def ops_phase(torch, frame_exec, wrapped, program, swaps, label,
             out.setdefault(route, [None, []])[1].append(ms)
         for route in ("kernel", "plain"):
             use(route)
-            out[route][0] = family_ops(torch, frame_exec, wrapped, run)
+            out[route][0] = family_ops(frame_exec, wrapped, run)
+            if kernels:
+                out[route].append(device_ms(run))
     finally:
         use("kernel")
     assert not any(calls.values()), (label, "kernel route called", calls)
@@ -2481,7 +2784,7 @@ def ops_phase(torch, frame_exec, wrapped, program, swaps, label,
 
 def print_ops(what, label, ops):
     """Print an ops_phase result."""
-    (k_fam, k_ms), (p_fam, p_ms) = ops["kernel"], ops["plain"]
+    (k_fam, k_ms, *_), (p_fam, p_ms, *_) = ops["kernel"], ops["plain"]
     print(f"{what} ops: {label}'s program replayed on the card: "
           f"{sum(k_fam.values())} eager ops with the kernels, "
           f"{sum(p_fam.values())} with the plain version in their place; "
@@ -2489,10 +2792,15 @@ def print_ops(what, label, ops):
           " with the kernels, " + ", ".join(f"{t:.1f}" for t in p_ms) +
           " plain (turns kernel, plain, plain, kernel); equal planes and "
           "residuals")
-    for route, (fams, _) in ops.items():
+    for route, (fams, _, *dev) in ops.items():
         print(f"{what} ops by family, {label}, {route} route: " + ", ".join(
             f"{k} {v}" for k, v in sorted(fams.items(),
                                           key=lambda kv: -kv[1])))
+        if dev:
+            total, by = dev[0]
+            print(f"{what} device ms, {label}, {route} route: {total:.5f} "
+                  f"ms of kernels a replay; the largest: " + ", ".join(
+                      f"{k[:60]} {v:.5f}" for k, v in list(by.items())[:8]))
 
 
 def report_path(name, frames, times, shapes, launches, digests, split,
@@ -2523,9 +2831,11 @@ def report_path(name, frames, times, shapes, launches, digests, split,
 
 def moved(launches, name, scaled=False):
     """Every kernel counter moved in a path's run; the scaled MC kernel's
-    only on a path with scaled references (`scaled`)."""
+    only on a path with scaled references (`scaled`); the deblock and
+    CDEF kernels' as its records ask (filter_launches)."""
     idle = [k for k, v in launches.items()
-            if v <= 0 and (scaled or k != "mc_scaled")]
+            if v <= 0 and (scaled or k != "mc_scaled") and
+            k not in ("deblock", "cdef")]
     assert not idle, (name, idle, launches)
 
 
@@ -2593,7 +2903,9 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
                               ("mc_vpass", "mc_vpass_kernel"),
                               ("mc_units", "mc_units_run_kernel"),
                               ("mc_scaled", "mc_scaled_run_kernel"),
-                              ("itx", "itx_run_kernel"))}
+                              ("itx", "itx_run_kernel"),
+                              ("deblock", "deblock_pass_kernel"),
+                              ("cdef", "cdef_"))}
     per_frame["all kernels"] = sum(e.self_device_time_total
                                    for e in kernels) / 2e3
     for key in ("cuda_time_total", "cpu_time_total"):
@@ -2634,8 +2946,8 @@ def main():
     from dav1d_mirror_tpu_torch.host.demux import open_demuxer
     from dav1d_mirror_tpu_torch.host.ivf import parse_ivf
     from dav1d_mirror_tpu_torch.models import frame_exec, intra
-    from dav1d_mirror_tpu_torch.ops import itx, itx_cuda, mc, mc_cuda, \
-        mcu_cuda
+    from dav1d_mirror_tpu_torch.ops import cdef, cdef_cuda, deblock_cuda, \
+        itx, itx_cuda, loopfilter, mc, mc_cuda, mcu_cuda
     from dav1d_mirror_tpu_torch.output import MD5Muxer
     from dav1d_mirror_tpu_torch.utils import stages
 
@@ -2648,26 +2960,31 @@ def main():
         mcu_cuda.SCALED_LAUNCHES = 0
         itx_cuda.ITX_LAUNCHES = 0
         itx_cuda.ITX_ENTRIES = 0
+        deblock_cuda.DEBLOCK_LAUNCHES = 0
+        cdef_cuda.CDEF_LAUNCHES = 0
         out = run()
         return out, {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
                      "mc_vpass": mc_cuda.VPASS_LAUNCHES,
                      "mc_units": mcu_cuda.UNITS_LAUNCHES,
                      "mc_scaled": mcu_cuda.SCALED_LAUNCHES,
                      "itx": itx_cuda.ITX_LAUNCHES,
-                     "itx entries": itx_cuda.ITX_ENTRIES}
+                     "itx entries": itx_cuda.ITX_ENTRIES,
+                     "deblock": deblock_cuda.DEBLOCK_LAUNCHES,
+                     "cdef": cdef_cuda.CDEF_LAUNCHES}
 
     mark('config 2 path')
     # ---- config 2 path (run first: the kernel phase uses its shapes) ----
     with open(STREAM, "rb") as f:
         _, _, _, frames = parse_ivf(f.read())
     with ShapeLog(mc_cuda, frame_exec, api) as shapes:
-        shapes.keep_frame = OPS_FRAME
+        shapes.keep_frame = shapes.keep_filter_frame = OPS_FRAME
         (digest, n_pics, times), launches = counted(lambda: decode(
             api, MD5Muxer, frames, torch, shapes.on_frame))
     assert n_pics == len(frames) == 9, (n_pics, len(frames))
     assert digest == STREAM_MD5, f"md5 {digest} != {STREAM_MD5}"
     moved(launches, "config 2")
     one_launch_per_run(shapes, launches, "config 2")
+    filter_launches(shapes, launches, "config 2")
     (digest2, _, times2), split = staged(
         stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
@@ -2686,13 +3003,14 @@ def main():
     # tx size, the hybrid's split sparse and dense)
     moved(launches_e, "config 2 engine")
     assert all(launches_e[k] == launches[k]
-               for k in ("mc_hplanes", "mc_vpass", "mc_units")), \
-        (launches_e, launches)
+               for k in ("mc_hplanes", "mc_vpass", "mc_units", "deblock",
+                         "cdef")), (launches_e, launches)
     routes_e = check_engine_routes(shapes_e, "config 2 engine")
     # the keyframe on the engine's own route, and every inter frame
     # eligible (plain intra blocks only) and full-device
     assert routes_e == {"intra": 1, "mixed": 8, "hybrid": 0}, routes_e
     one_launch_per_run(shapes_e, launches_e, "config 2 engine")
+    filter_launches(shapes_e, launches_e, "config 2 engine")
     (d_es, _, times_es), split_e = staged(stages, lambda: decode(
         api, MD5Muxer, frames, torch, intra_engine=True))
     assert d_es == STREAM_MD5, f"engine md5 {d_es} (staged pass)"
@@ -2709,6 +3027,7 @@ def main():
     with open(STREAM3, "rb") as f:
         _, _, _, frames3 = parse_ivf(f.read())
     with ShapeLog(mc_cuda, frame_exec, api) as shapes3:
+        shapes3.keep_filter_frame = C3_FILTER_FRAME
         (d3, n3, times3), launches3 = counted(lambda: decode(
             api, MD5Muxer, frames3, torch, shapes3.on_frame))
     d3_plain, n3_plain, _ = decode(api, MD5Muxer, frames3, torch,
@@ -2719,6 +3038,7 @@ def main():
         f"{CONFIG3_MD5}")
     moved(launches3, "config 3")
     one_launch_per_run(shapes3, launches3, "config 3")
+    filter_launches(shapes3, launches3, "config 3")
     assert any("lrw" in ops for ops in shapes3.frame_ops), \
         "config 3 ran no loop restoration op"
     (d3_staged, _, times3s), split3 = staged(
@@ -2751,6 +3071,7 @@ def main():
     assert d_t == tools_md5, f"tools md5 {d_t} != {tools_md5}"
     moved(launches_t, "tools")
     one_launch_per_run(shapes_t, launches_t, "tools")
+    filter_launches(shapes_t, launches_t, "tools")
     tools_kinds = {k for ops in shapes_t.frame_ops for k in ops}
     assert {"comp", "warp", "obmc"} <= tools_kinds, tools_kinds
     assert shapes_t.ii_blocks > 0, "the tools path ran no inter-intra block"
@@ -2804,6 +3125,7 @@ def main():
     assert d_s == sr_md5, f"super-res md5 {d_s} != {sr_md5}"
     moved(launches_s, "superres", scaled=True)
     one_launch_per_run(shapes_s, launches_s, "superres")
+    filter_launches(shapes_s, launches_s, "superres")
     sr_kinds = {k for ops in shapes_s.frame_ops for k in ops}
     assert {"scaled", "sres", "comp s", "obmc s"} <= sr_kinds, sr_kinds
     assert any(w0 == w1 for w0, w1 in shapes_s.widths) and \
@@ -2882,12 +3204,14 @@ def main():
     with open(STREAM4, "rb") as f:
         _, _, _, frames4 = parse_ivf(f.read())
     with ShapeLog(mc_cuda, frame_exec, api) as shapes4:
+        shapes4.keep_filter_frame = C4_FILTER_FRAME
         (d4, n4, times4), launches4 = counted(lambda: decode(
             api, MD5Muxer, frames4, torch, shapes4.on_frame))
     assert n4 == len(frames4) == 3, (n4, len(frames4))
     assert d4 == CONFIG4_MD5, f"config 4 md5 {d4} != {CONFIG4_MD5}"
     moved(launches4, "config 4")
     one_launch_per_run(shapes4, launches4, "config 4")
+    filter_launches(shapes4, launches4, "config 4")
     (d4s, _, times4s), split4 = staged(
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
     assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"
@@ -2895,18 +3219,21 @@ def main():
     mark('the pipelined paths')
     # ---- the pipelined paths: config 2 and the tools path through the
     # four-stage pipeline, against their serial decodes above ----
-    piped, piped_itx, piped_mcu = pipelined_phase(
+    piped, piped_itx, piped_mcu, piped_filters = pipelined_phase(
         api, MD5Muxer, torch, stages, counted,
         {"config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
-    # the same programs: one unit MC launch a program with its work, as
-    # in the serial decodes
+    # the same programs: one unit MC launch a program with its work, and
+    # the deblock and CDEF launches of their records, as in the serial
+    # decodes
     for name, serial in (("config 2", launches), ("tools", launches_t)):
-        assert all(piped[name][k] == serial[k] for k in MCU_ROW.values()), \
-            (name, "pipelined unit MC launches", piped[name], serial)
+        assert all(piped[name][k] == serial[k] for k in
+                   (*MCU_ROW.values(), "deblock", "cdef")), \
+            (name, "pipelined unit MC and filter launches", piped[name],
+             serial)
 
     mark('the parallel paths at world size 1 on the card')
     # ---- the parallel paths at world size 1 on the card ----
-    _, _, sharded_itx, sharded_mcu = parallel_phase(torch)
+    _, _, sharded_itx, sharded_mcu, sharded_filters = parallel_phase(torch)
 
     mark('2. kernel phase')
     # ---- 2. kernel phase ----
@@ -2936,8 +3263,23 @@ def main():
         torch, np, mc, mcu_cuda, owned,
         torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
         rows[0]["floor_ms"]))
+    mark("the filter phase")
+    rows.extend(filter_phase(
+        torch, np,
+        {"config 2": shapes, "config 3": shapes3, "tools": shapes_t,
+         "config 4": shapes4, "superres": shapes_s, "engine": shapes_e,
+         "pipelined config 2": piped_filters["config 2"],
+         "pipelined tools": piped_filters["tools"],
+         "sharded": sharded_filters,
+         **{key: prof["shapes"] for key, prof in profiles.items()}},
+        {"config 2": (f"config 2 frame {OPS_FRAME}", shapes.filter_kept),
+         "config 4": (f"config 4 frame {C4_FILTER_FRAME} (4K)",
+                      shapes4.filter_kept)},
+        torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
+        rows[0]["floor_ms"]))
     wrapped = [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
-               (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket")] + [
+               (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket"),
+               (deblock_cuda, "deblock_plane"), (cdef_cuda, "cdef_frame")] + [
         (mcu_cuda, fn) for fn in (*MCU_KINDS.values(), *MCU_RUNS.values())]
     c2_label = f"config 2 frame {OPS_FRAME}"
     mark("the ops phases")
@@ -2954,6 +3296,17 @@ def main():
         for label, prog in ((c2_label, shapes.kept_program),
                             (f"super-res frame {SR_OPS_FRAME}",
                              shapes_s.kept_program))}
+    # the deblock and CDEF kernels' plain versions in their place; in the
+    # kernel route no plain deblock or CDEF function may run
+    filter_ops = {label: ops_phase(
+        torch, frame_exec, wrapped, prog,
+        [(deblock_cuda, "deblock_plane", loopfilter.deblock_plane),
+         (cdef_cuda, "cdef_frame", cdef.cdef_frame)], label,
+        [(loopfilter, "deblock_plane"), (loopfilter, "_apply_pass"),
+         (cdef, "cdef_filter_plane"), (cdef, "cdef_dir")], kernels=True)
+        for label, prog in ((f"{c2_label} filter", shapes.kept_filter),
+                            (f"config 3 frame {C3_FILTER_FRAME} filter",
+                             shapes3.kept_filter))}
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
@@ -3001,6 +3354,8 @@ def main():
     print_ops("itx", c2_label, itx_ops)
     for label, ops in mcu_ops.items():
         print_ops("unit MC", label, ops)
+    for label, ops in filter_ops.items():
+        print_ops("filter", label, ops)
 
     mark('3. path reports')
     # ---- 3. path reports ----

@@ -56,7 +56,7 @@ from .host import obu as obu_mod
 from .host.ivf import split_obus
 from .host.native import NativeMsac
 from .host.tilecoder import TileCoder, DecodeSide
-from .models.filters import apply_inloop_filters
+from .models.filters import apply_inloop_filters, download_planes
 from .models.frame_buffers import FrameBuffers, _tile_payload
 from .models.frame_exec import plane_to_torch
 from .models.inter import build_frame_program, execute_frame_program
@@ -477,12 +477,17 @@ class Decoder:
         return self._filter(seq, fhdr, coders, bufs, download)
 
     def _filter(self, seq, fhdr, coders, bufs, download=True):
-        """The in-loop filter chain over a reconstructed frame."""
+        """The in-loop filter chain over a reconstructed frame; with
+        `download`, then the planes' copy to the host, charged to the
+        download stage (as the pipelined decoder's download job is)."""
         with stages.scope("filters", self.device):
-            return apply_inloop_filters(seq, fhdr, coders, bufs,
+            bufs = apply_inloop_filters(seq, fhdr, coders, bufs,
                                         self.device,
-                                        filters_mask=self.s.inloop_filters,
-                                        download=download)
+                                        filters_mask=self.s.inloop_filters)
+        if download:
+            with stages.scope("download"):
+                download_planes(bufs)
+        return bufs
 
     def _download(self, pixel_fut, bufs):
         """Download stage (in order, one job per frame; reference

@@ -151,17 +151,15 @@ def _emit_lr_plane(prog, fhdr, coders, bufs, p):
                     h_ysout, h_eg, h_s0, h_s1, h_w0, h_w1)
 
 
-def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7,
-                         download=True):
+def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
     """Deblock, CDEF, super-resolution and loop restoration over the
     frame's planes on `device`, starting from the device planes the
     reconstruction left (bufs.dev_planes) or from an upload of
     bufs.planes. Returns the frame's final buffers: `bufs`, or for a
     super-res frame new buffers of the upscaled width (fhdr.width[1]).
     Publishes the filtered device planes on their dev_planes (later frames
-    read them as references) and, with `download`, downloads them into
-    their planes (the pipelined decoder leaves that to its download
-    stage)."""
+    read them as references); download_planes copies them to the
+    host."""
     from .frame_exec import FrameProgram, plane_to_torch, run_frame_program
 
     if bufs.dev_planes is not None:
@@ -248,7 +246,11 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7,
     prog.op("out")   # native-dtype planes for the download and the refs
     planes, _ = run_frame_program(prog, tuple(planes_in), device)
     bufs.dev_planes = list(planes)
-    if download:
-        for i, p in enumerate(planes):
-            bufs.planes[i] = p.cpu().numpy().astype(bufs.planes[i].dtype)
     return bufs
+
+
+def download_planes(bufs):
+    """Copy the filtered device planes (bufs.dev_planes) into bufs.planes
+    on the host."""
+    for i, p in enumerate(bufs.dev_planes):
+        bufs.planes[i] = p.cpu().numpy().astype(bufs.planes[i].dtype)

@@ -40,16 +40,19 @@ executor runs all of it there: one launch of each unit MC kernel a
 frame (ops/mcu_cuda.mc_units_run, mc_scaled_run), which writes straight
 into the planes or the arena and reads the descriptors in place (int16
 or int32). It then passes over the ``put`` and ``scaled`` records, and
-runs only the "w" sub-ops of a side batch into its arena slots.
+runs only the "w" sub-ops of a side batch into its arena slots. A
+``dbk`` record runs the deblock kernel (ops/deblock_cuda.deblock_plane:
+a launch for each pass over the plane) and the ``cdef`` record the CDEF
+kernels (ops/cdef_cuda.cdef_frame: the direction search, then one launch
+for the frame's planes).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops import itx, itx_cuda, mc, mc_cuda, mcu_cuda
-from ..ops.cdef import cdef_frame
-from ..ops.loopfilter import deblock_plane
+from ..ops import (cdef_cuda, deblock_cuda, itx, itx_cuda, mc, mc_cuda,
+                   mcu_cuda)
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
 from ..ops.itx_meta import WHT_WHT
 from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
@@ -636,7 +639,7 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
             lvp[:, 1:] = lv[:, :-1]
             lhp = torch.zeros_like(lh)
             lhp[1:, :] = lh[:-1, :]
-            planes[pl] = deblock_plane(
+            planes[pl] = deblock_cuda.deblock_plane(
                 planes[pl], get(h_ev), get(h_eh), lv, lvp, lh, lhp,
                 get(h_el), get(h_il), luma=luma, bitdepth=bd)
         elif kind == "snap":
@@ -664,7 +667,7 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         elif kind == "cdef":
             (_, h_idx, h_ns, h_ystr, h_uvstr, damping, ssh, ssv,
              mono) = rec
-            planes = list(cdef_frame(
+            planes = list(cdef_cuda.cdef_frame(
                 tuple(planes), get(h_idx), get(h_ns) != 0, get(h_ystr),
                 get(h_uvstr), damping=damping, bitdepth=bd, ss_hor=ssh,
                 ss_ver=ssv, monochrome=mono))

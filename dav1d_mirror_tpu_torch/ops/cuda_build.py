@@ -1,12 +1,13 @@
 """Build, load and argument checks shared by the wrappers of the
 hand-written CUDA kernels (``ops/mc_cuda.py``, ``ops/mcu_cuda.py``,
-``ops/itx_cuda.py``).
+``ops/itx_cuda.py``, ``ops/deblock_cuda.py``, ``ops/cdef_cuda.py``).
 
 Every source ``csrc/<name>.cu`` of ``SOURCES`` is compiled with ``nvcc``
 for ``sm_90a`` at first use, one ``nvcc`` per source, run side by side,
 into ``build/kernels/lib<name>.so`` beside this package, and bound through
 ctypes (plain C entry points, no PyTorch headers). A library is rebuilt
-when its source or any ``csrc/*.cuh`` header is newer than it. Each
+when its source or any ``csrc/*.cuh`` header is newer than it; the
+compiler's output is kept beside it as ``lib<name>.log``. Each
 library exports ``<name>_error_string(int)``; its launch functions return
 ``cudaGetLastError()``.
 """
@@ -24,7 +25,8 @@ import torch
 _PKG = os.path.join(os.path.dirname(__file__), os.pardir)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build", "kernels")
-SOURCES = ("mc_hplanes", "mc_vpass", "mc_units", "mc_scaled", "itx")
+SOURCES = ("mc_hplanes", "mc_vpass", "mc_units", "mc_scaled", "itx",
+           "deblock", "cdef")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -52,16 +54,20 @@ def _stale(name):
     return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
-def build(extra_flags=()):
-    """Compile every stale kernel library, all ``nvcc`` runs side by
-    side. Returns {name: compiler output} for the sources it built.
-    Raises if a build fails."""
+def log_path(name):
+    return os.path.join(BUILD, f"lib{name}.log")
+
+
+def build(extra_flags=(), force=()):
+    """Compile every stale kernel library and those named in `force`,
+    all ``nvcc`` runs side by side. Returns {name: compiler output} for
+    the sources it built. Raises if a build fails."""
     os.makedirs(BUILD, exist_ok=True)
     with open(os.path.join(BUILD, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         procs = {}
         for name in SOURCES:
-            if not _stale(name):
+            if not _stale(name) and name not in force:
                 continue
             tmp = f"{so_path(name)}.{os.getpid()}.tmp"
             procs[name] = (tmp, subprocess.Popen(
@@ -75,6 +81,8 @@ def build(extra_flags=()):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
             os.replace(tmp, so_path(name))
+            with open(log_path(name), "w") as f:
+                f.write(out)
             logs[name] = out
         return logs
 

@@ -34,9 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cdef import (MISSING, UV_DIRS_TBL, adjust_strength_v, cdef_dir,
-                        cdef_filter_plane)
-from ..ops.loopfilter import _apply_pass
+from ..ops import cdef_cuda, deblock_cuda
+from ..ops.cdef import MISSING, UV_DIRS_TBL, adjust_strength_v
 from ..ops.looprestoration import wiener_batch
 from .mesh import (all_gather_slabs, axis_info, mesh_device, ppermute,
                    shard_bounds)
@@ -113,7 +112,7 @@ def band_deblock_plane(mesh, plane, edge_v, edge_h, lvl_v, lvl_v_prev,
 
     # vertical pass: row-local (x = 0 has no left neighbour)
     ev[:, 0] = -1
-    _apply_pass(rows, ev, lv, lvp, e_l, i_l, luma, bitdepth)
+    deblock_cuda.apply_pass(rows, ev, lv, lvp, e_l, i_l, luma, bitdepth)
 
     # halo: the previous band's last rows, post-V (band 0 gets zeros and
     # masks its top edge: there is no frame above)
@@ -121,8 +120,8 @@ def band_deblock_plane(mesh, plane, edge_v, edge_h, lvl_v, lvl_v_prev,
     if me == 0:
         eh[0] = -1
     ext = torch.cat([halo, rows], dim=0)
-    _apply_pass(ext.T[:w4 * 4], eh.T, lh.T, lhp.T, e_l, i_l, luma,
-                bitdepth, base=HALO)
+    deblock_cuda.apply_pass(ext.T[:w4 * 4], eh.T, lh.T, lhp.T, e_l, i_l,
+                            luma, bitdepth, base=HALO)
 
     # return the halo delta to the band above; H-edge writes are
     # frame-wide disjoint, so adding deltas is exact
@@ -170,8 +169,9 @@ def band_cdef_plane(mesh, plane, dir_map, pri_map, sec_map, damping,
         top.fill_(MISSING)
     if me == n - 1:
         bot.fill_(MISSING)
-    own = cdef_filter_plane(pl_b, pl_b, dirs, pris, secs, damping, acts,
-                            bitdepth, bw, bh, halo=(top, bot))
+    own = cdef_cuda.cdef_filter_plane(pl_b, pl_b, dirs, pris, secs, damping,
+                                      acts, bitdepth, bw, bh,
+                                      halo=(top, bot))
     out = all_gather_slabs(own, mesh).reshape(-1, own.shape[1])
     return torch.cat([out, tail], dim=0)[:Hp]
 
@@ -236,7 +236,8 @@ def cdef_banded(mesh, seq, fhdr, bufs, planes, cdef_idx_map, noskip):
     uv_sec0 = uv_lvl & 3
     uv_sec = (uv_sec0 + (uv_sec0 == 3)) << bd_m8
 
-    dirm, varm = cdef_dir(planes[0].to(torch.int32), h8, w8, bitdepth)
+    dirm, varm = cdef_cuda.cdef_dir(planes[0].to(torch.int32), h8, w8,
+                                    bitdepth)
     dirm = dirm.cpu().numpy()
     y_adj = adjust_strength_v(torch.as_tensor(y_pri, device=dev),
                               varm).cpu().numpy()
