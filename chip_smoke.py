@@ -18,10 +18,12 @@ Run from the root of a checkout. It
    for each program with its work (an mcurun or mcsrun record: the
    frame's put/scaled records and "t"/"s" sub-ops in one work list) and
    never as a one-entry list (the pipelined paths as their serial
-   decodes), the deblock kernel twice for each dbk record (a pass over a
-   plane each) and the CDEF kernels twice for each cdef record (the
-   direction search, then one filter launch for the frame's planes), both
-   also in the tile-sharded decode:
+   decodes), the deblock kernel once for each dbkrun record (a frame's
+   planes, both passes) and the CDEF kernel once for each cdef record
+   (the direction search and the filter of the frame's planes), both
+   also in the tile-sharded decode (its band functions: a pass launch
+   each way a plane, the direction search and a filter launch a
+   plane):
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -123,19 +125,23 @@ Run from the root of a checkout. It
    them and with their plain versions in their place (no plain MC
    function may run in the kernel route), counting eager ops. The
    deblock and CDEF kernels are held to ``torch.equal`` with their plain
-   versions (ops/loopfilter.deblock_plane and _apply_pass, ops/cdef.
-   cdef_frame, cdef_filter_plane and cdef_dir) on the synthetic cases of
-   tools/filter_cases (random and conflicting edge maps, bd 8/10/12,
-   luma and chroma of every layout and monochrome, odd sizes, a band's
-   transposed view behind its halo rows, CDEF frames, per-block maps
-   with halo rows, direction searches) and on every path's own largest
-   call of each wrapper; config 2 frame 3's deblock (three planes, six
-   launches) and CDEF (two launches) are timed warm and cold against a
-   byte and operation bound, beside their plain versions' device and
-   wall time, and so are config 4's 4K frame 2's; and config 2's frame 3
-   and config 3's frame 2 filter programs are replayed with the kernels
-   and with the plain versions in their place (no plain deblock or CDEF
-   function may run in the kernel route), counting eager ops;
+   versions (ops/loopfilter.deblock_frame, deblock_plane and _apply_pass,
+   ops/cdef.cdef_frame, cdef_filter_plane and cdef_dir) on the synthetic
+   cases of tools/filter_cases (random and conflicting edge maps, 16 px
+   edges whose taps wrap, bd 8/10/12, luma and chroma of every layout
+   and monochrome, odd sizes, frames of several tiles, a band's
+   transposed view behind its halo rows, CDEF frames, a 4K CDEF frame
+   with every block active, per-block maps with halo rows, direction
+   searches) and on every path's own largest call of each wrapper;
+   config 2 frame 3's deblock (three planes, one launch) is timed warm
+   and cold against a byte and operation bound, beside its plain
+   version's device and wall time and beside the same frame as the pass
+   kernel's six launches (deblock_plane, torch.equal), and so are config
+   4's 4K frame 2's; config 2 frame 3's CDEF (one launch) and the 4K
+   CDEF frame the same way; and config 2's frame 3 and config 3's frame 2
+   filter programs are replayed with the kernels and with the plain
+   versions in their place (no plain deblock or CDEF function may run in
+   the kernel route), counting eager ops;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
@@ -288,14 +294,16 @@ MCU_ROW = {"mcurun": "mc_units", "mcsrun": "mc_scaled"}
 MCU_RUN_SEEDS = 2
 # deblock and CDEF wrappers (ops/deblock_cuda, ops/cdef_cuda) -> their
 # kernel row; the first two are the ones the frame programs call
-FILTER_FNS = {"deblock_plane": "deblock", "cdef_frame": "cdef",
-              "apply_pass": "deblock", "cdef_filter_plane": "cdef",
-              "cdef_dir": "cdef"}
+FILTER_FNS = {"deblock_frame": "deblock", "cdef_frame": "cdef",
+              "deblock_plane": "deblock", "apply_pass": "deblock",
+              "cdef_filter_plane": "cdef", "cdef_dir": "cdef"}
 # integer operations an edge row of a deblock pass evaluates (the masks
-# and candidate sums of csrc/deblock.cu edge_filter, luma and chroma), a
-# filtered CDEF pixel (twelve constrained taps) and a direction search
-# (64 pixels into eight classes, then the weighted squares): the
-# operation side of the filter kernels' bounds
+# and candidate sums of csrc/deblock.cu filter_core, luma and chroma, in
+# either design: the frame kernel evaluates each active edge row of both
+# passes once, from shared memory), a filtered CDEF pixel (twelve
+# constrained taps) and a direction search (64 pixels into eight classes,
+# then the weighted squares): the operation side of the filter kernels'
+# bounds
 DBK_EDGE_OPS = {True: 160, False: 60}
 HALO_ROWS = 8                # parallel/filter_shard.HALO: a band's halo
 CDEF_PIXEL_OPS = 110
@@ -492,16 +500,21 @@ class McuLog(CallLog):
         return [c for n, c in self.kept if n == MCU_RUNS[kind]][-1]
 
 
-def _clone(v):
+def _clone(v, memo=None):
     """Tensors (also inside tuples, lists and dicts) cloned, strides
-    kept."""
+    kept; one view given twice is cloned once, so arguments that alias
+    (the executor's chroma deblock maps) still do."""
     import torch
+    memo = {} if memo is None else memo
     if isinstance(v, torch.Tensor):
-        return v.clone()
+        key = (v.device, v.dtype, v.data_ptr(), tuple(v.shape), v.stride())
+        if key not in memo:
+            memo[key] = v.clone()
+        return memo[key]
     if isinstance(v, (tuple, list)):
-        return type(v)(_clone(x) for x in v)
+        return type(v)(_clone(x, memo) for x in v)
     if isinstance(v, dict):
-        return {k: _clone(x) for k, x in v.items()}
+        return {k: _clone(x, memo) for k, x in v.items()}
     return v
 
 
@@ -537,7 +550,7 @@ class FilterLog(CallLog):
         key = name if name != "apply_pass" else \
             f"{name} base {_pass_base(*a, **k)}"
         return "calls", key, _numel(_first(a, k)), \
-            lambda: (_clone(a), _clone(k))
+            lambda: _clone((a, k))
 
 
 class ShapeLog:
@@ -1953,7 +1966,8 @@ def mcu_phase(torch, np, mc, mcu_cuda, owned, scratch, floor_ms):
 def filter_plain():
     """{wrapper: its plain version} of FILTER_FNS."""
     from dav1d_mirror_tpu_torch.ops import cdef, loopfilter
-    return {"deblock_plane": loopfilter.deblock_plane,
+    return {"deblock_frame": loopfilter.deblock_frame,
+            "deblock_plane": loopfilter.deblock_plane,
             "apply_pass": loopfilter._apply_pass,
             "cdef_frame": cdef.cdef_frame,
             "cdef_filter_plane": cdef.cdef_filter_plane,
@@ -1992,7 +2006,7 @@ def deblock_cost(np, args, kwargs):
     """(bytes, operations) one deblock_plane call needs: the int32 plane
     read once and the result written once, its six maps and the LUTs
     read; the active edge rows of both passes evaluate DBK_EDGE_OPS. The
-    kernel's two launches move the plane twice (the vertical pass's
+    pass kernel's two launches move the plane twice (the vertical pass's
     output is the horizontal pass's input): that second round trip is
     the design's, not the function's, and is not counted."""
     a = list(args) + [kwargs[k] for k in ("luma", "bitdepth")
@@ -2011,6 +2025,37 @@ def deblock_cost(np, args, kwargs):
         act[first] = False
         rows += 4 * int(act.sum())
     return n_bytes, rows * DBK_EDGE_OPS[bool(luma)]
+
+
+def deblock_frame_cost(np, args, kwargs):
+    """(bytes, operations) one deblock_frame call needs: each int32
+    plane read once and its result written once, each distinct map and
+    the LUTs read once (the frame kernel moves just that: its tiles'
+    halos are re-read from L2, the neighbour levels come from the level
+    maps). The executor's chroma planes share their edge maps, and each
+    takes one level map for both directions: a map is counted once by
+    its storage (address, elements, element width). The operations are
+    deblock_cost's of each plane with its neighbour levels."""
+    from dav1d_mirror_tpu_torch.ops.loopfilter import neighbour_levels
+    names = ("planes", "edge_v", "edge_h", "lvl_v", "lvl_h", "e_lut",
+             "i_lut", "bitdepth")
+    a = dict(zip(names, args), **kwargs)
+    n_bytes = sum(t.numel() * t.element_size() for t in (a["e_lut"],
+                                                         a["i_lut"]))
+    n_ops = 0
+    maps = {}
+    for i, plane in enumerate(a["planes"]):
+        ev, eh, lv, lh = (a[k][i] for k in ("edge_v", "edge_h", "lvl_v",
+                                            "lvl_h"))
+        n_bytes += 2 * 4 * plane.numel()
+        for m in (ev, eh, lv, lh):
+            maps[(m.data_ptr(), m.numel(), m.element_size())] = \
+                m.numel() * m.element_size()
+        lvp, lhp = neighbour_levels(lv, lh)
+        n_ops += deblock_cost(np, (plane, ev, eh, lv, lvp, lh, lhp,
+                                   a["e_lut"], a["i_lut"], i == 0,
+                                   a["bitdepth"]), {})[1]
+    return n_bytes + sum(maps.values()), n_ops
 
 
 def cdef_cost(np, args, kwargs):
@@ -2041,12 +2086,12 @@ def cdef_cost(np, args, kwargs):
 
 
 def filter_timed(torch, np, name, calls, scratch, label):
-    """A frame's calls of one filter wrapper (deblock_plane: its dbk
-    records; cdef_frame: its cdef record) timed as one unit with the
-    kernels, warm and cold, against the byte and operation bound, and
-    with the plain version (device and wall)."""
+    """A frame's calls of one filter wrapper (deblock_frame: its dbkrun
+    record; cdef_frame: its cdef record; or a synthetic frame) timed as
+    one unit with the kernel, warm and cold, against the byte and
+    operation bound, and with the plain version (device and wall)."""
     from dav1d_mirror_tpu_torch.ops import cdef_cuda, deblock_cuda
-    mod = deblock_cuda if name == "deblock_plane" else cdef_cuda
+    mod = deblock_cuda if FILTER_FNS[name] == "deblock" else cdef_cuda
     fn_k, fn_p = getattr(mod, name), filter_plain()[name]
 
     def run_k():
@@ -2059,7 +2104,7 @@ def filter_timed(torch, np, name, calls, scratch, label):
     warm = time_warm(torch, run_k, 50)
     cold = time_cold(torch, run_k, scratch, 20)
     plain, plain_wall = time_plain(torch, run_p, 3)
-    cost = deblock_cost if name == "deblock_plane" else cdef_cost
+    cost = deblock_frame_cost if name == "deblock_frame" else cdef_cost
     n_bytes = n_ops = 0
     for a, k in calls:
         b, o = cost(np, a, k)
@@ -2078,16 +2123,52 @@ def filter_timed(torch, np, name, calls, scratch, label):
                 shape=shape)
 
 
+def pass_launches_timed(torch, calls, scratch, label, frame_ms):
+    """The deblock_frame calls `calls` as the pass kernel computes them:
+    deblock_plane of each plane with its neighbour levels, a launch a
+    pass (pass_args), torch.equal with the frame kernel; timed warm and
+    cold in the same run as the frame kernel (frame_ms, warm)."""
+    from dav1d_mirror_tpu_torch.ops import deblock_cuda, loopfilter
+    jobs, want = [], []
+    for a, k in calls:
+        d = dict(zip(("planes", "edge_v", "edge_h", "lvl_v", "lvl_h",
+                      "e_lut", "i_lut", "bitdepth"), a), **k)
+        want += deblock_cuda.deblock_frame(*a, **k)
+        for i, plane in enumerate(d["planes"]):
+            lvp, lhp = loopfilter.neighbour_levels(d["lvl_v"][i],
+                                                   d["lvl_h"][i])
+            jobs.append((plane, d["edge_v"][i], d["edge_h"][i],
+                         d["lvl_v"][i], lvp, d["lvl_h"][i], lhp,
+                         d["e_lut"], d["i_lut"], i == 0, d["bitdepth"]))
+    got = [deblock_cuda.deblock_plane(*j) for j in jobs]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"{label}: deblock_plane differs from deblock_frame"
+
+    def run():
+        for j in jobs:
+            deblock_cuda.deblock_plane(*j)
+    warm = time_warm(torch, run, 50)
+    cold = time_cold(torch, run, scratch, 20)
+    print(f"  deblock {label} as {2 * len(jobs)} pass launches "
+          f"(deblock_plane a plane, torch.equal with deblock_frame): "
+          f"{warm:.5f} ms warm, {cold:.5f} ms cold; the frame kernel "
+          f"{warm / frame_ms:.2f}x faster warm")
+    return dict(pass_ms=warm, pass_cold_ms=cold,
+                pass_launches=2 * len(jobs))
+
+
 def filter_phase(torch, np, owned, kept, scratch, floor_ms):
     """The deblock and CDEF kernels against their plain versions on the
     card (torch.equal): every synthetic case of tools/filter_cases and
     each path's own largest call of each wrapper (`owned` {path:
     ShapeLog or FilterLog}). Then times config 2 frame 3's deblock (its
-    three deblock_plane calls, six launches) and CDEF (its cdef_frame
-    call, two launches), the two kernel rows, and the same of config 4's
-    4K frame (`kept` {path: (label, FilterLog kept calls)}; config 4
-    codes no CDEF, so its deblock alone). Returns the two kernel
-    rows."""
+    deblock_frame call, one launch) beside the same frame as the pass
+    kernel's six launches, and its CDEF (its cdef_frame call, one
+    launch), the two kernel rows; config 4's 4K frame's deblock the same
+    way (`kept` {path: (label, FilterLog kept calls)}; config 4 codes no
+    CDEF); and the 4K CDEF frame of tools/filter_cases (every block
+    active). Returns the two kernel rows."""
     from dav1d_mirror_tpu_torch.tools import filter_cases
     dev = torch.device("cuda")
     rows = {name: dict(name=name, route="cuda", cases=[], max_abs_err=0,
@@ -2131,7 +2212,7 @@ def filter_phase(torch, np, owned, kept, scratch, floor_ms):
           f"all torch.equal ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     for path, (label, calls) in kept.items():
-        for name in ("deblock_plane", "cdef_frame"):
+        for name in ("deblock_frame", "cdef_frame"):
             group = [c for n, c in calls if n == name]
             assert group or (path, name) == ("config 4", "cdef_frame"), (
                 path, name, "no call kept")
@@ -2139,26 +2220,41 @@ def filter_phase(torch, np, owned, kept, scratch, floor_ms):
                 print(f"  {label}: no cdef record, no CDEF timing")
                 continue
             got = filter_timed(torch, np, name, group, scratch, label)
+            if name == "deblock_frame":
+                got.update(pass_launches_timed(torch, group, scratch, label,
+                                               got["ms"]))
             if path == "config 2":
                 rows[FILTER_FNS[name]].update(got)
+            else:
+                rows[FILTER_FNS[name]]["config4"] = got
+    label, kw = filter_cases.cdef_4k_case(np.random.default_rng(2026))
+    kw = filter_cases.to_torch(kw, dev)
+    a = (tuple(kw.pop("planes")),) + tuple(kw.pop(k) for k in (
+        "cdef_idx_map", "noskip4", "y_strengths", "uv_strengths"))
+    rows["cdef"]["max_abs_err"] = max(rows["cdef"]["max_abs_err"],
+                                      filter_compare(torch, "cdef_frame",
+                                                     a, kw))
+    rows["cdef"]["4K"] = filter_timed(torch, np, "cdef_frame", [(a, kw)],
+                                      scratch, label)
     print(f"  deblock and CDEF timings: {time.perf_counter() - t0:.1f} s")
     return [rows["deblock"], rows["cdef"]]
 
 
 def filter_launches(shapes, launches, name):
-    """The deblock kernel ran twice for each dbk record of the programs
-    (ShapeLog), the CDEF kernels twice for each cdef record, and the path
-    deblocked. Prints both."""
+    """The deblock kernel ran once for each dbkrun record of the programs
+    (ShapeLog: a frame that deblocks), the CDEF kernel once for each cdef
+    record, and the path deblocked. Prints both."""
     ops = {}
     for fr in shapes.frame_ops:
         for k, v in fr.items():
             ops[k] = ops.get(k, 0) + v
-    want = {"deblock": 2 * ops.get("dbk", 0), "cdef": 2 * ops.get("cdef", 0)}
+    want = {"deblock": ops.get("dbkrun", 0), "cdef": ops.get("cdef", 0)}
     got = {k: launches[k] for k in want}
     assert got == want and got["deblock"] > 0, (
         name, "filter launches", got, "for records", want)
-    print(f"{name}: deblock and CDEF launches {got}, for {ops.get('dbk', 0)} "
-          f"dbk and {ops.get('cdef', 0)} cdef records")
+    print(f"{name}: deblock and CDEF launches {got}, for "
+          f"{ops.get('dbkrun', 0)} dbkrun ({ops.get('dbk', 0)} dbk) and "
+          f"{ops.get('cdef', 0)} cdef records")
 
 
 # coefficients at the int16/int32 extremes: the butterflies' products wrap
@@ -2485,18 +2581,14 @@ def time_plain(torch, fn, n):
     of the kernels that n calls ran, by torch.profiler (which also reads
     a version that syncs with the host itself, as the plain itx
     version's masked scatter does, where no launch can be queued ahead
-    of the card), and time_wall's host wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    of the card) in the second of two profiled steps
+    (tools/filter_ops.device_ms: the first warms the tracer up, whose
+    first kernels can go unrecorded), over n, and time_wall's host wall
+    time."""
+    from dav1d_mirror_tpu_torch.tools.filter_ops import device_ms
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e3 / n
+    dev_ms = device_ms(fn, n)[0]
     assert dev_ms > 0, "the profiler saw no kernel of the plain version"
     return dev_ms, time_wall(torch, fn, n)
 
@@ -2904,7 +2996,7 @@ def profile_frames(torch, api, MD5Muxer, frames, out_dir):
                               ("mc_units", "mc_units_run_kernel"),
                               ("mc_scaled", "mc_scaled_run_kernel"),
                               ("itx", "itx_run_kernel"),
-                              ("deblock", "deblock_pass_kernel"),
+                              ("deblock", "deblock_"),
                               ("cdef", "cdef_"))}
     per_frame["all kernels"] = sum(e.self_device_time_total
                                    for e in kernels) / 2e3
@@ -3279,7 +3371,7 @@ def main():
         rows[0]["floor_ms"]))
     wrapped = [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
                (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket"),
-               (deblock_cuda, "deblock_plane"), (cdef_cuda, "cdef_frame")] + [
+               (deblock_cuda, "deblock_frame"), (cdef_cuda, "cdef_frame")] + [
         (mcu_cuda, fn) for fn in (*MCU_KINDS.values(), *MCU_RUNS.values())]
     c2_label = f"config 2 frame {OPS_FRAME}"
     mark("the ops phases")
@@ -3300,10 +3392,12 @@ def main():
     # kernel route no plain deblock or CDEF function may run
     filter_ops = {label: ops_phase(
         torch, frame_exec, wrapped, prog,
-        [(deblock_cuda, "deblock_plane", loopfilter.deblock_plane),
+        [(deblock_cuda, "deblock_frame", loopfilter.deblock_frame),
          (cdef_cuda, "cdef_frame", cdef.cdef_frame)], label,
-        [(loopfilter, "deblock_plane"), (loopfilter, "_apply_pass"),
-         (cdef, "cdef_filter_plane"), (cdef, "cdef_dir")], kernels=True)
+        [(loopfilter, n) for n in ("deblock_frame", "deblock_plane",
+                                   "_apply_pass")] +
+        [(cdef, n) for n in ("cdef_frame", "cdef_filter_plane",
+                             "cdef_dir")], kernels=True)
         for label, prog in ((f"{c2_label} filter", shapes.kept_filter),
                             (f"config 3 frame {C3_FILTER_FRAME} filter",
                              shapes3.kept_filter))}

@@ -185,9 +185,12 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
         sb_step4 = 32 if seq.sb128 else 16
         lv = lf.lvl_y[:, :, 0].astype(np.int8)
         lh_ = lf.lvl_y[:, :, 1].astype(np.int8)
-        prog.op("dbk", 0, True, sb_step4, prog.emit8(lf.edge_v_y),
-                prog.emit8(lf.edge_h_y), prog.emit8(lv),
-                prog.emit8(lh_), h_el, h_il)
+        # a dbk record a plane (the JAX interpreter's form, which the
+        # tests replay), then one dbkrun record with every plane's maps:
+        # the executor deblocks the frame in one launch
+        maps = [(prog.emit8(lf.edge_v_y), prog.emit8(lf.edge_h_y),
+                 prog.emit8(lv), prog.emit8(lh_))]
+        prog.op("dbk", 0, True, sb_step4, *maps[0], h_el, h_il)
         if (len(planes_in) > 1 and
                 (fhdr.loopfilter_level_u or fhdr.loopfilter_level_v)):
             h_ev = prog.emit8(lf.edge_v_uv)
@@ -196,8 +199,10 @@ def apply_inloop_filters(seq, fhdr, coders, bufs, device, filters_mask=7):
                 # chroma v/h share one level channel
                 lvc = lf.lvl_uv[:, :, pl].astype(np.int8)
                 h_lvc = prog.emit8(lvc)
+                maps.append((h_ev, h_eh, h_lvc, h_lvc))
                 prog.op("dbk", 1 + pl, False, sb_step4 >> bufs.ss_ver,
-                        h_ev, h_eh, h_lvc, h_lvc, h_el, h_il)
+                        *maps[-1], h_el, h_il)
+        prog.op("dbkrun", tuple(maps), h_el, h_il)
 
     restore = [(filters_mask & 4) and fhdr.restoration_type[p] != 0
                for p in range(len(planes_in))]

@@ -11,7 +11,8 @@ The executor implements the op kinds of the hybrid inter path and the
 filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
 from a reference of another size), ``comp`` (average, distance-weighted,
 wedge and seg joins), ``obmc``, the residual buckets (``residmc``, ``residc`` and ``hresc``
-(lossless WHT), ``hresmc``) and their work lists (``itxrun``), ``dbk``,
+(lossless WHT), ``hresmc``) and their work lists (``itxrun``), ``dbk``
+and ``dbkrun``,
 ``snap``, ``cdef``, ``sres`` (super-resolution), ``lrw``, ``lrs`` and
 ``out``, and the device intra engine's (models/intra): ``embed``,
 ``palset``, ``newres``, ``resrawmc`` and ``resrawc`` (residual planes),
@@ -40,11 +41,14 @@ executor runs all of it there: one launch of each unit MC kernel a
 frame (ops/mcu_cuda.mc_units_run, mc_scaled_run), which writes straight
 into the planes or the arena and reads the descriptors in place (int16
 or int32). It then passes over the ``put`` and ``scaled`` records, and
-runs only the "w" sub-ops of a side batch into its arena slots. A
-``dbk`` record runs the deblock kernel (ops/deblock_cuda.deblock_plane:
-a launch for each pass over the plane) and the ``cdef`` record the CDEF
-kernels (ops/cdef_cuda.cdef_frame: the direction search, then one launch
-for the frame's planes).
+runs only the "w" sub-ops of a side batch into its arena slots. The
+planner emits a ``dbk`` record for each deblocked plane (the reference
+interpreter's form) and after them one ``dbkrun`` record with every
+plane's maps: the executor passes over the ``dbk`` records and runs the
+``dbkrun`` record, one launch of the deblock frame kernel
+(ops/deblock_cuda.deblock_frame); the ``cdef`` record is one launch of
+the CDEF frame kernel (ops/cdef_cuda.cdef_frame: the direction search
+and the filter of the frame's planes).
 """
 from __future__ import annotations
 
@@ -418,7 +422,7 @@ _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
 HANDLED = ("mcarena", "mcurun", "mcsrun", "hpx", "puthv_x", "put", "warp",
            "scaled", "comp", "obmc", "residmc", "residc", "hresmc", "hresc",
-           "itxrun", "dbk", "snap", "cdef",
+           "itxrun", "dbk", "dbkrun", "snap", "cdef",
            "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
            "resrawmc", "resrawc", "intrascan", "crop")
 
@@ -455,18 +459,30 @@ MC_RUNS = ("mcarena", "mcurun", "mcsrun")
 def check_ops(ops):
     """Raise NotImplementedError for the first op this executor lacks, and
     ValueError unless each run of residual bucket records is followed
-    directly by the itxrun record that covers it, and unless the frame's
+    directly by the itxrun record that covers it, unless the frame's
     put, scaled, "t" and "s" work is covered by the mcurun and mcsrun
     records and its comp and obmc records by the mcarena record, all
-    three (those present) before the first of them."""
+    three (those present) before the first of them, and unless the
+    frame's dbk records are followed by one dbkrun record with a plane's
+    maps for each."""
     pending = 0
     need = {"mcurun": 0, "mcsrun": 0, "mcarena": 0}
     runs = {}
+    n_dbk = None     # dbk records (None: the dbkrun seen, or none yet)
     for rec in ops:
         kind = rec[0]
         if kind not in HANDLED:
             where = LATER.get(kind, "unknown op kind")
             raise NotImplementedError(f"frame op {kind!r}: {where}")
+        if kind == "dbk":
+            if n_dbk is None and "dbkrun" in runs:
+                raise ValueError("dbk record after the frame's dbkrun")
+            n_dbk = (n_dbk or 0) + 1
+        elif kind == "dbkrun":
+            if "dbkrun" in runs or len(rec[1]) != (n_dbk or 0):
+                raise ValueError(f"dbkrun of {len(rec[1])} planes after "
+                                 f"{n_dbk or 0} dbk records, or twice")
+            runs[kind], n_dbk = rec, None
         if kind in MC_RUNS:
             if kind in runs or any(need.values()):
                 raise ValueError(f"{kind} after the frame's first unit MC "
@@ -487,6 +503,8 @@ def check_ops(ops):
             pending = 0
     if pending:
         raise ValueError(f"{pending} residual records without itxrun")
+    if n_dbk:
+        raise ValueError(f"{n_dbk} dbk records without dbkrun")
     for kind, n in need.items():
         rec = runs.get(kind)
         have = 0 if rec is None else len(rec[2]) if kind == "mcarena" \
@@ -506,13 +524,17 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     check_ops(ops)
     dev = desc.device
 
-    def get(h):
-        """The descriptor slice as int32: from the int32 buffer, or
-        widened from the narrow side buffers (emit16/emit8)."""
+    def narrow(h):
+        """The descriptor slice as a view of its buffer, not widened."""
         off, shape = h[0], h[1]
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
         src = desc if len(h) == 2 else desc16 if h[2] == 16 else desc8
-        t = src[off:off + n].reshape(shape)
+        return src[off:off + n].reshape(shape)
+
+    def get(h):
+        """The descriptor slice as int32: from the int32 buffer, or
+        widened from the narrow side buffers (emit16/emit8)."""
+        t = narrow(h)
         return t if len(h) == 2 else t.to(torch.int32)
 
     refs = []
@@ -631,17 +653,16 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                 itx_cuda.itx_run(mode, get(h_tab), work, desc, desc16, bd,
                                  planes if mode == "add" else snap["res"])
         elif kind == "dbk":
-            (_, pl, luma, sb4, h_ev, h_eh, h_lv, h_lh, h_el, h_il) = rec
-            # the *_prev neighbour-level maps are pure shifts of lv/lh
-            lv = get(h_lv)
-            lh = get(h_lh)
-            lvp = torch.zeros_like(lv)
-            lvp[:, 1:] = lv[:, :-1]
-            lhp = torch.zeros_like(lh)
-            lhp[1:, :] = lh[:-1, :]
-            planes[pl] = deblock_cuda.deblock_plane(
-                planes[pl], get(h_ev), get(h_eh), lv, lvp, lh, lhp,
-                get(h_el), get(h_il), luma=luma, bitdepth=bd)
+            pass    # run by the frame's dbkrun record after them
+        elif kind == "dbkrun":
+            # every plane's maps as int8 views of the side buffer (the
+            # kernel reads them so, and derives the neighbour levels)
+            _, maps, h_el, h_il = rec
+            n = len(maps)
+            views = {h: narrow(h) for m in maps for h in m}  # chroma share
+            ev, eh, lv, lh = ([views[m[k]] for m in maps] for k in range(4))
+            planes[:n] = deblock_cuda.deblock_frame(
+                tuple(planes[:n]), ev, eh, lv, lh, get(h_el), get(h_il), bd)
         elif kind == "snap":
             # copies: the LR ops below scatter into the planes in place,
             # and a later bucket's windows read the snapshot

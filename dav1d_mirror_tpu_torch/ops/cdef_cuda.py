@@ -4,8 +4,9 @@ luma direction search and the primary/secondary filter.
 ``cdef_dir``, ``cdef_filter_plane`` and ``cdef_frame`` take the arguments
 of their plain versions in ``ops/cdef.py``. A tensor on the CPU goes to
 the plain version; a CUDA tensor goes to the kernels, or the call raises.
-``cdef_frame`` is two launches: the direction search, then one filter
-launch for all the frame's planes, each block's direction and strengths
+``cdef_frame`` (the decode: the executor's cdef record) is one launch of
+the frame kernel: the direction search of each CTA's blocks and the
+filter of all the frame's planes, each block's direction and strengths
 derived inside the kernel from the frame's inputs (no per-block maps, no
 stack of shifted planes). ``cdef_dir`` and ``cdef_filter_plane`` (the
 band functions of ``parallel/filter_shard`` call them) are one launch
@@ -54,28 +55,29 @@ class PlaneArgs(ct.Structure):
         [(n, _LL) for n in ("src_sr", "src_sc", "pl_sr", "pl_sc", "out_sr",
                             "out_sc", "top_sr", "top_sc", "bot_sr",
                             "bot_sc")] + \
-        [(n, _INT) for n in ("Hp", "Wp", "bw", "bh", "damping", "chroma")]
+        [(n, _INT) for n in ("Hp", "Wp", "bw", "bh", "damping", "vec")]
 
 
 class FilterArgs(ct.Structure):
     """csrc/cdef.cu FilterArgs."""
     _fields_ = [("pl", PlaneArgs * MAX_PLANES)] + \
         [(n, _VP) for n in ("m_dir", "m_pri", "m_sec", "m_act", "idx", "ns",
-                            "ystr", "uvstr", "dirm", "varm")] + \
+                            "ystr", "uvstr")] + \
         [(n, _LL) for n in ("dir_s0", "dir_s1", "pri_s0", "pri_s1",
                             "sec_s0", "sec_s1", "act_s0", "act_s1",
                             "idx_s0", "idx_s1", "ns_s0", "ns_s1",
                             "ystr_s0", "uvstr_s0")] + \
         [(n, _INT) for n in ("dir_es", "pri_es", "sec_es", "act_es",
                              "idx_es", "ns_es", "ystr_es", "uvstr_es",
-                             "frame", "hb", "wb", "bh4", "bw4", "uv_row",
-                             "bd")]
+                             "hb", "wb", "bh4", "bw4", "uv_row", "bd")]
 
 
 def _bind(lib):
     for fn, args in (("cdef_dir_launch", [ct.POINTER(DirArgs), _VP]),
                      ("cdef_filter_launch", [ct.POINTER(FilterArgs), _INT,
-                                             _VP])):
+                                             _VP]),
+                     ("cdef_frame_launch", [ct.POINTER(FilterArgs), _INT,
+                                            _VP])):
         getattr(lib, fn).restype = ct.c_int
         getattr(lib, fn).argtypes = args
     for fn, mirror in (("cdef_dir_args_size", DirArgs),
@@ -121,9 +123,10 @@ def dir_args(src, dirm, var, h8, w8, bitdepth):
     return a
 
 
-def plane_args(src, plane, out, bw, bh, damping, chroma=False, halo=None):
+def plane_args(src, plane, out, bw, bh, damping, halo=None):
     """One plane's filter arguments: read `src`, copy `plane`, write
-    `out` (all at their strides); `halo` = (top2, bot2) rows or None."""
+    `out` (all at their strides); `halo` = (top2, bot2) rows or None.
+    `vec`: src's rows can be read as 16-byte loads (the frame kernel)."""
     p = PlaneArgs()
     p.src, p.plane, p.out = src.data_ptr(), plane.data_ptr(), out.data_ptr()
     p.src_sr, p.src_sc = src.stride()
@@ -135,7 +138,9 @@ def plane_args(src, plane, out, bw, bh, damping, chroma=False, halo=None):
         p.top_sr, p.top_sc = top.stride()
         p.bot_sr, p.bot_sc = bot.stride()
     p.Hp, p.Wp = out.shape
-    p.bw, p.bh, p.damping, p.chroma = bw, bh, damping, int(bool(chroma))
+    p.bw, p.bh, p.damping = bw, bh, damping
+    p.vec = int(src.stride(1) == 1 and src.stride(0) % 4 == 0 and
+                src.data_ptr() % 16 == 0)
     return p
 
 
@@ -156,9 +161,9 @@ def _launch_dir(dev, lib, src, h8, w8, bitdepth):
     return dirm, var
 
 
-def _launch_filter(dev, lib, a, n_planes):
-    rc = lib.cdef_filter_launch(ct.byref(a), n_planes,
-                                torch.cuda.current_stream(dev).cuda_stream)
+def _launch_filter(dev, lib, a, n_planes, entry="cdef_filter_launch"):
+    rc = getattr(lib, entry)(ct.byref(a), n_planes,
+                             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "cdef", rc)
     _bump()
 
@@ -224,7 +229,7 @@ def cdef_filter_plane(plane, src, dir_map, pri_map, sec_map, damping,
     for nm, t in (("m_dir", dir_map), ("m_pri", pri_map), ("m_sec", sec_map),
                   ("m_act", active)):
         _map(a, nm, t)
-    a.frame, a.hb, a.wb, a.bd = 0, hb, wb, bitdepth
+    a.hb, a.wb, a.bd = hb, wb, bitdepth
     if out.numel():
         lib = _lib_on(dev)
         with torch.cuda.device(dev):
@@ -233,8 +238,8 @@ def cdef_filter_plane(plane, src, dir_map, pri_map, sec_map, damping,
 
 
 def frame_args(planes, outs, cdef_idx_map, noskip4, y_strengths,
-               uv_strengths, dirm, varm, damping, bitdepth, ss_hor, ss_ver):
-    """The frame filter's arguments: every plane of `outs` from its plane
+               uv_strengths, damping, bitdepth, ss_hor, ss_ver):
+    """The frame kernel's arguments: every plane of `outs` from its plane
     of `planes`, block parameters from the frame's inputs (tensors on any
     device)."""
     bh4, bw4 = noskip4.shape
@@ -242,13 +247,11 @@ def frame_args(planes, outs, cdef_idx_map, noskip4, y_strengths,
     for i, (p, o) in enumerate(zip(planes, outs)):
         a.pl[i] = plane_args(p, p, o, 8 >> (ss_hor if i else 0),
                              8 >> (ss_ver if i else 0),
-                             damping - (1 if i else 0), chroma=i > 0)
+                             damping - (1 if i else 0))
     _map(a, "idx", cdef_idx_map)
     _map(a, "ns", noskip4)
     _map(a, "ystr", y_strengths, ("s0",))
     _map(a, "uvstr", uv_strengths, ("s0",))
-    a.dirm, a.varm = dirm.data_ptr(), varm.data_ptr()
-    a.frame = 1
     a.hb, a.wb = (bh4 + 1) // 2, (bw4 + 1) // 2
     a.bh4, a.bw4 = bh4, bw4
     a.uv_row = 1 if (ss_hor and not ss_ver) else 0
@@ -294,12 +297,10 @@ def cdef_frame(planes, cdef_idx_map, noskip4, y_strengths, uv_strengths,
                              f"{h8}x{w8} blocks")
     outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
             for p in planes]
-    lib = _lib_on(dev)
-    with torch.cuda.device(dev):
-        dirm, varm = _launch_dir(dev, lib, planes[0], h8, w8, bitdepth)
-        a = frame_args(planes, outs, cdef_idx_map, noskip4, y_strengths,
-                       uv_strengths, dirm, varm, damping, bitdepth, ss_hor,
-                       ss_ver)
-        if any(o.numel() for o in outs):
-            _launch_filter(dev, lib, a, n)
+    a = frame_args(planes, outs, cdef_idx_map, noskip4, y_strengths,
+                   uv_strengths, damping, bitdepth, ss_hor, ss_ver)
+    if any(o.numel() for o in outs):
+        lib = _lib_on(dev)
+        with torch.cuda.device(dev):
+            _launch_filter(dev, lib, a, n, "cdef_frame_launch")
     return tuple(outs)

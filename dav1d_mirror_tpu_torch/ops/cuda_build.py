@@ -9,7 +9,8 @@ ctypes (plain C entry points, no PyTorch headers). A library is rebuilt
 when its source or any ``csrc/*.cuh`` header is newer than it; the
 compiler's output is kept beside it as ``lib<name>.log``. Each
 library exports ``<name>_error_string(int)``; its launch functions return
-``cudaGetLastError()``.
+``cudaGetLastError()``. ``build_variants`` compiles one source with
+chosen macros into libraries of their own, for a tool's timing builds.
 """
 from __future__ import annotations
 
@@ -58,6 +59,31 @@ def log_path(name):
     return os.path.join(BUILD, f"lib{name}.log")
 
 
+def _nvcc(name, out, flags):
+    """A running nvcc of csrc/<name>.cu into `out`, its output piped."""
+    return subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS, *flags, "-o", out,
+         os.path.join(CSRC, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build_variants(name, variants):
+    """Compile csrc/<name>.cu once for each {tag: macros to define} of
+    `variants`, side by side, into build/kernels/lib<name>_<tag>.so, for
+    a tool that loads them itself (the decoder never does). Returns {tag:
+    library path}. Raises if a build fails."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {tag: (so_path(f"{name}_{tag}"),
+                   _nvcc(name, so_path(f"{name}_{tag}"),
+                         [f"-D{d}" for d in defines]))
+             for tag, defines in variants.items()}
+    for tag, (_, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu ({tag}):\n{out}")
+    return {tag: so for tag, (so, _) in procs.items()}
+
+
 def build(extra_flags=(), force=()):
     """Compile every stale kernel library and those named in `force`,
     all ``nvcc`` runs side by side. Returns {name: compiler output} for
@@ -70,11 +96,7 @@ def build(extra_flags=(), force=()):
             if not _stale(name) and name not in force:
                 continue
             tmp = f"{so_path(name)}.{os.getpid()}.tmp"
-            procs[name] = (tmp, subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-                 os.path.join(CSRC, f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+            procs[name] = (tmp, _nvcc(name, tmp, extra_flags))
         logs = {}
         for name, (tmp, p) in procs.items():
             out, _ = p.communicate()

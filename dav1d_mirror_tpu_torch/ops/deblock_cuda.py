@@ -1,15 +1,21 @@
-"""Wrapper of the hand-written CUDA deblock kernel (``csrc/deblock.cu``):
-one launch a pass (vertical or horizontal edges) over one plane.
+"""Wrapper of the hand-written CUDA deblock kernels (``csrc/deblock.cu``).
 
-``deblock_plane`` and ``apply_pass`` take the arguments of their plain
-versions in ``ops/loopfilter.py``. A tensor on the CPU goes to the plain
-version; a CUDA tensor goes to the kernel, or the call raises. The
-kernel reads the plane and the maps through their strides and element
-widths (int8, int16 or int32 maps and LUTs; the horizontal pass reads
-the plane's transpose and the maps' transposes as views) and writes a
-new tensor, so ``deblock_plane`` is two launches and no copy, and
+``deblock_frame`` (the decode: the executor's dbkrun record) deblocks a
+frame's planes, luma or luma and both chroma planes, in one launch of the
+frame kernel: both passes of every plane in shared memory, each edge's
+fallback level its neighbour's entry of the same level map (no shifted
+maps are built). ``apply_pass`` and ``deblock_plane`` run the pass kernel,
+one launch a pass over one plane (the horizontal pass on the plane's and
+the maps' transposes, as views): the tile-sharded decode's row bands call
+``apply_pass`` (``parallel/filter_shard.band_deblock_plane``), and
+``deblock_plane`` takes any fallback level maps. All take the arguments
+of their plain versions in ``ops/loopfilter.py``. A tensor on the CPU
+goes to the plain version; a CUDA tensor goes to a kernel, or the call
+raises. The kernels read the planes and maps through their strides and
+element widths (int8, int16 or int32 maps and LUTs) and write new
+tensors: ``deblock_frame`` and ``deblock_plane`` copy nothing,
 ``apply_pass`` (which updates its rows in place, as the plain version
-does) one launch and a copy back. The library is built and loaded by
+does) copies its output back. The library is built and loaded by
 ``ops/cuda_build.py``. ``DEBLOCK_LAUNCHES`` counts the launches. The
 wrapper reads no device tensor back to the host.
 """
@@ -31,6 +37,10 @@ _MAP_DTYPES = (torch.int8, torch.int16, torch.int32)
 # vertical pass (view columns unit-stride) and the horizontal one (view
 # rows unit-stride, ROWS_FAST)
 TILE = {False: (4, 244), True: (32, 64)}
+# output rows x columns of a CTA of the frame kernel (csrc/deblock.cu
+# DBF_TH, DBF_TW; tools/deblock_model.FRAME_TILE)
+FRAME_TILE = (64, 64)
+MAX_PLANES = 3
 
 
 class DbkArgs(ct.Structure):
@@ -45,14 +55,40 @@ class DbkArgs(ct.Structure):
                                  "base", "first_edge", "luma", "bd")]
 
 
+class DbkPlane(ct.Structure):
+    """csrc/deblock.cu DbkPlane."""
+    _fields_ = [(n, ct.c_void_p) for n in ("inp", "out", "ev", "eh", "lv",
+                                           "lh")] + \
+        [(n, ct.c_longlong) for n in ("in_sr", "out_sr", "ev_s0", "ev_s1",
+                                      "eh_s0", "eh_s1", "lv_s0", "lv_s1",
+                                      "lh_s0", "lh_s1")] + \
+        [(n, ct.c_int) for n in ("ev_es", "eh_es", "lv_es", "lh_es", "Hp",
+                                 "Wp", "h4", "w4", "luma", "vec", "tiles_x",
+                                 "tile0")]
+
+
+class DbkFrameArgs(ct.Structure):
+    """csrc/deblock.cu DbkFrameArgs."""
+    _fields_ = [("pl", DbkPlane * MAX_PLANES), ("elut", ct.c_void_p),
+                ("ilut", ct.c_void_p)] + \
+        [(n, ct.c_int) for n in ("elut_es", "ilut_es", "n_planes",
+                                 "n_tiles", "bd")]
+
+
 def _bind(lib):
-    lib.deblock_pass_launch.restype = ct.c_int
-    lib.deblock_pass_launch.argtypes = [ct.POINTER(DbkArgs), ct.c_void_p]
-    lib.deblock_args_size.restype = ct.c_int
-    lib.deblock_args_size.argtypes = []
-    if lib.deblock_args_size() != ct.sizeof(DbkArgs):
-        raise RuntimeError(f"deblock: DbkArgs is {lib.deblock_args_size()} "
-                           f"bytes, its ctypes mirror {ct.sizeof(DbkArgs)}")
+    for fn, mirror in (("deblock_pass_launch", DbkArgs),
+                       ("deblock_frame_launch", DbkFrameArgs)):
+        getattr(lib, fn).restype = ct.c_int
+        getattr(lib, fn).argtypes = [ct.POINTER(mirror), ct.c_void_p]
+    for fn, mirror in (("deblock_args_size", DbkArgs),
+                       ("deblock_frame_args_size", DbkFrameArgs)):
+        size = getattr(lib, fn)
+        size.restype = ct.c_int
+        size.argtypes = []
+        if size() != ct.sizeof(mirror):
+            raise RuntimeError(f"deblock: {mirror.__name__} is {size()} "
+                               f"bytes, its ctypes mirror "
+                               f"{ct.sizeof(mirror)}")
 
 
 def pass_args(src, dst, rows, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut,
@@ -106,11 +142,11 @@ def _check(src, edge_idx, lvl_cur, lvl_prev, e_lut, i_lut, bitdepth, base,
                          f"column {base} in a view {W} wide")
 
 
-def _launch(dev, a):
+def _launch(dev, a, entry="deblock_pass_launch"):
     global DEBLOCK_LAUNCHES
     lib = load("deblock", _bind)
     with torch.cuda.device(dev):
-        rc = lib.deblock_pass_launch(
+        rc = getattr(lib, entry)(
             ct.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "deblock", rc)
     with _count_lock:
@@ -173,3 +209,72 @@ def deblock_plane(plane, edge_v, edge_h, lvl_v, lvl_v_prev, lvl_h,
                                lvl_h_prev.T, e_lut, i_lut, luma, bitdepth,
                                first_edge=1))
     return out
+
+
+def frame_args(planes, outs, edge_v, edge_h, lvl_v, lvl_h, e_lut, i_lut,
+               bitdepth):
+    """The frame kernel's arguments: plane i of `outs` from plane i of
+    `planes` with its maps (tensors on any device; the CPU tests pack
+    them). CTAs go to the planes' tiles in plane order."""
+    a = DbkFrameArgs()
+    tile0 = 0
+    th, tw = FRAME_TILE
+    for i, (p, o) in enumerate(zip(planes, outs)):
+        d = a.pl[i]
+        d.inp, d.out = p.data_ptr(), o.data_ptr()
+        d.in_sr, d.out_sr = p.stride(0), o.stride(0)
+        for nm, t in (("ev", edge_v[i]), ("eh", edge_h[i]), ("lv", lvl_v[i]),
+                      ("lh", lvl_h[i])):
+            setattr(d, nm, t.data_ptr())
+            s0, s1 = t.stride()
+            setattr(d, f"{nm}_s0", s0)
+            setattr(d, f"{nm}_s1", s1)
+            setattr(d, f"{nm}_es", t.element_size())
+        d.Hp, d.Wp = p.shape
+        d.h4, d.w4 = edge_v[i].shape
+        d.luma = int(i == 0)
+        d.vec = int(p.data_ptr() % 16 == 0 and p.stride(0) % 4 == 0)
+        d.tiles_x = -(-d.Wp // tw)
+        d.tile0 = tile0
+        tile0 += d.tiles_x * -(-d.Hp // th)
+    a.elut, a.elut_es = e_lut.data_ptr(), e_lut.element_size()
+    a.ilut, a.ilut_es = i_lut.data_ptr(), i_lut.element_size()
+    a.n_planes, a.n_tiles, a.bd = len(planes), tile0, bitdepth
+    return a
+
+
+def deblock_frame(planes, edge_v, edge_h, lvl_v, lvl_h, e_lut, i_lut,
+                  bitdepth):
+    """Deblock a frame's planes (luma, or luma and both chroma planes)
+    in one launch; see ``ops/loopfilter.deblock_frame``. edge_v, edge_h,
+    lvl_v and lvl_h hold a map per plane. Returns new int32 planes; the
+    inputs are not modified."""
+    p0 = planes[0]
+    if p0.device.type == "cpu":
+        return loopfilter.deblock_frame(planes, edge_v, edge_h, lvl_v,
+                                        lvl_h, e_lut, i_lut, bitdepth)
+    dev = cuda_device(p0, "deblock_frame")
+    n = len(planes)
+    if n not in (1, 3) or not all(len(m) == n for m in (edge_v, edge_h,
+                                                         lvl_v, lvl_h)):
+        raise ValueError(f"deblock_frame: {n} planes, expected 1 or 3 with "
+                         "a map of each kind a plane")
+    planes = [p if p.dtype == torch.int32 or p.dim() != 2 else
+              p.to(torch.int32) for p in planes]
+    planes = [p if p.dim() != 2 or p.stride(1) == 1 else p.contiguous()
+              for p in planes]
+    for i, p in enumerate(planes):
+        _check(p, edge_v[i], lvl_v[i], lvl_v[i], e_lut, i_lut, bitdepth, 0,
+               dev)
+        _check(p.T, edge_h[i].T, lvl_h[i].T, lvl_h[i].T, e_lut, i_lut,
+               bitdepth, 0, dev)
+        if edge_h[i].shape != edge_v[i].shape:
+            raise ValueError(f"deblock_frame: plane {i}'s maps differ in "
+                             "shape")
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=dev)
+            for p in planes]
+    a = frame_args(planes, outs, edge_v, edge_h, lvl_v, lvl_h, e_lut, i_lut,
+                   bitdepth)
+    if a.n_tiles:
+        _launch(dev, a, "deblock_frame_launch")
+    return tuple(outs)

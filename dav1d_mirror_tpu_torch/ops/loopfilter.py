@@ -231,3 +231,30 @@ def deblock_plane(plane, edge_v, edge_h, lvl_v, lvl_v_prev, lvl_h,
     _apply_pass(plane.T[:w4 * 4], eh, lvl_h.T, lvl_h_prev.T, e_lut, i_lut,
                 luma, bitdepth)
     return plane
+
+
+def neighbour_levels(lvl_v, lvl_h):
+    """The fallback neighbour levels of a frame's edges: the previous
+    vertical edge's level (x - 1; 0 at x = 0) and the previous horizontal
+    edge's (y - 1)."""
+    lvp = torch.zeros_like(lvl_v)
+    lvp[:, 1:] = lvl_v[:, :-1]
+    lhp = torch.zeros_like(lvl_h)
+    lhp[1:, :] = lvl_h[:-1, :]
+    return lvp, lhp
+
+
+def deblock_frame(planes, edge_v, edge_h, lvl_v, lvl_h, e_lut, i_lut,
+                  bitdepth):
+    """Deblock a frame's first len(planes) planes (luma, then both
+    chroma planes, or luma alone): deblock_plane of each with its maps
+    (edge_v[i], edge_h[i], lvl_v[i], lvl_h[i]), each edge's fallback
+    level its neighbour's (neighbour_levels). Returns new int32
+    planes."""
+    out = []
+    for i, plane in enumerate(planes):
+        lvp, lhp = neighbour_levels(lvl_v[i], lvl_h[i])
+        out.append(deblock_plane(plane, edge_v[i], edge_h[i], lvl_v[i], lvp,
+                                 lvl_h[i], lhp, e_lut, i_lut, i == 0,
+                                 bitdepth))
+    return tuple(out)

@@ -33,6 +33,15 @@ DBK_SHAPES = (("luma", (64, 64), (16, 16), True),
               ("chroma 4:2:0 odd", (40, 48), (9, 11), False),
               ("chroma 4:2:2", (64, 32), (16, 8), False),
               ("chroma 4:4:4", (64, 64), (16, 16), False))
+# deblock frames (deblock_frame): (label, luma (Hp, Wp), (h4, w4), chroma
+# (Hp, Wp), (h4, w4) or None for monochrome); the last one spans several
+# of the frame kernel's 64x64 tiles a plane, with pad rows and columns
+DBK_FRAMES = (("4:2:0", (64, 64), (16, 16), (32, 32), (8, 8)),
+              ("4:2:0 odd", (80, 96), (17, 21), (40, 48), (9, 11)),
+              ("4:2:2", (64, 64), (16, 16), (64, 32), (16, 8)),
+              ("4:4:4", (64, 64), (16, 16), (64, 64), (16, 16)),
+              ("monochrome", (64, 64), (16, 16), None, None),
+              ("4:2:0 tiles", (200, 272), (48, 66), (100, 136), (24, 33)))
 # CDEF frames: (label, luma (Hp, Wp), (bh4, bw4), ss_hor, ss_ver, mono)
 CDEF_SHAPES = (("4:2:0", (64, 64), (16, 16), 1, 1, False),
                ("4:2:0 odd", (80, 96), (17, 21), 1, 1, False),
@@ -109,6 +118,53 @@ def deblock_plane_cases(rng):
                                 lvl_h=maps[4], lvl_h_prev=maps[5],
                                 e_lut=e_lut, i_lut=i_lut, luma=luma,
                                 bitdepth=bd)))
+    return out
+
+
+def deblock_frame_cases(rng):
+    """[(label, kwargs of ops/loopfilter.deblock_frame as numpy arrays)]:
+    every frame of DBK_FRAMES at bd 8/10/12 with random and conflicting
+    maps, and "wrap": conflicting maps with 16 px luma edges at x = 4 and
+    y = 4, whose p taps and stores wrap to the plane's last columns and
+    rows, the luma plane's sides of edge 1 flat a step apart; int8 maps in every second case (the executor's narrow side
+    buffer); LUTs int32."""
+    out = []
+    for label, lshape, l4, cshape, c4 in DBK_FRAMES:
+        shapes = [(lshape, l4, True)] + ([(cshape, c4, False)] * 2
+                                         if cshape else [])
+        for bd in (8, 10, 12):
+            for kind in ("random", "conflict", "wrap"):
+                mk = "conflict" if kind == "wrap" else kind
+                narrow = len(out) % 2 == 1
+                kw = dict(planes=[], edge_v=[], edge_h=[], lvl_v=[],
+                          lvl_h=[])
+                for (Hp, Wp), (h4, w4), luma in shapes:
+                    ev, lv, _ = lf_maps(rng, h4, w4, luma, mk)
+                    eh, lh, _ = lf_maps(rng, h4, w4, luma, mk)
+                    plane = content(rng, Hp, Wp, bd, mk)
+                    if kind == "wrap" and luma:
+                        # edge 1's 16 px filter reads the last 3 columns
+                        # (rows) as p4..p6 and stores p4 and p5 into the
+                        # last two: flat p and q sides a step apart, so
+                        # that it writes new values there
+                        ev[:, 1] = eh[1, :] = 2
+                        step = np.minimum(plane[:, :1] + (8 << (bd - 8)),
+                                          (1 << bd) - 1)
+                        plane[:, :4] = plane[:, Wp - 3:] = plane[:, :1]
+                        plane[:, 4:11] = step
+                        step = np.minimum(plane[:1] + (8 << (bd - 8)),
+                                          (1 << bd) - 1)
+                        plane[:4] = plane[Hp - 3:] = plane[:1]
+                        plane[4:11] = step
+                    kw["planes"].append(plane)
+                    for k, m in (("edge_v", ev), ("edge_h", eh),
+                                 ("lvl_v", lv), ("lvl_h", lh)):
+                        kw[k].append(m.astype(np.int8) if narrow else m)
+                kw["e_lut"], kw["i_lut"] = lf_luts(int(rng.integers(0, 8)))
+                kw["bitdepth"] = bd
+                out.append((f"deblock_frame {label} {lshape[0]}x{lshape[1]}"
+                            f" bd{bd} {kind} maps "
+                            f"{'int8' if narrow else 'int32'}", kw))
     return out
 
 
@@ -232,6 +288,27 @@ def cdef_dir_cases(rng):
     return out
 
 
+def cdef_4k_case(rng):
+    """(label, kwargs of ops/cdef.cdef_frame): a 2160x3840 4:2:0 10-bit
+    frame with every block active (every 64x64 unit coded, no 4x4
+    skipped, every strength index with primary and secondary
+    strengths)."""
+    bd, (Hp, Wp) = 10, (2160, 3840)
+    bh4, bw4 = Hp // 4, Wp // 4
+    planes = [smooth_plane(rng, Hp, Wp, bd)] + [
+        smooth_plane(rng, Hp >> 1, Wp >> 1, bd) for _ in range(2)]
+    idx = rng.integers(0, 8, (-(-bh4 // 16), -(-bw4 // 16)))
+    ystr = rng.integers(1, 16, 8) << 2 | rng.integers(1, 4, 8)
+    uvstr = rng.integers(1, 16, 8) << 2 | rng.integers(1, 4, 8)
+    return (f"cdef_frame 4K 4:2:0 {Hp}x{Wp} bd{bd} every block active",
+            dict(planes=planes, cdef_idx_map=idx.astype(np.int32),
+                 noskip4=np.ones((bh4, bw4), bool),
+                 y_strengths=ystr.astype(np.int32),
+                 uv_strengths=uvstr.astype(np.int32),
+                 damping=int(rng.integers(3, 7)) + bd - 8, bitdepth=bd,
+                 ss_hor=1, ss_ver=1, monochrome=False))
+
+
 def to_torch(v, dev):
     """numpy arrays (also inside dicts, lists and tuples) as tensors on
     dev."""
@@ -284,6 +361,16 @@ def check_all(torch, dev, seed=2026):
     for label, kw in cdef_dir_cases(rng):
         a = to_torch(kw, dev)
         res.append((label, eq(cdef_cuda.cdef_dir(**a), cdef.cdef_dir(**a))))
+    for label, kw in deblock_frame_cases(rng):
+        a = to_torch(kw, dev)
+        src = [p.clone() for p in a["planes"]]
+        got = deblock_cuda.deblock_frame(**a)
+        ok = eq(got, loopfilter.deblock_frame(**a)) and eq(a["planes"], src)
+        res.append((label, ok))
+    label, kw = cdef_4k_case(rng)
+    a = to_torch(kw, dev)
+    a["planes"] = tuple(a["planes"])
+    res.append((label, eq(cdef_cuda.cdef_frame(**a), cdef.cdef_frame(**a))))
     return res
 
 

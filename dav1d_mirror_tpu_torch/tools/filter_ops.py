@@ -8,8 +8,8 @@ the stream (default: config 2, bench_cache/e2e_1080p_inter_cdef_*.ivf,
 frame 3; and config 3, bench_cache/e2e_1080p_10bit_grain_lr_*.ivf, frame
 2) through ``Decoder(Settings(device="cuda"))`` up to frame N, keeps that
 frame's filter program (the plane-input ``FrameProgram`` that
-``models/filters.apply_inloop_filters`` builds: ``dbk``, ``snap``,
-``cdef``, ``sres``, ``lrw``/``lrs`` and ``out`` records) and replays it
+``models/filters.apply_inloop_filters`` builds: ``dbk`` and
+``dbkrun``, ``snap``, ``cdef``, ``sres``, ``lrw``/``lrs`` and ``out`` records) and replays it
 R times on the card. It prints one JSON line a program: its records by
 kind, the eager (aten) ops one replay issues, by the family that issued
 them (each ``ops/`` function the executor calls, each kernel wrapper,
@@ -115,12 +115,14 @@ def family_ops(frame_exec, wrapped, run):
     return tally
 
 
-def device_ms(run):
+def device_ms(run, reps=5):
     """(summed device ms of the kernels one run() launches, {kernel name:
-    device ms}), from the second of two profiled runs: the first warms
-    the tracer up (kernels at the start of a trace can go unrecorded).
-    The step's own range ("ProfilerStep#n", which spans its kernels) is
-    not a kernel."""
+    device ms}), from the second of two profiled steps, each `reps`
+    runs, over reps: the first step warms the tracer up (kernels at the
+    start of a trace can go unrecorded), and a step of one short run
+    (a millisecond of host time) can record no kernel at all in a
+    process that has profiled before. The step's own range
+    ("ProfilerStep#n", which spans its kernels) is not a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     got = []
@@ -129,10 +131,11 @@ def device_ms(run):
                  on_trace_ready=lambda p: got.append(p.key_averages())) \
             as prof:
         for _ in range(2):
-            run()
+            for _ in range(reps):
+                run()
             torch.cuda.synchronize()
             prof.step()
-    by = {e.key: e.self_device_time_total / 1e3
+    by = {e.key: e.self_device_time_total / 1e3 / reps
           for e in got[0] if e.device_type == DeviceType.CUDA and
           not e.key.startswith("ProfilerStep")}
     return sum(by.values()), dict(sorted(by.items(), key=lambda kv: -kv[1]))
@@ -172,7 +175,7 @@ def _wrappers():
     from ..ops import cdef_cuda, deblock_cuda, itx_cuda, mc_cuda, mcu_cuda
     return [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
             (mcu_cuda, "mc_units_run"), (mcu_cuda, "mc_scaled_run"),
-            (itx_cuda, "itx_run"), (deblock_cuda, "deblock_plane"),
+            (itx_cuda, "itx_run"), (deblock_cuda, "deblock_frame"),
             (cdef_cuda, "cdef_frame")]
 
 

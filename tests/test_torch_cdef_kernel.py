@@ -21,7 +21,12 @@ plain versions).
   UV_DIRS_TBL row of each layout, halo rows;
 - the launch counter counts kernel launches only, and a tensor on another
   device, or on a CUDA device without the kernel library, raises instead
-  of reaching the plain version.
+  of reaching the plain version;
+- the frame kernel's direction search (a thread a class, eight a block):
+  its bins are the plain version's, and a numpy model of it (row
+  partials reduced in another order, the 128s taken off once a bin)
+  equals ``cdef.cdef_dir`` at bd 8, 10 and 12 on extreme, random and
+  flat pixels, with bins whose uint32 sums wrap.
 Tolerance: exact."""
 import ctypes as ct
 import re
@@ -196,10 +201,9 @@ def test_frame_args_packing():
         ns = torch.zeros((17, 23), dtype=torch.bool)
         ystr = torch.zeros(8, dtype=torch.int16)
         uvstr = torch.zeros(8, dtype=torch.int32)
-        dirm = torch.zeros((9, 12), dtype=torch.int32)
         a = cdef_cuda.frame_args(planes, outs, idx.T.contiguous().T, ns,
-                                 ystr, uvstr, dirm, dirm, 7, 10, ssh, ssv)
-        assert (a.frame, a.hb, a.wb, a.bh4, a.bw4) == (1, 9, 12, 17, 23)
+                                 ystr, uvstr, 7, 10, ssh, ssv)
+        assert (a.hb, a.wb, a.bh4, a.bw4) == (9, 12, 17, 23)
         assert (a.uv_row, a.bd) == (row, 10)
         assert (a.idx_s0, a.idx_s1, a.idx_es) == (1, 2, 1)
         assert (a.ns_s0, a.ns_s1, a.ns_es) == (23, 1, 1)
@@ -211,7 +215,7 @@ def test_frame_args_packing():
             assert (pa.Hp, pa.Wp, pa.src_sr, pa.out_sr) == (
                 p.shape[0], p.shape[1], p.shape[1], o.shape[1])
             assert (pa.bw, pa.bh) == ((8 >> ssh, 8 >> ssv) if i else (8, 8))
-            assert (pa.damping, pa.chroma) == ((6, 1) if i else (7, 0))
+            assert (pa.damping, pa.vec) == ((6, 1) if i else (7, 1))
             assert (pa.top, pa.bot) == (None, None)
 
 
@@ -226,7 +230,8 @@ def test_plane_and_dir_args_packing():
     assert (p.out_sr, p.out_sc, p.Hp, p.Wp) == (40, 1, 64, 40)
     assert (p.top_sr, p.top_sc, p.bot_sr, p.bot_sc) == (80, 1, 72, 1)
     assert (p.top, p.bot) == (top.data_ptr(), bot.data_ptr())
-    assert (p.bw, p.bh, p.damping, p.chroma) == (4, 8, 5, 0)
+    assert (p.bw, p.bh, p.damping, p.vec) == (4, 8, 5, 0)   # column
+    # stride 64: no 16-byte rows
     dirm = torch.empty((5, 8), dtype=torch.int32)
     d = cdef_cuda.dir_args(view, dirm, dirm, 5, 8, 12)
     assert (d.sr, d.sc, d.h8, d.w8, d.bd) == (1, 64, 5, 8, 12)
@@ -294,3 +299,91 @@ def test_block_sizes_the_kernel_cannot_take_raise(monkeypatch):
         cdef_cuda.cdef_filter_plane(m(64, 64), m(64, 64), m(8, 8), m(8, 8),
                                     m(8, 8), 5, m(8, 8, dtype=torch.bool), 8,
                                     2, 8)
+
+
+# ---- the frame kernel's direction search (csrc/cdef.cu class_cost) ----
+
+# the bin of pixel (y, x) of an 8x8 block in each direction class, in
+# dav1d's cost order, as class_cost indexes them
+BINS = (lambda y, x: y + x, lambda y, x: y + (x >> 1), lambda y, x: y,
+        lambda y, x: 3 + y - (x >> 1), lambda y, x: 7 + y - x,
+        lambda y, x: 3 - (y >> 1) + x, lambda y, x: x,
+        lambda y, x: (y >> 1) + x)
+
+
+def _cooperative_dir(plane, h8, w8, bd):
+    """The frame kernel's search in numpy: a class a thread (eight a
+    block), each summing its bins a row at a time, here the rows' partial
+    bins reduced last row first (the plain version sums each bin's pixels
+    at once); the 128s of (v >> (bd - 8)) - 128 taken off once a bin;
+    squares weighed in uint32; the first maximum. Also returns whether a
+    bin's sum went below zero, so that it and its square wrapped in
+    uint32."""
+    u = np.uint32
+    blocks = np.asarray(plane[:8 * h8, :8 * w8], np.int64).reshape(
+        h8, 8, w8, 8).transpose(0, 2, 1, 3)
+    shifted = (blocks >> (bd - 8)).astype(u)
+    weights = cdef._cost_weights()
+    cost = np.zeros((8, h8, w8), u)
+    wrapped = False
+    for c, fn in enumerate(BINS):
+        nb = len(weights[c])
+        rows = np.zeros((8, nb, h8, w8), u)
+        count = np.zeros(nb, np.int64)
+        for y in range(8):
+            for x in range(8):
+                rows[y, fn(y, x)] += shifted[:, :, y, x]
+                count[fn(y, x)] += 1
+        with np.errstate(over="ignore"):
+            bins = np.zeros((nb, h8, w8), u)
+            for y in reversed(range(8)):
+                bins += rows[y]
+            bins -= (128 * count).astype(u)[:, None, None]
+            sq = bins * bins * weights[c].astype(u)[:, None, None]
+        cost[c] = sq.sum(axis=0, dtype=u)
+        wrapped |= bool((bins >= 1 << 31).any())
+    best = np.argmax(cost, axis=0)
+    pick = lambda d: np.take_along_axis(cost, d[None], 0)[0]
+    var = ((pick(best) - pick(best ^ 4)) >> u(10)).astype(np.int32)
+    return best.astype(np.int32), var, wrapped
+
+
+def test_class_bins_match_the_source_and_the_plain_version():
+    """class_cost's bin of each pixel, class by class, is the plain
+    version's one-hot bin assignment, and the frame kernel gives class w
+    to warp w."""
+    flat = " ".join(SRC.split())
+    assert ("C == 0 ? y + x : C == 1 ? y + (x >> 1) : C == 2 ? y : C == 3 "
+            "? 3 + y - (x >> 1) : C == 4 ? 7 + y - x : C == 5 ? 3 - (y >> "
+            "1) + x : C == 6 ? x : (y >> 1) + x") in flat
+    for c in range(8):
+        assert f"case {c}: c = class_cost<{c}>(blk, sw, sh); break;" in flat \
+            or f"default: c = class_cost<{c}>(blk, sw, sh); break;" in flat
+    for c, (fn, mat) in enumerate(zip(BINS, cdef._build_partial_mats())):
+        for y in range(8):
+            for x in range(8):
+                assert mat[y * 8 + x, fn(y, x)] == 1, (c, y, x)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_cooperative_direction_search_matches_cdef_dir(bd):
+    """The model of the frame kernel's search equals ops/cdef.cdef_dir on
+    pixels at the extremes (0 and the bit depth's maximum: bins of
+    negative sums, whose uint32 values and squares wrap), on a plane of
+    random pixels and on flat blocks (ties: the first maximum)."""
+    rng = np.random.default_rng(bd)
+    h8, w8 = 6, 7
+    top = (1 << bd) - 1
+    planes = [(rng.random((8 * h8, 8 * w8)) < 0.5) * top,
+              np.where(np.add.outer(np.arange(8 * h8), np.arange(8 * w8))
+                       % 16 < 8, 0, top),
+              rng.integers(0, top + 1, (8 * h8, 8 * w8)),
+              np.full((8 * h8, 8 * w8), top // 3)]
+    wrapped = False
+    for plane in planes:
+        plane = plane.astype(np.int32)
+        d, v, w = _cooperative_dir(plane, h8, w8, bd)
+        wd, wv = cdef.cdef_dir(_t(plane), h8, w8, bd)
+        assert np.array_equal(d, wd.numpy()) and np.array_equal(v, wv.numpy())
+        wrapped |= w
+    assert wrapped, "no bin wrapped"

@@ -4,7 +4,8 @@ compiler replaced by a stub that returns chosen ``-Xptxas -v`` output (no
 up-to-date one on the saved log of the build that made it; one whose
 saved log has no ptxas lines is rebuilt with ``-v``; and the gate fails
 on a stack frame or spill, and where no ptxas lines can be had at all.
-Tolerance: exact (pass or fail)."""
+``cuda_build.build_variants`` (a tool's timing builds) builds a source
+once a tag with its macros, through the same stub. Tolerance: exact (pass or fail)."""
 import pytest
 
 import chip_smoke
@@ -76,3 +77,25 @@ def test_no_ptxas_lines_fails(monkeypatch, tmp_path):
           {n: _ptxas(n) for n in names if n != "itx"}, {"itx": ""})
     with pytest.raises(AssertionError, match="no ptxas lines"):
         chip_smoke.build_all()
+
+
+def test_build_variants_defines_each_tag(monkeypatch, tmp_path):
+    """cuda_build.build_variants compiles one source once a tag, with
+    that tag's macros defined, into lib<name>_<tag>.so; a failed build
+    raises."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nfor a; do case "$prev" in -o) out=$a;; '
+                    'esac; prev=$a; done\necho "$@" > "$out"\n'
+                    'case "$*" in *-DFAIL*) exit 1;; esac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD", str(tmp_path / "kernels"))
+    paths = cuda_build.build_variants("cdef", {"a": (), "b": ("X", "Y")})
+    assert sorted(paths) == ["a", "b"]
+    for tag, want in (("a", []), ("b", ["-DX", "-DY"])):
+        assert paths[tag].endswith(f"libcdef_{tag}.so")
+        argv = open(paths[tag]).read().split()
+        assert [f for f in argv if f.startswith("-D")] == want
+        assert argv[-1].endswith("cdef.cu")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_build.build_variants("cdef", {"c": ("FAIL",)})
