@@ -5,11 +5,12 @@
 
 Run from the root of a checkout. It
 
-1. builds the package's kernels (its seven CUDA sources: the MC H-plane
+1. builds the package's kernels (its ten CUDA sources: the MC H-plane
    and V-pass kernels, the translational and scaled unit MC kernels, the
-   inverse transform, deblock and CDEF, one nvcc each, side by side;
+   inverse transform, deblock, CDEF, and the inter tools' warp, compound
+   join and OBMC blend kernels, one nvcc each, side by side;
    ``-Xptxas -v`` must show no stack frame and no spill in the last
-   five) and its native host library from the checkout's sources;
+   eight) and its native host library from the checkout's sources;
 2. drives each path through ``Decoder(Settings(device="cuda"))``, each
    with the kernel launch counters set to 0 just before it and read just
    after, and asserts each stream's md5 and that every counter moved
@@ -23,7 +24,9 @@ Run from the root of a checkout. It
    (the direction search and the filter of the frame's planes), both
    also in the tile-sharded decode (its band functions: a pass launch
    each way a plane, the direction search and a filter launch a
-   plane):
+   plane), the warp kernel once for each warp record and "w" sub-op, the
+   compound join kernel once for each comp record and the OBMC kernel
+   once for each obmc record (each path's launches printed):
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -141,7 +144,20 @@ Run from the root of a checkout. It
    CDEF frame the same way; and config 2's frame 3 and config 3's frame 2
    filter programs are replayed with the kernels and with the plain
    versions in their place (no plain deblock or CDEF function may run in
-   the kernel route), counting eager ops;
+   the kernel route), counting eager ops. The inter tool kernels
+   (warp, compound joins, OBMC blend; one launch a record) are held to
+   ``torch.equal`` with their plain versions (ops/mc.warp_plane,
+   warp_slots, comp_record, obmc_plane) on the synthetic cases of
+   tools/tools_cases (bd 8/10/12, the three layouts, every join kind,
+   pad slots and rows, edge-cut units, phases past the warp table, both
+   OBMC phases) and on every path's own largest call of each wrapper;
+   the tools path's frame 1 calls of each kernel are timed warm and cold
+   against a byte and operation bound, beside their plain version's
+   device and wall time; and the tools path's frame 1 and the super-res
+   path's frame 4 are replayed with the kernels and with their plain
+   versions in their place (no warp8x8_batch, join, obmc_blend_batch or
+   scatter_slot_units may run in the kernel route), counting eager ops
+   by family;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
@@ -270,6 +286,7 @@ CYCLES_PER_MS = 2.0e6        # about the H100's clock; sizes busy waits
 OPS_FRAME = 3                # the steady config 2 frame whose ops are counted
 SR_OPS_FRAME = 4             # the super-res frame (coded 1707 wide) counted
 TOOLS_RUN_FRAME = 2          # the tools frame whose unit MC run is timed
+TOOLS_OPS_FRAME = 1          # the tools frame whose tool kernels are timed
 C3_FILTER_FRAME = 2          # the config 3 frame whose filter ops are counted
 C4_FILTER_FRAME = 2          # the config 4 (4K) frame whose filters are timed
 # the unit MC kernels' synthetic cases: (uw, uh) of translational units
@@ -280,7 +297,22 @@ MCU_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
 MCS_UNITS = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 4), (4, 8), (8, 8),
              (16, 16), (64, 32))
 # the kernel libraries that must build with no stack frame and no spill
-NO_SPILL = {"itx", "mc_units", "mc_scaled", "deblock", "cdef"}
+NO_SPILL = {"itx", "mc_units", "mc_scaled", "deblock", "cdef", "warp",
+            "comp", "obmc"}
+# the inter tool wrappers (ops/tools_cuda; their plain versions in ops/mc)
+# -> their kernel row
+TOOLS_FNS = {"warp_plane": "warp", "warp_slots": "warp",
+             "comp_record": "comp", "obmc_plane": "obmc"}
+# the functions that ran the tools as eager ops before their kernels
+# (ops/mc): none may run in the kernel route of a replay
+TOOLS_EAGER = ("warp8x8_batch", "obmc_blend_batch", "comp_join_wavg",
+               "w_avg_batch", "mask_batch", "w_mask_batch",
+               "scatter_slot_units", *TOOLS_FNS)
+# integer operations a warp unit (120 horizontal and 64 vertical 8-tap
+# sums, a multiply and an add a tap), a joined pixel and a blended pixel
+WARP_UNIT_OPS = 2 * 8 * (120 + 64)
+COMP_PIXEL_OPS = 10
+OBMC_PIXEL_OPS = 6
 # record kind -> the unit MC wrapper (ops/mcu_cuda) that runs it as a
 # one-entry list
 MCU_KINDS = {"put": "mc_units_plane", "t": "mc_units_slots",
@@ -553,6 +585,29 @@ class FilterLog(CallLog):
             lambda: _clone((a, k))
 
 
+class ToolsLog(CallLog):
+    """Keeps, of the inter tool kernels' wrappers' (TOOLS_FNS) calls, the
+    largest of each wrapper by its outputs (`calls` {wrapper: (args,
+    kwargs)}) and every call while `keep` is set (`kept`: [(wrapper,
+    (args, kwargs))]). Arguments are cloned (the wrappers write their
+    destinations in place, and obmc_plane reads the plane it writes),
+    but for the warp's reference stack, which is never written after it
+    is made."""
+
+    def __init__(self):
+        from dav1d_mirror_tpu_torch.ops import tools_cuda
+        super().__init__([(tools_cuda, n) for n in TOOLS_FNS])
+        self.calls = {}
+
+    def seen(self, name, a, k):
+        if name.startswith("warp"):
+            return "calls", name, a[2].shape[0] * 64, lambda: (
+                (_clone(a[0]), a[1]) + _clone(a[2:]), _clone(k))
+        size = _numel(a[1]) if name == "obmc_plane" else \
+            a[3].shape[0] * a[1][0].numel()
+        return "calls", name, size, lambda: _clone((a, k))
+
+
 class ShapeLog:
     """Wraps the kernel wrappers during the decode to record the
     shapes the main path gives them (counts stay the wrappers' own; for
@@ -569,7 +624,10 @@ class ShapeLog:
     arguments) as `kept_program` and its unit MC runs' calls (a run
     kind's by `mcu_kept(kind)`); with keep_filter_frame = i, frame i's
     filter program (tools/filter_ops.is_filter_program) as
-    `kept_filter` and its deblock and CDEF calls as `filter_kept`."""
+    `kept_filter` and its deblock and CDEF calls as `filter_kept`; the
+    inter tool wrappers' largest calls (ToolsLog's, as `tools`), and with
+    keep_ops_frame = i, frame i's program with comp records as
+    `kept_ops_program` and its tool kernel calls as `tools_kept`."""
 
     def __init__(self, mc_cuda, frame_exec, api, intra=None):
         self._itx_log = ItxLog()
@@ -587,6 +645,11 @@ class ShapeLog:
         self._filter_log = FilterLog()
         self.filters = self._filter_log.calls
         self.filter_kept = self._filter_log.kept
+        self.keep_ops_frame = None
+        self.kept_ops_program = None
+        self._tools_log = ToolsLog()
+        self.tools = self._tools_log.calls
+        self.tools_kept = self._tools_log.kept
         self.mc_cuda = mc_cuda
         self.frame_exec = frame_exec
         self.api = api
@@ -639,6 +702,11 @@ class ShapeLog:
                       is_filter_program(sig))
             if keep_f:
                 self.kept_filter = (sig,) + args
+            keep_o = (self.kept_ops_program is None and
+                      len(self.frame_ops) - 1 == self.keep_ops_frame and
+                      any(rec[0] == "comp" for rec in sig[0]))
+            if keep_o:
+                self.kept_ops_program = (sig,) + args
             # the program's hpx ops call mc_hplanes in this order
             self._hpx_planes = [rec[1] for rec in sig[0] if rec[0] == "hpx"]
             for rec in sig[0]:
@@ -653,18 +721,20 @@ class ShapeLog:
                 else:
                     subs = ()
                 for sub in subs:
-                    if sub[0] in "ts":
+                    if sub[0] in "tsw":
                         k = f"{rec[0]} {sub[0]}"
                         ops[k] = ops.get(k, 0) + 1
                 if rec[0] == "mcarena":
                     self.arena[-1] += 4 * rec[1]
             self._mcu_log.keep = keep
             self._filter_log.keep = keep_f
+            self._tools_log.keep = keep_o
             try:
                 return ex(sig, *args)
             finally:
                 self._mcu_log.keep = False
                 self._filter_log.keep = False
+                self._tools_log.keep = False
 
         def rec_ef(built, seq, fhdr, *args):
             self.widths.append(tuple(fhdr.width))
@@ -721,6 +791,7 @@ class ShapeLog:
         self._mcu_log.__enter__()
         self._itx_log.__enter__()
         self._filter_log.__enter__()
+        self._tools_log.__enter__()
         self.frame_exec.execute_program = rec_ex
         self.api.execute_frame_program = rec_ef
         self.api.run_intra_frame = rec_ri
@@ -738,6 +809,7 @@ class ShapeLog:
         self._mcu_log.__exit__(*exc)
         self._itx_log.__exit__(*exc)
         self._filter_log.__exit__(*exc)
+        self._tools_log.__exit__(*exc)
 
 
 def op_counter(torch):
@@ -894,10 +966,10 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
     pipelined, serial (both through decode_pipelined, the serial one with
     a frame delay of 1), every pass to the path's md5, both kernel
     counters moving in the first pipelined pass; then pipelined once
-    more, staged, under ItxLog, McuLog and FilterLog. paths: {name:
-    (frames, md5)}. Returns ({name: launches}, {name: ItxLog}, {name:
-    McuLog}, {name: FilterLog})."""
-    out, logs, mcu_logs, filter_logs = {}, {}, {}, {}
+    more, staged, under ItxLog, McuLog, FilterLog and ToolsLog. paths:
+    {name: (frames, md5)}. Returns ({name: launches}, {name: ItxLog},
+    {name: McuLog}, {name: FilterLog}, {name: ToolsLog})."""
+    out, logs, mcu_logs, filter_logs, tools_logs = {}, {}, {}, {}, {}
     for name, settings in PIPELINED:
         frames, md5 = paths[name]
         runs = []
@@ -910,7 +982,8 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
         launches = runs[1][2]
         moved(launches, name)
         with ItxLog() as logs[name], McuLog() as mcu_logs[name], \
-                FilterLog() as filter_logs[name]:
+                FilterLog() as filter_logs[name], \
+                ToolsLog() as tools_logs[name]:
             (ds, _, times_s), split = staged(
                 stages, lambda: decode_pipelined(api, MD5Muxer, frames,
                                                  torch, **settings))
@@ -931,7 +1004,7 @@ def pipelined_phase(api, MD5Muxer, torch, stages, counted, paths):
               ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
                         sorted(split.items(), key=lambda kv: -kv[1])))
         out[name] = launches
-    return out, logs, mcu_logs, filter_logs
+    return out, logs, mcu_logs, filter_logs, tools_logs
 
 
 def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
@@ -954,6 +1027,7 @@ def profile_phase(api, MD5Muxer, torch, stages, counted, mc_cuda,
     moved(launches, key)
     one_launch_per_run(shapes, launches, key)
     filter_launches(shapes, launches, key)
+    tools_launches(shapes, launches, key)
     ran = {k for ops in shapes.frame_ops for k in ops}
     assert set(kinds) <= ran, (key, sorted(ran))
     assert shapes.ii_blocks > 0, f"{key} ran no inter-intra block"
@@ -2257,6 +2331,227 @@ def filter_launches(shapes, launches, name):
           f"{ops.get('cdef', 0)} cdef records")
 
 
+def tools_plain():
+    """{wrapper: its plain version} of TOOLS_FNS."""
+    from dav1d_mirror_tpu_torch.ops import mc
+    return {n: getattr(mc, n) for n in TOOLS_FNS}
+
+
+def _tools_dst(name, args):
+    """The tensors a tool wrapper's call writes: its destination (and a
+    comp record's seg-mask arena)."""
+    if name == "comp_record" and args[6] is not None:
+        return (args[0], args[6])
+    return (args[0],)
+
+
+def tools_compare(torch, name, args, kwargs):
+    """A tool wrapper and its plain version on copies of one call's
+    arguments (their destinations are written in place): torch.equal
+    required on every tensor the call writes. Returns the max abs
+    difference (0)."""
+    from dav1d_mirror_tpu_torch.ops import tools_cuda
+    a_k, a_p = _clone(args), _clone(args)
+    getattr(tools_cuda, name)(*a_k, **_clone(kwargs))
+    tools_plain()[name](*a_p, **_clone(kwargs))
+    torch.cuda.synchronize()
+    got, want = _tools_dst(name, a_k), _tools_dst(name, a_p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"{name} differs from its plain version"
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0 for g, w in zip(got, want))
+
+
+def _tools_describe(name, args):
+    """A tool wrapper call's work, for a case label."""
+    if name.startswith("warp"):
+        return f"{args[2].shape[0]} units into {tuple(args[0].shape)}"
+    if name == "comp_record":
+        return (f"{args[3].shape[0]} slots of {tuple(args[1].shape[1:])} "
+                f"into {tuple(args[0].shape)}")
+    return f"laps {tuple(args[1].shape)} into {tuple(args[0].shape)}"
+
+
+def _inside(np, ys, xs, uh, uw, shape):
+    """Pixels of (uh, uw) units at (ys, xs) inside a plane of `shape`."""
+    H, W = shape
+    yy = ys[:, None] + np.arange(uh)[None, :]
+    xx = xs[:, None] + np.arange(uw)[None, :]
+    return int(sum(((y >= 0) & (y < H)).sum() * ((x >= 0) & (x < W)).sum()
+                   for y, x in zip(yy, xx)))
+
+
+def tools_cost(np, name, args):
+    """(bytes, operations) one tool wrapper call needs, from its data:
+    each input read once (a warp: the distinct reference pixels its real
+    units' clamped windows cover, its rows and destinations; a comp: the
+    real slots' sides, their masks, table and origins; an obmc: the real
+    laps' blended pixels inside the plane, read from the lap and the
+    plane), each output written once (the pixels inside the plane or
+    the slots, a seg luma slot's chroma mask); WARP_UNIT_OPS a warp
+    unit, COMP_PIXEL_OPS a joined and OBMC_PIXEL_OPS a blended pixel."""
+    from dav1d_mirror_tpu_torch.ops import mc
+    if name.startswith("warp"):
+        dst, ref, rows = args[:3]
+        r = rows.cpu().numpy().astype(np.int64)
+        if name == "warp_plane":
+            ys, xs = args[3].cpu().numpy(), args[4].cpu().numpy()
+            real = ys != mc.PAD_OOB
+            out_px = _inside(np, ys[real], xs[real], 8, 8, dst.shape)
+            n_bytes = 8 * len(ys)
+        else:
+            base = args[3].cpu().numpy()
+            real = np.zeros(len(base), bool)
+            real[np.unique(base, return_index=True)[1]] = True
+            out_px = 64 * int(real.sum())
+            n_bytes = 4 * len(base)
+        R, H, W = ref.shape
+        seen = np.zeros((R, H, W), bool)
+        k = np.arange(15)
+        for n, oy, ox in r[real][:, :3]:
+            seen[min(max(n, 0), R - 1), np.clip(oy + k, 0, H - 1)[:, None],
+                 np.clip(ox + k, 0, W - 1)[None, :]] = True
+        n_bytes += 4 * int(seen.sum()) + 40 * len(r) + 4 * out_px
+        return n_bytes, WARP_UNIT_OPS * int(real.sum())
+    if name == "comp_record":
+        plane, tmp0, _, tab, dy, dx = args[:6]
+        t = tab.cpu().numpy()
+        n, (_, bhp, bwp) = len(t), tmp0.shape
+        px = _inside(np, dy.cpu().numpy()[:n], dx.cpu().numpy()[:n], bhp,
+                     bwp, plane.shape)
+        masked = np.isin(t[:, 0], (mc.CJ_SEGC, mc.CJ_WEDGE))
+        seg_l = int((t[:, 0] == mc.CJ_SEGL).sum())
+        mh, mw = mc.seg_mask_shape(bhp, bwp, args[8], args[9])
+        n_bytes = 4 * (2 * n * bhp * bwp + 5 * n + px + seg_l * mh * mw +
+                       len(np.unique(t[masked, 2])) * bhp * bwp)
+        return n_bytes, COMP_PIXEL_OPS * n * bhp * bwp
+    plane, laps, ys, xs, region, vert = args[:6]
+    _, lh, lw = laps.shape
+    k = (region * 3) >> 2
+    rows, cols = (lh, min(k, lw)) if vert else (min(k, lh), lw)
+    y, x = ys.cpu().numpy(), xs.cpu().numpy()
+    px = _inside(np, y, x, rows, cols, plane.shape)
+    return 4 * (3 * px + 2 * len(y)) + 4 * 64, OBMC_PIXEL_OPS * px
+
+
+def tools_timed(torch, np, row, calls, scratch, label):
+    """A frame's calls of one tool kernel (`row`: warp, comp or obmc;
+    calls [(wrapper, (args, kwargs))], in the frame's order) timed as one
+    unit with the kernels, warm and cold, against the byte and operation
+    bound, and with the plain versions (device and wall)."""
+    from dav1d_mirror_tpu_torch.ops import tools_cuda
+    plain = tools_plain()
+
+    def run_k():
+        for n, (a, k) in calls:
+            getattr(tools_cuda, n)(*a, **k)
+
+    def run_p():
+        for n, (a, k) in calls:
+            plain[n](*a, **k)
+    # at most QUEUE_LAUNCHES launches queued a timing
+    reps = max(1, QUEUE_LAUNCHES // len(calls))
+    warm = time_warm(torch, run_k, reps)
+    cold = time_cold(torch, run_k, scratch, min(20, max(3, reps)))
+    p_ms, p_wall = time_plain(torch, run_p, 1)
+    n_bytes = n_ops = 0
+    for n, (a, _) in calls:
+        b, o = tools_cost(np, n, a)
+        n_bytes += b
+        n_ops += o
+    b_ms, b_by = bound(n_bytes, n_ops)
+    names = sorted({n for n, _ in calls})
+    shape = (f"{label}'s {len(calls)} {row} launches "
+             f"({', '.join(names)})")
+    print(f"  {row} {shape}: {warm:.5f} ms warm ({warm / len(calls):.5f} "
+          f"a launch), {cold:.5f} ms cold, plain {p_ms:.5f} ms device, "
+          f"{p_wall:.5f} ms wall, bound {b_ms:.5f} ms ({b_by}: {n_bytes} "
+          f"bytes, {n_ops} ops), {100 * b_ms / warm:.1f}% of bound warm, "
+          f"{100 * b_ms / cold:.1f}% cold")
+    return dict(ms=warm, cold_ms=cold, plain_ms=p_ms, plain_wall_ms=p_wall,
+                bound_ms=b_ms, bound_by=b_by, shape=shape,
+                launch_ms=warm / len(calls))
+
+
+def tools_phase(torch, np, owned, kept, scratch, floor_ms):
+    """The inter tool kernels against their plain versions on the card
+    (torch.equal): every synthetic case of tools/tools_cases and each
+    path's own largest call of each wrapper (`owned` {path: ShapeLog or
+    ToolsLog}). Then times the frame's calls of each kernel (`kept`:
+    (label, ToolsLog kept calls) of the tools path's frame
+    TOOLS_OPS_FRAME). Returns the three kernel rows."""
+    from dav1d_mirror_tpu_torch.tools import tools_cases
+    dev = torch.device("cuda")
+    rows = {name: dict(name=name, route="cuda", cases=[], max_abs_err=0,
+                       launches=None, library_ms=None, floor_ms=floor_ms)
+            for name in ("warp", "comp", "obmc")}
+    rows["warp"].update(
+        source="dav1d_mirror_tpu_torch/csrc/warp.cu",
+        replaces="dav1d_mirror_tpu/ops/mc_tpu.py:366 (warp8x8_batch, with "
+                 "scatter_units :266 or scatter_slot_units :316 after it; "
+                 "XLA-fused on the TPU, not a Pallas kernel)")
+    rows["comp"].update(
+        source="dav1d_mirror_tpu_torch/csrc/comp.cu",
+        replaces="dav1d_mirror_tpu/ops/mc_tpu.py:328/:335/:347 "
+                 "(comp_join_wavg, comp_join_wmask, comp_join_mask, with "
+                 "scatter_units :266 after them; XLA-fused on the TPU, not "
+                 "Pallas kernels)")
+    rows["obmc"].update(
+        source="dav1d_mirror_tpu_torch/csrc/obmc.cu",
+        replaces="dav1d_mirror_tpu/ops/mc_tpu.py:445 (obmc_blend_batch; "
+                 "XLA-fused on the TPU, not a Pallas kernel)")
+    t0 = time.perf_counter()
+    res = tools_cases.check_all(torch, dev)
+    torch.cuda.synchronize()
+    bad = [label for label, ok in res if not ok]
+    assert not bad, f"tool kernels differ from their plain versions: {bad}"
+    for label, _ in res:
+        rows[label.split()[0]]["cases"].append(label)
+    print(f"  inter tool synthetic cases: {len(res)}, all torch.equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_own = 0
+    for path, log in owned.items():
+        calls = log.tools if isinstance(log, ShapeLog) else log.calls
+        for name, (args, kwargs) in sorted(calls.items()):
+            row = rows[TOOLS_FNS[name]]
+            row["max_abs_err"] = max(row["max_abs_err"], tools_compare(
+                torch, name, args, kwargs))
+            row["cases"].append(f"{path} own largest {name}: "
+                                f"{_tools_describe(name, args)}")
+            n_own += 1
+    print(f"  inter tool own calls: {n_own} on {len(owned)} paths, all "
+          f"torch.equal ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    label, calls = kept
+    for name in ("warp", "comp", "obmc"):
+        group = [(n, c) for n, c in calls if TOOLS_FNS[n] == name]
+        assert group, (label, name, "no call kept")
+        rows[name].update(tools_timed(torch, np, name, group, scratch,
+                                      label))
+    print(f"  inter tool timings: {time.perf_counter() - t0:.1f} s")
+    return [rows["warp"], rows["comp"], rows["obmc"]]
+
+
+def tools_launches(shapes, launches, name):
+    """The warp kernel ran once for each warp record and "w" sub-op of the
+    programs (ShapeLog), the comp kernel once for each comp record, the
+    OBMC kernel once for each obmc record. Prints the launches and the
+    records."""
+    ops = {}
+    for fr in shapes.frame_ops:
+        for k, v in fr.items():
+            ops[k] = ops.get(k, 0) + v
+    want = {"warp": ops.get("warp", 0) + ops.get("comp w", 0),
+            "comp": ops.get("comp", 0), "obmc": ops.get("obmc", 0)}
+    got = {k: launches[k] for k in want}
+    assert got == want, (name, "tool launches", got, "for records", want)
+    print(f"{name}: inter tool launches {got}, for {ops.get('warp', 0)} "
+          f"warp records and {ops.get('comp w', 0)} \"w\" sub-ops, "
+          f"{ops.get('comp', 0)} comp and {ops.get('obmc', 0)} obmc "
+          f"records")
+
+
 # coefficients at the int16/int32 extremes: the butterflies' products wrap
 ITX_EXTREMES = (-(1 << 31), (1 << 31) - 1, -32768, 32767, -(1 << 19),
                 (1 << 19) - 1)
@@ -2923,11 +3218,12 @@ def report_path(name, frames, times, shapes, launches, digests, split,
 
 def moved(launches, name, scaled=False):
     """Every kernel counter moved in a path's run; the scaled MC kernel's
-    only on a path with scaled references (`scaled`); the deblock and
-    CDEF kernels' as its records ask (filter_launches)."""
+    only on a path with scaled references (`scaled`); the deblock, CDEF
+    and inter tool kernels' as its records ask (filter_launches,
+    tools_launches)."""
     idle = [k for k, v in launches.items()
             if v <= 0 and (scaled or k != "mc_scaled") and
-            k not in ("deblock", "cdef")]
+            k not in ("deblock", "cdef", *set(TOOLS_FNS.values()))]
     assert not idle, (name, idle, launches)
 
 
@@ -3039,7 +3335,7 @@ def main():
     from dav1d_mirror_tpu_torch.host.ivf import parse_ivf
     from dav1d_mirror_tpu_torch.models import frame_exec, intra
     from dav1d_mirror_tpu_torch.ops import cdef, cdef_cuda, deblock_cuda, \
-        itx, itx_cuda, loopfilter, mc, mc_cuda, mcu_cuda
+        itx, itx_cuda, loopfilter, mc, mc_cuda, mcu_cuda, tools_cuda
     from dav1d_mirror_tpu_torch.output import MD5Muxer
     from dav1d_mirror_tpu_torch.utils import stages
 
@@ -3054,6 +3350,9 @@ def main():
         itx_cuda.ITX_ENTRIES = 0
         deblock_cuda.DEBLOCK_LAUNCHES = 0
         cdef_cuda.CDEF_LAUNCHES = 0
+        tools_cuda.WARP_LAUNCHES = 0
+        tools_cuda.COMP_LAUNCHES = 0
+        tools_cuda.OBMC_LAUNCHES = 0
         out = run()
         return out, {"mc_hplanes": mc_cuda.HPLANES_LAUNCHES,
                      "mc_vpass": mc_cuda.VPASS_LAUNCHES,
@@ -3062,7 +3361,10 @@ def main():
                      "itx": itx_cuda.ITX_LAUNCHES,
                      "itx entries": itx_cuda.ITX_ENTRIES,
                      "deblock": deblock_cuda.DEBLOCK_LAUNCHES,
-                     "cdef": cdef_cuda.CDEF_LAUNCHES}
+                     "cdef": cdef_cuda.CDEF_LAUNCHES,
+                     "warp": tools_cuda.WARP_LAUNCHES,
+                     "comp": tools_cuda.COMP_LAUNCHES,
+                     "obmc": tools_cuda.OBMC_LAUNCHES}
 
     mark('config 2 path')
     # ---- config 2 path (run first: the kernel phase uses its shapes) ----
@@ -3077,6 +3379,7 @@ def main():
     moved(launches, "config 2")
     one_launch_per_run(shapes, launches, "config 2")
     filter_launches(shapes, launches, "config 2")
+    tools_launches(shapes, launches, "config 2")
     (digest2, _, times2), split = staged(
         stages, lambda: decode(api, MD5Muxer, frames, torch))
     assert digest2 == STREAM_MD5, f"md5 {digest2} (staged pass)"
@@ -3103,6 +3406,7 @@ def main():
     assert routes_e == {"intra": 1, "mixed": 8, "hybrid": 0}, routes_e
     one_launch_per_run(shapes_e, launches_e, "config 2 engine")
     filter_launches(shapes_e, launches_e, "config 2 engine")
+    tools_launches(shapes_e, launches_e, "config 2 engine")
     (d_es, _, times_es), split_e = staged(stages, lambda: decode(
         api, MD5Muxer, frames, torch, intra_engine=True))
     assert d_es == STREAM_MD5, f"engine md5 {d_es} (staged pass)"
@@ -3131,6 +3435,7 @@ def main():
     moved(launches3, "config 3")
     one_launch_per_run(shapes3, launches3, "config 3")
     filter_launches(shapes3, launches3, "config 3")
+    tools_launches(shapes3, launches3, "config 3")
     assert any("lrw" in ops for ops in shapes3.frame_ops), \
         "config 3 ran no loop restoration op"
     (d3_staged, _, times3s), split3 = staged(
@@ -3157,6 +3462,7 @@ def main():
     tools_md5, tools_n = TOOLS_STREAMS[TOOLS_STREAM]
     with ShapeLog(mc_cuda, frame_exec, api) as shapes_t:
         shapes_t.keep_frame = TOOLS_RUN_FRAME
+        shapes_t.keep_ops_frame = TOOLS_OPS_FRAME
         (d_t, n_t, times_t), launches_t = counted(lambda: decode(
             api, MD5Muxer, frames_t, torch, shapes_t.on_frame))
     assert n_t == len(frames_t) == tools_n, (n_t, len(frames_t))
@@ -3164,6 +3470,7 @@ def main():
     moved(launches_t, "tools")
     one_launch_per_run(shapes_t, launches_t, "tools")
     filter_launches(shapes_t, launches_t, "tools")
+    tools_launches(shapes_t, launches_t, "tools")
     tools_kinds = {k for ops in shapes_t.frame_ops for k in ops}
     assert {"comp", "warp", "obmc"} <= tools_kinds, tools_kinds
     assert shapes_t.ii_blocks > 0, "the tools path ran no inter-intra block"
@@ -3218,6 +3525,7 @@ def main():
     moved(launches_s, "superres", scaled=True)
     one_launch_per_run(shapes_s, launches_s, "superres")
     filter_launches(shapes_s, launches_s, "superres")
+    tools_launches(shapes_s, launches_s, "superres")
     sr_kinds = {k for ops in shapes_s.frame_ops for k in ops}
     assert {"scaled", "sres", "comp s", "obmc s"} <= sr_kinds, sr_kinds
     assert any(w0 == w1 for w0, w1 in shapes_s.widths) and \
@@ -3304,6 +3612,7 @@ def main():
     moved(launches4, "config 4")
     one_launch_per_run(shapes4, launches4, "config 4")
     filter_launches(shapes4, launches4, "config 4")
+    tools_launches(shapes4, launches4, "config 4")
     (d4s, _, times4s), split4 = staged(
         stages, lambda: decode(api, MD5Muxer, frames4, torch))
     assert d4s == CONFIG4_MD5, f"config 4 md5 {d4s} (staged pass)"
@@ -3311,17 +3620,22 @@ def main():
     mark('the pipelined paths')
     # ---- the pipelined paths: config 2 and the tools path through the
     # four-stage pipeline, against their serial decodes above ----
-    piped, piped_itx, piped_mcu, piped_filters = pipelined_phase(
+    piped, piped_itx, piped_mcu, piped_filters, piped_tools = \
+        pipelined_phase(
         api, MD5Muxer, torch, stages, counted,
         {"config 2": (frames, STREAM_MD5), "tools": (frames_t, tools_md5)})
     # the same programs: one unit MC launch a program with its work, and
-    # the deblock and CDEF launches of their records, as in the serial
-    # decodes
+    # the deblock, CDEF and inter tool launches of their records, as in
+    # the serial decodes
     for name, serial in (("config 2", launches), ("tools", launches_t)):
         assert all(piped[name][k] == serial[k] for k in
-                   (*MCU_ROW.values(), "deblock", "cdef")), \
-            (name, "pipelined unit MC and filter launches", piped[name],
-             serial)
+                   (*MCU_ROW.values(), "deblock", "cdef",
+                    *set(TOOLS_FNS.values()))), \
+            (name, "pipelined unit MC, filter and tool launches",
+             piped[name], serial)
+        print(f"pipelined {name}: inter tool launches " + ", ".join(
+            f"{k} {piped[name][k]}" for k in ("warp", "comp", "obmc")) +
+            ", as in its serial decode")
 
     mark('the parallel paths at world size 1 on the card')
     # ---- the parallel paths at world size 1 on the card ----
@@ -3369,10 +3683,20 @@ def main():
                       shapes4.filter_kept)},
         torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
         rows[0]["floor_ms"]))
+    mark("the inter tool phase")
+    rows.extend(tools_phase(
+        torch, np,
+        {"config 2": shapes, "tools": shapes_t, "superres": shapes_s,
+         "pipelined tools": piped_tools["tools"],
+         **{key: prof["shapes"] for key, prof in profiles.items()}},
+        (f"tools frame {TOOLS_OPS_FRAME}", shapes_t.tools_kept),
+        torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),
+        rows[0]["floor_ms"]))
     wrapped = [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
                (itx_cuda, "itx_run"), (itx_cuda, "itx_bucket"),
                (deblock_cuda, "deblock_frame"), (cdef_cuda, "cdef_frame")] + [
-        (mcu_cuda, fn) for fn in (*MCU_KINDS.values(), *MCU_RUNS.values())]
+        (mcu_cuda, fn) for fn in (*MCU_KINDS.values(), *MCU_RUNS.values())] + [
+        (tools_cuda, fn) for fn in TOOLS_FNS]
     c2_label = f"config 2 frame {OPS_FRAME}"
     mark("the ops phases")
     itx_ops = ops_phase(torch, frame_exec, wrapped, shapes.kept_program,
@@ -3401,6 +3725,16 @@ def main():
         for label, prog in ((f"{c2_label} filter", shapes.kept_filter),
                             (f"config 3 frame {C3_FILTER_FRAME} filter",
                              shapes3.kept_filter))}
+    # the inter tool kernels' plain versions in their place; in the kernel
+    # route no eager tool function may run
+    tools_ops = {label: ops_phase(
+        torch, frame_exec, wrapped, prog,
+        [(tools_cuda, fn, getattr(mc, fn)) for fn in TOOLS_FNS], label,
+        [(mc, n) for n in TOOLS_EAGER])
+        for label, prog in ((f"tools frame {TOOLS_OPS_FRAME}",
+                             shapes_t.kept_ops_program),
+                            (f"super-res frame {SR_OPS_FRAME}",
+                             shapes_s.kept_program))}
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_config3"] = launches3[r["name"]]
@@ -3450,6 +3784,8 @@ def main():
         print_ops("unit MC", label, ops)
     for label, ops in filter_ops.items():
         print_ops("filter", label, ops)
+    for label, ops in tools_ops.items():
+        print_ops("tools", label, ops)
 
     mark('3. path reports')
     # ---- 3. path reports ----

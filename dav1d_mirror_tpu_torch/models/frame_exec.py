@@ -40,9 +40,16 @@ reference stacks, and its units write disjoint pixels or slots, so the
 executor runs all of it there: one launch of each unit MC kernel a
 frame (ops/mcu_cuda.mc_units_run, mc_scaled_run), which writes straight
 into the planes or the arena and reads the descriptors in place (int16
-or int32). It then passes over the ``put`` and ``scaled`` records, and
-runs only the "w" sub-ops of a side batch into its arena slots. The
-planner emits a ``dbk`` record for each deblocked plane (the reference
+or int32). It then passes over the ``put`` and ``scaled`` records. The
+inter tools run as kernels too (ops/tools_cuda): a ``warp`` record and
+each "w" sub-op of a side batch is one launch of the warp kernel, into
+the plane or the batch's arena slots; a ``comp`` record one launch of the
+join kernel over its real slots, which stores straight into the plane
+(its per-slot table rides a ``comptab`` record just before it, and seg
+luma joins write their chroma masks into the frame's seg-mask arena,
+``cmarena``, where the chroma joins read them); an ``obmc`` record one
+launch of the blend kernel, in place on the plane. The planner emits a
+``dbk`` record for each deblocked plane (the reference
 interpreter's form) and after them one ``dbkrun`` record with every
 plane's maps: the executor passes over the ``dbk`` records and runs the
 ``dbkrun`` record, one launch of the deblock frame kernel
@@ -56,13 +63,11 @@ import numpy as np
 import torch
 
 from ..ops import (cdef_cuda, deblock_cuda, itx, itx_cuda, mc, mc_cuda,
-                   mcu_cuda)
+                   mcu_cuda, tools_cuda)
 from ..ops.looprestoration import pad_stripes, sgr_batch, wiener_batch
 from ..ops.itx_meta import WHT_WHT
-from ..ops.mc import (HPAD_L, PAD_OOB, comp_join_mask, comp_join_wavg,
-                      comp_join_wmask, gather_units, mc_hv_combos,
-                      obmc_blend_batch, resize_plane, scatter_slot_units,
-                      scatter_units, warp8x8_batch)
+from ..ops.mc import (HPAD_L, PAD_OOB, gather_units, mc_hv_combos,
+                      resize_plane, scatter_units)
 from . import intra
 
 
@@ -300,11 +305,16 @@ class McRun:
     `n_real` rows (a comp: a tuple a side, one count a sub-op; an obmc:
     one count a sub-op; "w" sub-ops' counts unused), and it gives each
     compound side and each OBMC lap batch its slot buffer in the frame's
-    arena. ``close`` inserts, where the MC records start, ("mcarena",
-    arena ints, offsets) when the frame has comp or obmc records
-    (offsets: a tuple each, in record order: a comp's two sides', an
-    obmc's lap batch's), then ("mcurun", table handle, work) and
-    ("mcsrun", table handle, work) for the lists with entries."""
+    arena. Before each ``comp`` record it emits ("comptab", table
+    handle): the table of the record's real slots that the join kernel
+    runs (comp_table), derived from the record's joins. ``close``
+    inserts, where the MC records start, ("mcarena", arena ints,
+    offsets) when the frame has comp or obmc records (offsets: a tuple
+    each, in record order: a comp's two sides', an obmc's lap batch's),
+    ("cmarena", ints) when it has seg joins (the seg-mask arena: a span
+    a seg luma slot, for its chroma mask), then ("mcurun", table handle,
+    work) and ("mcsrun", table handle, work) for the lists with
+    entries."""
 
     def __init__(self, prog):
         self.prog = prog
@@ -312,6 +322,8 @@ class McRun:
         self.units, self.scaled = [], []
         self.arena = 0
         self.offsets = []
+        self.masks = 0       # the seg-mask arena's ints
+        self.seg = {}        # seg luma join id -> (its slots, {slot: span})
 
     def _slots(self, pl, subops, n_real, N, bhp, bwp, prep):
         """Entries of one slot batch's "t" and "s" sub-ops; returns the
@@ -338,9 +350,58 @@ class McRun:
                     steps=mc.mc_steps(self.prog.array(h_rows)[:nr])))
         return off
 
+    def comp_table(self, bhp, bwp, joins, ss_hor, ss_ver, h_dy):
+        """The (n, mc.CJ_COLS) int32 table of a comp record's real slots
+        (those before its PAD_OOB pad slots; the JAX-form joins `joins`
+        cover every slot): join kind, weight or sign, mask offset. A seg
+        luma slot gets a new span of the seg-mask arena for its chroma
+        mask, a seg chroma slot the span of the luma slot its registry
+        entry names, a wedge slot the offset of its mask in the int32
+        buffer."""
+        arr = self.prog.array
+        dy = arr(h_dy)
+        n = int(np.sum(dy != PAD_OOB))
+        if (dy[:n] == PAD_OOB).any():
+            raise ValueError("comp: a real slot after a pad slot")
+        tab = np.full((n, mc.CJ_COLS), -1, np.int32)
+        for j in joins:
+            sl, par = arr(j[1]), arr(j[2])     # weights or signs
+            if j[0] == "wavg":
+                kind, moff = mc.CJ_WAVG, np.zeros(len(sl), np.int64)
+            elif j[0] == "segl":
+                kind = mc.CJ_SEGL
+                mh, mw = mc.seg_mask_shape(bhp, bwp, ss_hor, ss_ver)
+                spans = {}
+                for s in dict.fromkeys(sl.tolist()):
+                    if s < n:
+                        spans[s] = self.masks
+                        self.masks += mh * mw
+                self.seg[j[3]] = (sl, spans)
+                moff = np.asarray([spans.get(s, -1) for s in sl], np.int64)
+            elif j[0] == "segc":
+                kind = mc.CJ_SEGC
+                spec = j[3]
+                refs = (zip([spec[1]] * len(sl), arr(spec[2]))
+                        if spec[0] == "one" else spec[1])
+                moff = np.asarray([self.seg[c][1][int(self.seg[c][0][jj])]
+                                   for c, jj in refs], np.int64)
+            elif j[0] == "wedge":
+                kind = mc.CJ_WEDGE
+                moff = j[3][0] + np.arange(len(sl)) * (bhp * bwp)
+            for k in range(len(sl) - 1, -1, -1):   # first entry of a slot
+                if sl[k] < n:
+                    tab[sl[k]] = (kind, par[k], moff[k])
+        if (tab[:, 0] < 0).any():
+            raise ValueError("comp: a real slot that no join covers")
+        return tab
+
     def op(self, *rec, n_real):
-        self.prog.op(*rec)
         kind = rec[0]
+        if kind == "comp":
+            _, _, bwp, bhp, _, _, joins, ssh, ssv, h_dy, _ = rec
+            self.prog.op("comptab", self.prog.emit(
+                self.comp_table(bhp, bwp, joins, ssh, ssv, h_dy)))
+        self.prog.op(*rec)
         if kind == "put":
             _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
             self.units.append(dict(
@@ -375,6 +436,8 @@ class McRun:
         recs = []
         if self.offsets:
             recs.append(("mcarena", self.arena, tuple(self.offsets)))
+        if self.masks:
+            recs.append(("cmarena", self.masks))
         for kind, entries, scaled in (("mcurun", self.units, False),
                                       ("mcsrun", self.scaled, True)):
             if entries:
@@ -420,10 +483,10 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("mcarena", "mcurun", "mcsrun", "hpx", "puthv_x", "put", "warp",
-           "scaled", "comp", "obmc", "residmc", "residc", "hresmc", "hresc",
-           "itxrun", "dbk", "dbkrun", "snap", "cdef",
-           "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
+HANDLED = ("mcarena", "mcurun", "mcsrun", "cmarena", "hpx", "puthv_x",
+           "put", "warp", "scaled", "comptab", "comp", "obmc", "residmc",
+           "residc", "hresmc", "hresc", "itxrun", "dbk", "dbkrun", "snap",
+           "cdef", "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
            "resrawmc", "resrawc", "intrascan", "crop")
 
 # op kinds of the reference that no planner of the port emits -> why
@@ -462,18 +525,33 @@ def check_ops(ops):
     directly by the itxrun record that covers it, unless the frame's
     put, scaled, "t" and "s" work is covered by the mcurun and mcsrun
     records and its comp and obmc records by the mcarena record, all
-    three (those present) before the first of them, and unless the
-    frame's dbk records are followed by one dbkrun record with a plane's
-    maps for each."""
+    three (those present) before the first of them, unless each comp
+    record comes right after its comptab record (and each comptab right
+    before a comp record), a comp with seg joins after the frame's one
+    cmarena record, and unless the frame's dbk records are followed by
+    one dbkrun record with a plane's maps for each."""
     pending = 0
     need = {"mcurun": 0, "mcsrun": 0, "mcarena": 0}
     runs = {}
     n_dbk = None     # dbk records (None: the dbkrun seen, or none yet)
+    prev = None
     for rec in ops:
         kind = rec[0]
         if kind not in HANDLED:
             where = LATER.get(kind, "unknown op kind")
             raise NotImplementedError(f"frame op {kind!r}: {where}")
+        if (kind == "comp") != (prev == "comptab"):
+            raise ValueError("a comp record without its comptab record, "
+                             "or a comptab record without its comp")
+        prev = kind
+        if kind == "cmarena":
+            if kind in runs:
+                raise ValueError("cmarena twice")
+            runs[kind] = rec
+        elif kind == "comp" and "cmarena" not in runs and any(
+                j[0] in ("segl", "segc") for j in rec[6]):
+            raise ValueError("a comp record with seg joins before the "
+                             "frame's cmarena record")
         if kind == "dbk":
             if n_dbk is None and "dbkrun" in runs:
                 raise ValueError("dbk record after the frame's dbkrun")
@@ -503,6 +581,8 @@ def check_ops(ops):
             pending = 0
     if pending:
         raise ValueError(f"{pending} residual records without itxrun")
+    if prev == "comptab":
+        raise ValueError("a comptab record without its comp record")
     if n_dbk:
         raise ValueError(f"{n_dbk} dbk records without dbkrun")
     for kind, n in need.items():
@@ -552,7 +632,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         planes = [torch.zeros(s, dtype=torch.int32, device=dev)
                   for s in plane_shapes]
     hp = {}       # cache id -> H-plane stack
-    cms = {}      # seg-mask registry (chroma masks of the luma seg joins)
+    masks = None  # the seg-mask arena (chroma masks of the luma seg joins)
+    comp_tab = None   # the comptab record's table, for the comp after it
     snap = {}     # filter-chain plane snapshots (pre-CDEF, pre-LR)
     hres = []
     # residuals fit int16 at 8 bpc (dav1d's own coef type)
@@ -565,13 +646,13 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         bucket, at `off` in the arena: the mcurun and mcsrun records have
         written its whole-block translational units ("t") and its units
         from a scaled reference ("s"); its 8x8 warp units ("w") go in
-        here."""
+        here, a launch of the warp kernel a sub-op."""
         tmp = arena[off:off + N * bhp * bwp].view(N, bhp, bwp)
         for s in subops:
             if s[0] == "w":
                 _, h_rows, h_base = s
-                out = warp8x8_batch(refs[pl], get(h_rows), bd, prep)
-                scatter_slot_units(tmp, get(h_base), out, 8, 8, bwp)
+                tools_cuda.warp_slots(tmp, refs[pl], get(h_rows),
+                                      get(h_base), bd, prep)
         return tmp
 
     for rec in ops:
@@ -579,6 +660,8 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         if kind == "mcarena":
             arena = torch.zeros(rec[1], dtype=torch.int32, device=dev)
             slot_offs = iter(rec[2])
+        elif kind == "cmarena":
+            masks = torch.zeros(rec[1], dtype=torch.int32, device=dev)
         elif kind == "mcurun":
             _, h_tab, work = rec
             mcu_cuda.mc_units_run(get(h_tab), work, desc, desc16, planes,
@@ -602,45 +685,26 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                           uh, uw)
         elif kind == "warp":
             _, pl, h_rows, h_ys, h_xs = rec
-            out = warp8x8_batch(refs[pl], get(h_rows), bd, False)
-            scatter_units(planes[pl], out, get(h_ys), get(h_xs), 8, 8)
+            tools_cuda.warp_plane(planes[pl], refs[pl], get(h_rows),
+                                  get(h_ys), get(h_xs), bd)
+        elif kind == "comptab":
+            comp_tab = get(rec[1])
         elif kind == "comp":
-            (_, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx) = rec
+            # the joins of the record's real slots (comp_tab), stored
+            # into the plane; its JAX-form joins are comp_tab's source
+            (_, pl, bwp, bhp, N, sides, _, ssh, ssv, h_dy, h_dx) = rec
             offs = next(slot_offs)
             tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True, offs[i])
                     for i in (0, 1)]
-            out = torch.zeros((N, bhp, bwp), dtype=torch.int32, device=dev)
-            for j in joins:
-                if j[0] == "wavg":
-                    _, h_sl, h_w = j
-                    comp_join_wavg(out, tmps[0], tmps[1], get(h_sl),
-                                   get(h_w)[:, None, None], bd)
-                elif j[0] == "segl":
-                    _, h_sl, h_sgn, cmid = j
-                    _, cms[cmid] = comp_join_wmask(
-                        out, tmps[0], tmps[1], get(h_sl), get(h_sgn), ssh,
-                        ssv, bd)
-                elif j[0] == "segc":
-                    _, h_sl, h_sgn, spec = j
-                    if spec[0] == "one":
-                        m = cms[spec[1]].index_select(
-                            0, get(spec[2]).long())
-                    else:   # slots span several luma batches
-                        m = torch.stack([cms[cmid][jj]
-                                         for cmid, jj in spec[1]])
-                    comp_join_mask(out, tmps[0], tmps[1], get(h_sl),
-                                   get(h_sgn), m, bd)
-                else:       # wedge
-                    _, h_sl, h_sgn, h_masks = j
-                    comp_join_mask(out, tmps[0], tmps[1], get(h_sl),
-                                   get(h_sgn), get(h_masks), bd)
-            scatter_units(planes[pl], out, get(h_dy), get(h_dx), bhp, bwp)
+            tools_cuda.comp_record(planes[pl], tmps[0], tmps[1], comp_tab,
+                                   get(h_dy), get(h_dx), masks, desc, ssh,
+                                   ssv, bd)
         elif kind == "obmc":
             _, pl, lh, lw, region, vert, nL, subops, h_ys, h_xs = rec
             lap = side_tmp(pl, lw, lh, nL, subops, False,
                            next(slot_offs)[0])
-            obmc_blend_batch(planes[pl], lap, get(h_ys), get(h_xs), lh, lw,
-                             region, vert)
+            tools_cuda.obmc_plane(planes[pl], lap, get(h_ys), get(h_xs),
+                                  region, vert)
         elif kind in RESID_KINDS:
             pass    # run by the itxrun record that follows its run
         elif kind == "itxrun":

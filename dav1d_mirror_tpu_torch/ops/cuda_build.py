@@ -1,6 +1,7 @@
 """Build, load and argument checks shared by the wrappers of the
 hand-written CUDA kernels (``ops/mc_cuda.py``, ``ops/mcu_cuda.py``,
-``ops/itx_cuda.py``, ``ops/deblock_cuda.py``, ``ops/cdef_cuda.py``).
+``ops/itx_cuda.py``, ``ops/deblock_cuda.py``, ``ops/cdef_cuda.py``,
+``ops/tools_cuda.py``).
 
 Every source ``csrc/<name>.cu`` of ``SOURCES`` is compiled with ``nvcc``
 for ``sm_90a`` at first use, one ``nvcc`` per source, run side by side,
@@ -27,7 +28,7 @@ _PKG = os.path.join(os.path.dirname(__file__), os.pardir)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build", "kernels")
 SOURCES = ("mc_hplanes", "mc_vpass", "mc_units", "mc_scaled", "itx",
-           "deblock", "cdef")
+           "deblock", "cdef", "warp", "comp", "obmc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

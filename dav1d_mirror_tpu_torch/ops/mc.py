@@ -14,9 +14,9 @@ one subpel phase each; these functions run one bucket:
   plane.
 
 The rest of the inter toolset runs on whole-block batches: the compound
-joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``
-and the ``comp_join_*`` slot forms over ``set_slots`` /
-``scatter_slot_units``), the affine warp (``warp8x8_batch``) and the OBMC
+joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``;
+``comp_join_wavg``, the slot form over ``set_slots`` that the tile-sharded
+decode runs), the affine warp (``warp8x8_batch``) and the OBMC
 blend (``obmc_blend_batch``). Blocks whose reference has another size
 than the frame run ``mc_scaled_batch``; super-resolution upscales a plane
 with ``resize_plane``.
@@ -26,7 +26,11 @@ with ``resize_plane``.
 ``mc_units_run`` / ``mc_scaled_run`` a frame's work list of them
 (``mc_build_table``): the plain versions of the unit MC kernels
 ``csrc/mc_units.cu`` and ``csrc/mc_scaled.cu`` (wrappers in
-``ops/mcu_cuda.py``).
+``ops/mcu_cuda.py``). ``warp_plane`` / ``warp_slots`` (the warp with its
+destination write), ``comp_record`` (every join of a compound record,
+stored into the plane) and ``obmc_plane`` are the plain versions of the
+tool kernels ``csrc/warp.cu``, ``csrc/comp.cu`` and ``csrc/obmc.cu``
+(wrappers in ``ops/tools_cuda.py``).
 
 Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224, avg:589,
 w_avg:604, mask:620, w_mask:683, warp_affine_8x8:758 / 8x8t:793,
@@ -389,19 +393,70 @@ def _signed_pair(tmp0, tmp1, sl, sgn):
     return torch.where(s, t0, t1), torch.where(s, t1, t0)
 
 
-def comp_join_wmask(out, tmp0, tmp1, sl, sgn, ss_hor: int, ss_ver: int,
-                    bitdepth: int):
-    """Seg-mask join, luma: the sign-ordered operands, the w_mask, and the
-    chroma-subsampled masks. Returns (out, masks)."""
-    a, b = _signed_pair(tmp0, tmp1, sl, sgn)
-    res, cm = w_mask_batch(a, b, sgn, ss_hor, ss_ver, bitdepth)
-    return set_slots(out, sl, res), cm
+# ---------------------------------------------------------------------
+# a compound record's joins stored into the plane: the plain version of
+# csrc/comp.cu (wrapper ops/tools_cuda.comp_record). The record's table
+# (its "comptab" record, made by models/frame_exec.McRun) has a row a
+# real slot, in slot order: the join, its weight (CJ_WAVG: 8 for a plain
+# average) or mask sign, and its mask's offset (CJ_SEGL: where its
+# chroma mask goes in the frame's seg-mask arena; CJ_SEGC: where its
+# mask lies there; CJ_WEDGE: where its mask lies in the frame's int32
+# descriptor buffer).
+# ---------------------------------------------------------------------
+CJ_WAVG, CJ_SEGL, CJ_SEGC, CJ_WEDGE = range(4)
+CJ_COLS = 3
 
 
-def comp_join_mask(out, tmp0, tmp1, sl, sgn, masks, bitdepth: int):
-    """Wedge / seg-chroma masked join for slots sl."""
-    a, b = _signed_pair(tmp0, tmp1, sl, sgn)
-    return set_slots(out, sl, mask_batch(a, b, masks, bitdepth))
+def seg_mask_shape(bhp: int, bwp: int, ss_hor: int, ss_ver: int):
+    """(rows, columns) of the chroma mask that w_mask_batch derives from
+    a (bhp, bwp) luma slot."""
+    return (bhp >> ss_ver, bwp >> 1) if ss_hor else (bhp, bwp)
+
+
+def _flat_index(offs, n):
+    """(len(offs), n) indices of n consecutive values at each offset of a
+    flat tensor."""
+    return offs.long()[:, None] + torch.arange(n, device=offs.device)
+
+
+def comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc, ss_hor: int,
+                ss_ver: int, bitdepth: int):
+    """Every join of one compound record (w_avg_batch, w_mask_batch or
+    mask_batch on the sign-ordered pair of each slot) stored into the
+    plane by scatter_units. tmp0, tmp1: the (N, bhp, bwp) int32 side
+    slot buffers; tab: (n, CJ_COLS) int32, the table of slots 0..n-1 (the
+    record's real slots; the pad slots after them are not computed); dy,
+    dx: (>= n,) plane origins of the slots (pixels outside the plane are
+    dropped); masks: the frame's flat int32 seg-mask arena (None when the
+    frame has no seg join); desc: the frame's flat int32 descriptor
+    buffer. A seg luma slot's chroma mask (seg_mask_shape) is written
+    into `masks` at its offset. Updates plane (and masks) in place and
+    returns the plane."""
+    _, bhp, bwp = tmp0.shape
+    t = tab.cpu().numpy()
+    dy, dx = dy[:len(t)], dx[:len(t)]
+    for kind in (CJ_WAVG, CJ_SEGL, CJ_SEGC, CJ_WEDGE):
+        rows = np.flatnonzero(t[:, 0] == kind)
+        if not len(rows):
+            continue
+        idx = torch.from_numpy(rows).to(tmp0.device)
+        par = tab[idx, 1].to(torch.int32)
+        if kind == CJ_WAVG:
+            res = w_avg_batch(tmp0[idx], tmp1[idx], par[:, None, None],
+                              bitdepth)
+        else:
+            a, b = _signed_pair(tmp0, tmp1, idx, par)
+            moff = tab[idx, 2]
+            if kind == CJ_SEGL:
+                res, cm = w_mask_batch(a, b, par, ss_hor, ss_ver, bitdepth)
+                masks[_flat_index(moff, cm[0].numel())] = cm.reshape(
+                    len(rows), -1)
+            else:
+                src = masks if kind == CJ_SEGC else desc
+                m = src[_flat_index(moff, bhp * bwp)].view(-1, bhp, bwp)
+                res = mask_batch(a, b, m, bitdepth)
+        scatter_units(plane, res, dy[idx], dx[idx], bhp, bwp)
+    return plane
 
 
 # ---------------------------------------------------------------------
@@ -420,8 +475,12 @@ def _warp_table(device) -> torch.Tensor:
 
 def _warp_filters(wf, phase):
     """Filter rows of the warp phases: table row 64 + ((phase+512) >> 10),
-    clamped into the table as the reference's gather clamps it."""
-    idx = (64 + ((phase + 512) >> 10)).clamp(0, wf.shape[0] - 1)
+    taken as the reference's gather takes it: a negative row down to
+    -193 counts from the table's end, then the row is clamped into the
+    table (AV1's shear limits keep the row in 0..128)."""
+    n = wf.shape[0]
+    idx = 64 + ((phase + 512) >> 10)
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return wf[idx.long()]
 
 
@@ -467,10 +526,35 @@ def warp8x8_batch(ref_stack, args, bitdepth: int, prep: bool):
         0, (1 << bitdepth) - 1)
 
 
+def warp_plane(plane, ref_stack, rows, ys, xs, bitdepth: int):
+    """warp8x8_batch (put) of the (B, 10) int32 rows written into `plane`
+    at (ys, xs) by scatter_units: pixels outside the plane are dropped,
+    so are PAD_OOB pad rows. In place; returns the plane."""
+    out = warp8x8_batch(ref_stack, rows, bitdepth, False)
+    return scatter_units(plane, out, ys, xs, 8, 8)
+
+
+def warp_slots(buf, ref_stack, rows, base, bitdepth: int, prep: bool):
+    """warp8x8_batch of the (B, 10) int32 rows written at the flat
+    offsets `base` of the (N, bhp, bwp) slot buffer `buf` by
+    scatter_slot_units (pad rows repeat the last unit, with its values).
+    In place; returns buf."""
+    out = warp8x8_batch(ref_stack, rows, bitdepth, prep)
+    return scatter_slot_units(buf, base, out, 8, 8, buf.shape[2])
+
+
 # ---------------------------------------------------------------------
 # OBMC blends (dav1d mc_tmpl.c blend_v:655 / blend_h:668)
 # ---------------------------------------------------------------------
 OBMC_MASKS = np.asarray(TABLES["obmc_masks"], np.int32)  # (64,)
+
+
+@functools.lru_cache(maxsize=None)
+def obmc_mask_table(device) -> torch.Tensor:
+    """The OBMC blend masks as a contiguous int32 tensor on `device`, made
+    once: obmc_blend_batch slices it, and ops/tools_cuda hands it to the
+    kernel."""
+    return torch.as_tensor(OBMC_MASKS, device=device).contiguous()
 
 
 def obmc_blend_batch(plane, laps, ys, xs, lap_h: int, lap_w: int,
@@ -478,21 +562,27 @@ def obmc_blend_batch(plane, laps, ys, xs, lap_h: int, lap_w: int,
     """Blend (B, lap_h, lap_w) lap predictions into the plane at (ys, xs).
     vert=True: left-neighbour laps, mask over the first 3*region/4
     columns (region == lap_w); else top-neighbour laps, mask over the
-    first 3*region/4 rows (region == the blend area height). The whole
-    batch is read before any of it is written; the laps of one batch are
-    disjoint. Updates the plane IN PLACE and returns it."""
-    if vert:
-        ww = (region * 3) >> 2
-        m = np.zeros((1, 1, lap_w), np.int32)
-        m[0, 0, :ww] = OBMC_MASKS[region:region + ww]
-    else:
-        hh = (region * 3) >> 2
-        m = np.zeros((1, lap_h, 1), np.int32)
-        m[0, :hh, 0] = OBMC_MASKS[region:region + hh]
-    m = torch.from_numpy(m).to(plane.device)
+    first 3*region/4 rows (region == the blend area height, which may
+    exceed lap_h). The whole batch is read before any of it is written;
+    the laps of one batch are disjoint. Updates the plane IN PLACE and
+    returns it."""
+    n = (region * 3) >> 2
+    m = torch.zeros(lap_w if vert else lap_h, dtype=torch.int32,
+                    device=plane.device)
+    m[:n] = obmc_mask_table(plane.device)[region:region + n]
+    m = m.view(1, 1, lap_w) if vert else m.view(1, lap_h, 1)
     reg = gather_units(plane, ys, xs, lap_h, lap_w).to(torch.int32)
     out = (reg * (64 - m) + laps * m + 32) >> 6
     return scatter_units(plane, out, ys, xs, lap_h, lap_w)
+
+
+def obmc_plane(plane, laps, ys, xs, region: int, vert: bool):
+    """obmc_blend_batch of the (nL, lap_h, lap_w) int32 lap slot buffer
+    `laps` at (ys, xs) (PAD_OOB pad laps write nothing). In place;
+    returns the plane."""
+    _, lap_h, lap_w = laps.shape
+    return obmc_blend_batch(plane, laps, ys, xs, lap_h, lap_w, region,
+                            vert)
 
 
 # ---------------------------------------------------------------------

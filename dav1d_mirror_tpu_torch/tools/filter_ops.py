@@ -172,11 +172,14 @@ def measure(label, stream, frame, reps):
 
 def _wrappers():
     """(module, name) of every kernel wrapper the executor calls."""
-    from ..ops import cdef_cuda, deblock_cuda, itx_cuda, mc_cuda, mcu_cuda
+    from ..ops import (cdef_cuda, deblock_cuda, itx_cuda, mc_cuda, mcu_cuda,
+                       tools_cuda)
     return [(mc_cuda, "mc_hplanes"), (mc_cuda, "mc_unit_batch_hv"),
             (mcu_cuda, "mc_units_run"), (mcu_cuda, "mc_scaled_run"),
             (itx_cuda, "itx_run"), (deblock_cuda, "deblock_frame"),
-            (cdef_cuda, "cdef_frame")]
+            (cdef_cuda, "cdef_frame")] + [
+        (tools_cuda, n) for n in ("warp_plane", "warp_slots", "comp_record",
+                                  "obmc_plane")]
 
 
 def main():

@@ -1,0 +1,344 @@
+"""Synthetic cases of the inter tool kernels (``csrc/warp.cu``,
+``csrc/comp.cu``, ``csrc/obmc.cu``) and their check on the card.
+
+    python3 -m dav1d_mirror_tpu_torch.tools.tools_cases
+
+The case functions (numpy, from a seed) serve ``chip_smoke.py``'s tools
+phase and the CPU tests (``tests/test_torch_tools_kernels.py``, which
+hold the plain versions to the JAX package on them):
+
+- warp: bit depths 8, 10 and 12, put into a plane (units on the 8x8 grid,
+  some cut by the plane's edges, PAD_OOB pad rows) and put or prep into
+  slots of a slot buffer (8x8 sub-rects, pad rows repeating the last
+  unit); windows far outside the reference; phases whose table rows lie
+  above the table, in [-193, -1] (counted from its end) and below -193;
+- comp: bit depths 8, 10 and 12 in the 4:2:0, 4:2:2 and 4:4:4 layouts:
+  two luma records and two chroma records of one frame, every join kind
+  (average, distance weights, wedge, seg luma, seg chroma from one luma
+  record and from both), both mask signs, pad slots and padded join
+  lists as the planner makes them, blocks cut by the plane's edges; the
+  records' tables come from ``models/frame_exec.McRun.comp_table``;
+- obmc: top laps (rows blended; the blended rows may exceed the lap's
+  rows) and left laps (columns), disjoint laps some cut by the plane's
+  edges, PAD_OOB pad laps.
+
+Run as a module on a machine with a CUDA card, it holds every case's
+kernel result to its plain version's (``torch.equal``) and prints the
+count.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from ..ops.mc import PAD_OOB
+
+BDS = (8, 10, 12)
+LAYOUTS = ((1, 1), (1, 0), (0, 0))
+# OBMC laps: (vert, lap_h, lap_w, region), as the planner makes them
+# (_plan_obmc): top laps of 4x4 to 32x32 blocks in luma and chroma
+# (region = the blended rows, 3/4 of them masked; the lap has
+# (3 oh4 + 3) / 4 of oh4 rows), left laps (region = lap_w)
+OBMC_SHAPES = ((False, 12, 16, 16), (False, 24, 32, 32), (False, 4, 8, 4),
+               (False, 12, 8, 16), (False, 2, 4, 2), (True, 16, 8, 8),
+               (True, 8, 16, 16), (True, 4, 2, 2), (True, 32, 16, 16))
+
+
+def prep_values(rng, bd, shape):
+    """Prep-domain intermediates: pixel << ib minus the 8192 bias above 8
+    bit, with filter overshoot on both sides."""
+    ib = 4 if bd == 8 else 14 - bd
+    lo, hi = -(1 << (bd + ib - 3)), (1 << (bd + ib)) + (1 << (bd + ib - 3))
+    bias = 0 if bd == 8 else 8192
+    return (rng.integers(lo, hi, shape) - bias).astype(np.int32)
+
+
+def grid_units(rng, n, uh, uw, H, W):
+    """(ys, xs) of n disjoint (uh, uw) units on the unit grid of an (H, W)
+    plane and the row and column past its edges (units cut by them)."""
+    gy, gx = H // uh + 1, W // uw + 1
+    cells = rng.permutation(gy * gx)[:n]
+    return (cells // gx * uh).astype(np.int32), \
+        (cells % gx * uw).astype(np.int32)
+
+
+def pad_to(a, n, fill=None):
+    """a (rows first) padded to n rows with `fill`, or with its last row."""
+    extra = np.repeat(a[-1:], n - len(a), 0) if fill is None else \
+        np.full((n - len(a),) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, extra]).astype(a.dtype)
+
+
+def warp_rows(rng, n, refs_shape):
+    """(n, 10) warp rows (ref, oy, ox, mx, my, alpha, beta, gamma, delta,
+    0) as the planner makes them (_warp_rows), with window origins
+    inside and far outside the reference; rows 1-3 with phases whose
+    table rows lie above the table, in [-193, -1] and below -193."""
+    r, h, w = refs_shape
+    al, be, ga, de = (rng.integers(-24, 25, n) * 64 for _ in range(4))
+    mx = (rng.integers(0, 1 << 16, n) - al * 4 - be * 7) & ~0x3F
+    my = (rng.integers(0, 1 << 16, n) - ga * 4 - de * 4) & ~0x3F
+    for k, ph in ((1, 140000), (2, -167936), (3, -307200)):
+        mx[k], my[k] = ph, -ph // 2
+        al[k] = be[k] = ga[k] = de[k] = 12000 * (k - 2)
+    oy = rng.integers(-30, h + 20, n)
+    ox = rng.integers(-30, w + 20, n)
+    return np.stack([rng.integers(0, r, n), oy, ox, mx, my, al, be, ga, de,
+                     np.zeros(n, np.int64)], 1).astype(np.int32)
+
+
+def warp_cases(rng):
+    """[(label, kw)]: kw = dict(refs, rows, bd, and either plane, ys, xs
+    (warp_plane) or buf, base, prep (warp_slots))."""
+    out = []
+    for bd in BDS:
+        refs = rng.integers(0, 1 << bd, (3, 40, 56)).astype(np.int32)
+        # into a plane: 13 real units, 3 pad rows
+        H, W = 48, 64
+        rows = pad_to(warp_rows(rng, 13, refs.shape), 16)
+        ys, xs = grid_units(rng, 13, 8, 8, H, W)
+        out.append((f"warp plane bd{bd}", dict(
+            refs=refs, rows=rows, bd=bd,
+            plane=rng.integers(0, 1 << bd, (H, W)).astype(np.int32),
+            ys=pad_to(ys, 16, PAD_OOB), xs=pad_to(xs, 16))))
+        # into slots: (4, 16, 24) slot buffer, 8x8 sub-rects, pads
+        # repeating the last unit
+        for prep in (False, True):
+            N, bhp, bwp = 4, 16, 24
+            cells = rng.permutation(N * 6)[:11]
+            base = (cells // 6 * bhp * bwp + cells % 6 // 3 * 8 * bwp +
+                    cells % 3 * 8).astype(np.int32)
+            out.append((f"warp slots bd{bd} {'prep' if prep else 'put'}",
+                        dict(refs=refs, bd=bd, prep=prep,
+                             rows=pad_to(warp_rows(rng, 11, refs.shape), 16),
+                             buf=rng.integers(-99, 99, (N, bhp, bwp)).astype(
+                                 np.int32), base=pad_to(base, 16))))
+    return out
+
+
+def _join_lists(kinds):
+    """{kind: slot list padded to a power of two with its last slot}, as
+    the planner pads a record's join lists."""
+    by = {}
+    for s, k in enumerate(kinds):
+        by.setdefault(k, []).append(s)
+    out = {}
+    for k, sl in sorted(by.items()):
+        p = 1
+        while p < len(sl):
+            p *= 2
+        out[k] = np.asarray(sl + [sl[-1]] * (p - len(sl)), np.int32)
+    return out
+
+
+def comp_case(rng, bd, ssh, ssv, bw=16, bh=8, H=48, W=80):
+    """One frame's compound records: two luma records (every luma join)
+    and two chroma records (the second with seg slots of both luma
+    records). Returns dict(bd, ssh, ssv, desc (the frame's int32
+    buffer), cm_n (seg-mask arena ints), planes ((H, W) luma, chroma),
+    records [dict(pl, bwp, bhp, N, joins (the JAX form, handles into
+    desc), h_dy, h_dx, h_tab, tmp0, tmp1)])."""
+    from ..models.frame_exec import FrameProgram, McRun
+    Hc, Wc = H >> ssv, W >> ssh
+    prog = FrameProgram(3, bd, [(H, W), (Hc, Wc), (Hc, Wc)])
+    run = McRun(prog)
+    recs = []
+    blocks = []     # per luma record: {block slot: (kind, sign, weight)}
+
+    def record(pl, bwp, bhp, ents, dsts, cmask):
+        """ents [(kind, sign, weight)] of the real slots; one pad slot
+        copying the last, PAD_OOB; joins as the planner emits them."""
+        n = len(ents)
+        N = 1
+        while N < n + 1:
+            N *= 2
+        ents = ents + [ents[-1]] * (N - n)
+        if pl and n - 1 in cmask:    # a pad slot names the last's mask
+            cmask.update({s: cmask[n - 1] for s in range(n, N)})
+        dy = np.full(N, PAD_OOB, np.int32)
+        dx = np.zeros(N, np.int32)
+        dy[:n], dx[:n] = dsts
+        joins = []
+        for kind, sl in _join_lists([e[0] for e in ents]).items():
+            h_sl = prog.emit(sl)
+            h_sgn = prog.emit(np.asarray([ents[s][1] for s in sl], np.int32))
+            if kind == "wavg":
+                joins.append(("wavg", h_sl, prog.emit(np.asarray(
+                    [ents[s][2] for s in sl], np.int32))))
+            elif kind == "wedge":
+                m = rng.integers(0, 65, (N, bhp, bwp)).astype(np.int32)
+                joins.append(("wedge", h_sl, h_sgn, prog.emit(m[sl])))
+            elif pl == 0:
+                cmid = prog.new_cm()
+                joins.append(("segl", h_sl, h_sgn, cmid))
+                for j, s in enumerate(sl):
+                    cmask[s] = (cmid, j)
+            else:
+                refs = [cmask[s] for s in sl]
+                spec = ("one", refs[0][0], prog.emit(np.asarray(
+                    [r[1] for r in refs], np.int32))) if all(
+                    r[0] == refs[0][0] for r in refs) else \
+                    ("mix", tuple(refs))
+                joins.append(("segc", h_sl, h_sgn, spec))
+        h_dy, h_dx = prog.emit(dy), prog.emit(dx)
+        h_tab = prog.emit(run.comp_table(bhp, bwp, joins, ssh, ssv, h_dy))
+        recs.append(dict(pl=pl, bwp=bwp, bhp=bhp, N=N, joins=tuple(joins),
+                         h_dy=h_dy, h_dx=h_dx, h_tab=h_tab,
+                         tmp0=prep_values(rng, bd, (N, bhp, bwp)),
+                         tmp1=prep_values(rng, bd, (N, bhp, bwp))))
+
+    kinds = ("wavg", "seg", "wedge", "seg", "wavg", "seg", "wedge")
+    ys, xs = grid_units(rng, 2 * len(kinds), bh, bw, H, W)
+    luma_cm = []
+    for r in range(2):
+        ents = [(k, int(rng.integers(0, 2)), 8 if i % 2 else
+                 int(rng.integers(1, 16)))
+                for i, k in enumerate(kinds[r:] + kinds[:r])]
+        sl = slice(r * len(kinds), (r + 1) * len(kinds))
+        cm = {}
+        record(0, bw, bh, [(("segl" if k == "seg" else k), s, w)
+                           for k, s, w in ents], (ys[sl], xs[sl]), cm)
+        luma_cm.append(cm)
+        blocks.append([(k, s, w, y, x) for (k, s, w), y, x in
+                       zip(ents, ys[sl], xs[sl])])
+    # chroma: record 0's blocks, then blocks of both records
+    for pick in (blocks[0], blocks[0][:4] + blocks[1][:4]):
+        cm = {}
+        ents, dst = [], []
+        for i, (k, s, w, y, x) in enumerate(pick):
+            src = 0 if pick is blocks[0] or i < 4 else 1
+            slot = blocks[src].index((k, s, w, y, x))
+            if k == "seg":
+                cm[len(ents)] = luma_cm[src][slot]
+            ents.append(("segc" if k == "seg" else k, s, w))
+            dst.append((y >> ssv, x >> ssh))
+        record(1, bw >> ssh, bh >> ssv, ents,
+               tuple(np.asarray(d, np.int32) for d in zip(*dst)), cm)
+    desc = prog.finalize()[1]
+    return dict(bd=bd, ssh=ssh, ssv=ssv, desc=desc, cm_n=run.masks,
+                planes=[rng.integers(0, 1 << bd, (H, W)).astype(np.int32),
+                        rng.integers(0, 1 << bd, (Hc, Wc)).astype(np.int32)],
+                records=recs)
+
+
+def comp_cases(rng):
+    return [(f"comp bd{bd} ss({ssh},{ssv})", comp_case(rng, bd, ssh, ssv))
+            for bd in BDS for ssh, ssv in LAYOUTS]
+
+
+def obmc_cases(rng):
+    """[(label, kw)]: kw = dict(plane, laps, ys, xs, region, vert): 6 real
+    laps, disjoint as the planner's are, on the lap grid of a plane of
+    odd sides (the grid's last row and column are cut by its edges; the
+    bottom right lap is one of them), and 2 PAD_OOB pad laps."""
+    out = []
+    H, W = 71, 95
+    for vert, lh, lw, region in OBMC_SHAPES:
+        gy, gx = H // lh + 1, W // lw + 1
+        cells = np.concatenate([[gy * gx - 1],
+                                rng.permutation(gy * gx - 1)[:5]])
+        ys = (cells // gx * lh).astype(np.int32)
+        xs = (cells % gx * lw).astype(np.int32)
+        out.append((f"obmc {'left' if vert else 'top'} {lw}x{lh} region "
+                    f"{region}", dict(
+                        plane=rng.integers(0, 4096, (H, W)).astype(np.int32),
+                        laps=rng.integers(0, 4096, (8, lh, lw)).astype(
+                            np.int32),
+                        ys=pad_to(ys, 8, PAD_OOB), xs=pad_to(xs, 8),
+                        region=region, vert=vert)))
+    return out
+
+
+def to_torch(v, dev):
+    """numpy arrays (also inside dicts, lists and tuples) as new tensors
+    on dev (copies: the wrappers write their destinations in place)."""
+    import torch
+    if isinstance(v, dict):
+        return {k: to_torch(x, dev) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(np.array(v)).to(dev)
+    if isinstance(v, (list, tuple)):
+        return type(v)(to_torch(x, dev) for x in v)
+    return v
+
+
+def run_warp(mod, kw, dev):
+    """A warp case through `mod`'s warp_plane or warp_slots (ops/mc or
+    ops/tools_cuda) on fresh tensors on dev; returns the destination."""
+    a = to_torch(kw, dev)
+    if "plane" in a:
+        return mod.warp_plane(a["plane"], a["refs"], a["rows"], a["ys"],
+                              a["xs"], kw["bd"])
+    return mod.warp_slots(a["buf"], a["refs"], a["rows"], a["base"],
+                          kw["bd"], kw["prep"])
+
+
+def comp_slice(desc, h):
+    """The view of handle h in the flat int32 buffer desc."""
+    n = int(np.prod(h[1]))
+    return desc[h[0]:h[0] + n].reshape(h[1])
+
+
+def run_comp(mod, case, dev):
+    """A comp case's records through `mod`'s comp_record, in order, on
+    fresh tensors on dev; returns (luma plane, chroma plane, the
+    seg-mask arena)."""
+    import torch
+    desc = to_torch(case["desc"], dev)
+    planes = to_torch(case["planes"], dev)
+    masks = torch.zeros(case["cm_n"], dtype=torch.int32, device=dev)
+    for r in case["records"]:
+        mod.comp_record(planes[r["pl"]], to_torch(r["tmp0"], dev),
+                        to_torch(r["tmp1"], dev), comp_slice(desc, r["h_tab"]),
+                        comp_slice(desc, r["h_dy"]),
+                        comp_slice(desc, r["h_dx"]), masks, desc,
+                        case["ssh"], case["ssv"], case["bd"])
+    return planes[0], planes[1], masks
+
+
+def run_obmc(mod, kw, dev):
+    """An obmc case through `mod`'s obmc_plane on fresh tensors on dev;
+    returns the plane."""
+    a = to_torch(kw, dev)
+    return mod.obmc_plane(a["plane"], a["laps"], a["ys"], a["xs"],
+                          kw["region"], kw["vert"])
+
+
+def check_all(torch, dev, seed=2027):
+    """Every synthetic case through the kernel wrappers and the plain
+    versions on `dev`: [(label, equal)] (the wrappers' launches counted
+    as usual)."""
+    from ..ops import mc, tools_cuda
+    rng = np.random.default_rng(seed)
+    res = []
+    for label, kw in warp_cases(rng):
+        res.append((label, torch.equal(run_warp(tools_cuda, kw, dev),
+                                       run_warp(mc, kw, dev))))
+    for label, case in comp_cases(rng):
+        got, want = run_comp(tools_cuda, case, dev), run_comp(mc, case, dev)
+        res.append((label, all(map(torch.equal, got, want))))
+    for label, kw in obmc_cases(rng):
+        res.append((label, torch.equal(run_obmc(tools_cuda, kw, dev),
+                                       run_obmc(mc, kw, dev))))
+    return res
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("tools_cases: torch.cuda is not available", file=sys.stderr)
+        return 1
+    res = check_all(torch, torch.device("cuda"))
+    torch.cuda.synchronize()
+    bad = [lb for lb, ok in res if not ok]
+    for lb in bad:
+        print(f"UNEQUAL: {lb}")
+    print(f"tools_cases: {len(res) - len(bad)} of {len(res)} cases "
+          f"torch.equal with the plain versions on "
+          f"{torch.cuda.get_device_name(0)}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,6 +4,8 @@ compiler replaced by a stub that returns chosen ``-Xptxas -v`` output (no
 up-to-date one on the saved log of the build that made it; one whose
 saved log has no ptxas lines is rebuilt with ``-v``; and the gate fails
 on a stack frame or spill, and where no ptxas lines can be had at all.
+The inter tool kernels' sources (warp, comp, obmc) are built and gated
+like the others.
 ``cuda_build.build_variants`` (a tool's timing builds) builds a source
 once a tag with its macros, through the same stub. Tolerance: exact (pass or fail)."""
 import pytest
@@ -67,6 +69,24 @@ def test_stack_frame_fails(monkeypatch, tmp_path, where):
     _stub(monkeypatch, tmp_path, fresh, saved, bad)
     with pytest.raises(AssertionError, match="stack frame or spills"):
         chip_smoke.build_all()
+
+
+@pytest.mark.parametrize("name", ["warp", "comp", "obmc"])
+def test_tool_kernels_are_built_and_gated(monkeypatch, tmp_path, name):
+    """Each inter tool kernel's source is one of cuda_build.SOURCES (so it
+    is built at first use) and of the gate's NO_SPILL set: a spill in its
+    fresh build fails the gate, and a clean one passes."""
+    assert name in cuda_build.SOURCES and name in chip_smoke.NO_SPILL
+    names = sorted(chip_smoke.NO_SPILL)
+    spill = _ptxas(name).replace("0 bytes spill stores",
+                                 "8 bytes spill stores")
+    _stub(monkeypatch, tmp_path, {name: spill},
+          {n: _ptxas(n) for n in names if n != name}, {})
+    with pytest.raises(AssertionError, match="stack frame or spills"):
+        chip_smoke.build_all()
+    _stub(monkeypatch, tmp_path, {name: _ptxas(name)},
+          {n: _ptxas(n) for n in names if n != name}, {})
+    chip_smoke.build_all()
 
 
 def test_no_ptxas_lines_fails(monkeypatch, tmp_path):
