@@ -24,9 +24,11 @@ Run from the root of a checkout. It
    (the direction search and the filter of the frame's planes), both
    also in the tile-sharded decode (its band functions: a pass launch
    each way a plane, the direction search and a filter launch a
-   plane), the warp kernel once for each warp record and "w" sub-op, the
+   plane), the warp kernel once for each warprun record (a frame's warp
+   records and "w" sub-ops in one work list, at most once a frame), the
    compound join kernel once for each comp record and the OBMC kernel
-   once for each obmc record (each path's launches printed):
+   once for each obmcrun record (a phase's obmc records of every plane,
+   at most twice a frame) (each path's launches printed):
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -144,20 +146,25 @@ Run from the root of a checkout. It
    CDEF frame the same way; and config 2's frame 3 and config 3's frame 2
    filter programs are replayed with the kernels and with the plain
    versions in their place (no plain deblock or CDEF function may run in
-   the kernel route), counting eager ops. The inter tool kernels
-   (warp, compound joins, OBMC blend; one launch a record) are held to
-   ``torch.equal`` with their plain versions (ops/mc.warp_plane,
-   warp_slots, comp_record, obmc_plane) on the synthetic cases of
-   tools/tools_cases (bd 8/10/12, the three layouts, every join kind,
-   pad slots and rows, edge-cut units, phases past the warp table, both
-   OBMC phases) and on every path's own largest call of each wrapper;
-   the tools path's frame 1 calls of each kernel are timed warm and cold
-   against a byte and operation bound, beside their plain version's
-   device and wall time; and the tools path's frame 1 and the super-res
-   path's frame 4 are replayed with the kernels and with their plain
-   versions in their place (no warp8x8_batch, join, obmc_blend_batch or
-   scatter_slot_units may run in the kernel route), counting eager ops
-   by family;
+   the kernel route), counting eager ops. The inter tool kernels (the
+   warp and the OBMC blend: work-list kernels, one launch a warprun or
+   obmcrun record; the compound joins: one launch a comp record) are
+   held to ``torch.equal`` with their plain versions (ops/mc.warp_run,
+   comp_record, obmc_run) on the synthetic cases of tools/tools_cases
+   (bd 8/10/12, the three layouts, every join kind, pad slots and rows,
+   edge-cut units, phases past the warp table, both OBMC phases; each
+   warp and OBMC case as a one-entry list, and a mixed list of each a
+   bit depth) and on every path's own largest call of each wrapper; the
+   tools path's frame 1 calls of each kernel (its warprun, its comp
+   records, its two obmcrun records) are timed warm and cold against a
+   byte and operation bound, the warp and OBMC runs also in turns with
+   the same entries as one-entry launches (an entry a launch, as the
+   records ran before), beside their plain version's device and wall
+   time; and the tools path's frame 1 and the super-res path's frame 4
+   are replayed with the kernels and with their plain versions in their
+   place (no warp8x8_batch, join, obmc_blend_batch, scatter_slot_units
+   or per-record plain tool function may run in the kernel route),
+   counting eager ops by family;
 4. prints the kernel table (ms in the JSON line is the warm time), each
    path's per-frame times, op kinds per frame and stage split, the
    engine path's waves, units and eager ops per wave beside the hybrid
@@ -301,13 +308,15 @@ NO_SPILL = {"itx", "mc_units", "mc_scaled", "deblock", "cdef", "warp",
             "comp", "obmc"}
 # the inter tool wrappers (ops/tools_cuda; their plain versions in ops/mc)
 # -> their kernel row
-TOOLS_FNS = {"warp_plane": "warp", "warp_slots": "warp",
-             "comp_record": "comp", "obmc_plane": "obmc"}
+TOOLS_FNS = {"warp_run": "warp", "comp_record": "comp", "obmc_run": "obmc"}
+# the warp and OBMC work-list wrappers -> ints a table entry (ops/mc)
+TOOLS_RUNS = {"warp_run": "WENTRY", "obmc_run": "OENTRY"}
 # the functions that ran the tools as eager ops before their kernels
 # (ops/mc): none may run in the kernel route of a replay
 TOOLS_EAGER = ("warp8x8_batch", "obmc_blend_batch", "comp_join_wavg",
                "w_avg_batch", "mask_batch", "w_mask_batch",
-               "scatter_slot_units", *TOOLS_FNS)
+               "scatter_slot_units", "warp_plane", "warp_slots",
+               "obmc_plane", *TOOLS_FNS)
 # integer operations a warp unit (120 horizontal and 64 vertical 8-tap
 # sums, a multiply and an add a tap), a joined pixel and a blended pixel
 WARP_UNIT_OPS = 2 * 8 * (120 + 64)
@@ -589,10 +598,10 @@ class ToolsLog(CallLog):
     """Keeps, of the inter tool kernels' wrappers' (TOOLS_FNS) calls, the
     largest of each wrapper by its outputs (`calls` {wrapper: (args,
     kwargs)}) and every call while `keep` is set (`kept`: [(wrapper,
-    (args, kwargs))]). Arguments are cloned (the wrappers write their
-    destinations in place, and obmc_plane reads the plane it writes),
-    but for the warp's reference stack, which is never written after it
-    is made."""
+    (args, kwargs))]; a run by its units or pixels). Arguments are
+    cloned (the wrappers write their destinations in place, and obmc_run
+    reads the planes it writes), but for the warp's reference stacks,
+    which are never written after they are made."""
 
     def __init__(self):
         from dav1d_mirror_tpu_torch.ops import tools_cuda
@@ -600,10 +609,10 @@ class ToolsLog(CallLog):
         self.calls = {}
 
     def seen(self, name, a, k):
-        if name.startswith("warp"):
-            return "calls", name, a[2].shape[0] * 64, lambda: (
-                (_clone(a[0]), a[1]) + _clone(a[2:]), _clone(k))
-        size = _numel(a[1]) if name == "obmc_plane" else \
+        if name == "warp_run":
+            return "calls", name, a[1][1], lambda: (
+                _clone(a[:5]) + (a[5],) + _clone(a[6:]), _clone(k))
+        size = a[1][1] if name == "obmc_run" else \
             a[3].shape[0] * a[1][0].numel()
         return "calls", name, size, lambda: _clone((a, k))
 
@@ -2338,9 +2347,14 @@ def tools_plain():
 
 
 def _tools_dst(name, args):
-    """The tensors a tool wrapper's call writes: its destination (and a
-    comp record's seg-mask arena)."""
-    if name == "comp_record" and args[6] is not None:
+    """The tensors a tool wrapper's call writes: its destinations (a
+    warp run's planes and arena, an OBMC run's planes; a comp record's
+    plane and its seg-mask arena)."""
+    if name == "warp_run":
+        return tuple(args[4]) + ((args[6],) if args[6] is not None else ())
+    if name == "obmc_run":
+        return tuple(args[3])
+    if args[6] is not None:
         return (args[0], args[6])
     return (args[0],)
 
@@ -2364,12 +2378,14 @@ def tools_compare(torch, name, args, kwargs):
 
 def _tools_describe(name, args):
     """A tool wrapper call's work, for a case label."""
-    if name.startswith("warp"):
-        return f"{args[2].shape[0]} units into {tuple(args[0].shape)}"
+    if name == "warp_run":
+        return (f"{args[1][1]} units of {args[1][0]} entries into "
+                f"{[tuple(p.shape) for p in args[4]]}")
     if name == "comp_record":
         return (f"{args[3].shape[0]} slots of {tuple(args[1].shape[1:])} "
                 f"into {tuple(args[0].shape)}")
-    return f"laps {tuple(args[1].shape)} into {tuple(args[0].shape)}"
+    return (f"{args[1][1]} pixels of {args[1][0]} lap entries into "
+            f"{[tuple(p.shape) for p in args[3]]}")
 
 
 def _inside(np, ys, xs, uh, uw, shape):
@@ -2383,36 +2399,48 @@ def _inside(np, ys, xs, uh, uw, shape):
 
 def tools_cost(np, name, args):
     """(bytes, operations) one tool wrapper call needs, from its data:
-    each input read once (a warp: the distinct reference pixels its real
-    units' clamped windows cover, its rows and destinations; a comp: the
-    real slots' sides, their masks, table and origins; an obmc: the real
-    laps' blended pixels inside the plane, read from the lap and the
-    plane), each output written once (the pixels inside the plane or
-    the slots, a seg luma slot's chroma mask); WARP_UNIT_OPS a warp
-    unit, COMP_PIXEL_OPS a joined and OBMC_PIXEL_OPS a blended pixel."""
+    each input read once (a warp run: its table, the distinct reference
+    pixels its units' clamped windows cover in each plane's stack, their
+    rows and destinations; a comp: the real slots' sides, their masks,
+    table and origins; an OBMC run: its table, the blended pixels inside
+    the planes of its laps, read from the lap and the plane, their
+    origins, the mask values), each output written once (the pixels
+    inside the plane or the slots, a seg luma slot's chroma mask);
+    WARP_UNIT_OPS a warp unit, COMP_PIXEL_OPS a joined and
+    OBMC_PIXEL_OPS a blended pixel. A run counts its real rows and laps
+    only: the pad rows are not work of its list."""
     from dav1d_mirror_tpu_torch.ops import mc
-    if name.startswith("warp"):
-        dst, ref, rows = args[:3]
-        r = rows.cpu().numpy().astype(np.int64)
-        if name == "warp_plane":
-            ys, xs = args[3].cpu().numpy(), args[4].cpu().numpy()
-            real = ys != mc.PAD_OOB
-            out_px = _inside(np, ys[real], xs[real], 8, 8, dst.shape)
-            n_bytes = 8 * len(ys)
-        else:
-            base = args[3].cpu().numpy()
-            real = np.zeros(len(base), bool)
-            real[np.unique(base, return_index=True)[1]] = True
-            out_px = 64 * int(real.sum())
-            n_bytes = 4 * len(base)
-        R, H, W = ref.shape
-        seen = np.zeros((R, H, W), bool)
+    if name == "warp_run":
+        tab, work, desc, desc16, planes, refs = args[:6]
+        d32, d16 = desc.cpu().numpy(), desc16.cpu().numpy()
+        n_bytes, out_px, units = 4 * tab.numel(), 0, 0
+        seen = [np.zeros(tuple(r.shape), bool) for r in refs]
         k = np.arange(15)
-        for n, oy, ox in r[real][:, :3]:
-            seen[min(max(n, 0), R - 1), np.clip(oy + k, 0, H - 1)[:, None],
-                 np.clip(ox + k, 0, W - 1)[None, :]] = True
-        n_bytes += 4 * int(seen.sum()) + 40 * len(r) + 4 * out_px
-        return n_bytes, WARP_UNIT_OPS * int(real.sum())
+        for e in mc.table_rows(tab, work[0], mc.WENTRY):
+            n, fl, pl = e[mc.W_NREAL], e[mc.W_FLAGS], e[mc.W_PLANE]
+            rows = d32[e[mc.W_ROWS]:e[mc.W_ROWS] + 10 * n].reshape(
+                n, 10).astype(np.int64)
+            w = 2 if fl & mc.WF_YS16 else 4
+            ys = (d16 if w == 2 else d32)[e[mc.W_YS]:e[mc.W_YS] + n]
+            if fl & mc.WF_SLOT:
+                out_px += 64 * n
+                n_bytes += w * n
+            else:
+                xs = (d16 if fl & mc.WF_XS16 else d32)[
+                    e[mc.W_XS]:e[mc.W_XS] + n]
+                out_px += _inside(np, ys.astype(np.int64),
+                                  xs.astype(np.int64), 8, 8,
+                                  tuple(planes[pl].shape))
+                n_bytes += 2 * w * n
+            R, H, W = seen[pl].shape
+            yy = np.clip(rows[:, 1, None] + k, 0, H - 1)
+            xx = np.clip(rows[:, 2, None] + k, 0, W - 1)
+            seen[pl][np.clip(rows[:, 0], 0, R - 1)[:, None, None],
+                     yy[:, :, None], xx[:, None, :]] = True
+            n_bytes += 40 * n
+            units += n
+        n_bytes += 4 * sum(int(v.sum()) for v in seen) + 4 * out_px
+        return n_bytes, WARP_UNIT_OPS * units
     if name == "comp_record":
         plane, tmp0, _, tab, dy, dx = args[:6]
         t = tab.cpu().numpy()
@@ -2425,33 +2453,69 @@ def tools_cost(np, name, args):
         n_bytes = 4 * (2 * n * bhp * bwp + 5 * n + px + seg_l * mh * mw +
                        len(np.unique(t[masked, 2])) * bhp * bwp)
         return n_bytes, COMP_PIXEL_OPS * n * bhp * bwp
-    plane, laps, ys, xs, region, vert = args[:6]
-    _, lh, lw = laps.shape
-    k = (region * 3) >> 2
-    rows, cols = (lh, min(k, lw)) if vert else (min(k, lh), lw)
-    y, x = ys.cpu().numpy(), xs.cpu().numpy()
-    px = _inside(np, y, x, rows, cols, plane.shape)
-    return 4 * (3 * px + 2 * len(y)) + 4 * 64, OBMC_PIXEL_OPS * px
+    tab, work, desc, planes = args[:4]
+    d32 = desc.cpu().numpy()
+    n_bytes, px = 4 * tab.numel() + 4 * len(mc.OBMC_MASKS), 0
+    for e in mc.table_rows(tab, work[0], mc.OENTRY):
+        n = e[mc.O_NREAL]
+        y = d32[e[mc.O_YS]:e[mc.O_YS] + n].astype(np.int64)
+        x = d32[e[mc.O_XS]:e[mc.O_XS] + n].astype(np.int64)
+        p = _inside(np, y, x, e[mc.O_ROWS], e[mc.O_COLS],
+                    tuple(planes[e[mc.O_PLANE]].shape))
+        px += p
+        n_bytes += 4 * (3 * p + 2 * n)
+    return n_bytes, OBMC_PIXEL_OPS * px
+
+
+def tools_singles(calls):
+    """The calls with each warp or OBMC run split into one-entry lists of
+    its entries, in order (tools/tools_cases.one_entry_lists): a launch an
+    entry, as the records ran before the work lists."""
+    from dav1d_mirror_tpu_torch.ops import mc
+    from dav1d_mirror_tpu_torch.tools.tools_cases import one_entry_lists
+    out = []
+    for n, (a, k) in calls:
+        if n not in TOOLS_RUNS:
+            out.append((n, (a, k)))
+            continue
+        for tab, work in one_entry_lists(a[0], a[1],
+                                         getattr(mc, TOOLS_RUNS[n])):
+            out.append((n, ((tab, work) + tuple(a[2:]), k)))
+    return out
 
 
 def tools_timed(torch, np, row, calls, scratch, label):
     """A frame's calls of one tool kernel (`row`: warp, comp or obmc;
     calls [(wrapper, (args, kwargs))], in the frame's order) timed as one
     unit with the kernels, warm and cold, against the byte and operation
-    bound, and with the plain versions (device and wall)."""
+    bound, and with the plain versions (device and wall). A warp or OBMC
+    run is also timed warm as one-entry launches (tools_singles), in
+    turns with the run: run, one-entry, one-entry, run."""
     from dav1d_mirror_tpu_torch.ops import tools_cuda
     plain = tools_plain()
 
-    def run_k():
-        for n, (a, k) in calls:
-            getattr(tools_cuda, n)(*a, **k)
-
-    def run_p():
-        for n, (a, k) in calls:
-            plain[n](*a, **k)
+    def runner(cs, fns):
+        def run():
+            for n, (a, k) in cs:
+                fns(n)(*a, **k)
+        return run
+    run_k = runner(calls, lambda n: getattr(tools_cuda, n))
+    run_p = runner(calls, lambda n: plain[n])
     # at most QUEUE_LAUNCHES launches queued a timing
     reps = max(1, QUEUE_LAUNCHES // len(calls))
-    warm = time_warm(torch, run_k, reps)
+    singles = tools_singles(calls)
+    one = {}
+    if len(singles) != len(calls):
+        run_1 = runner(singles, lambda n: getattr(tools_cuda, n))
+        reps_1 = max(1, QUEUE_LAUNCHES // len(singles))
+        warm_runs = [time_warm(torch, run_k, reps)]
+        one = dict(one_entry_ms=[time_warm(torch, run_1, reps_1)
+                                 for _ in range(2)],
+                   one_entry_launches=len(singles))
+        warm_runs.append(time_warm(torch, run_k, reps))
+        warm = sum(warm_runs) / 2
+    else:
+        warm = time_warm(torch, run_k, reps)
     cold = time_cold(torch, run_k, scratch, min(20, max(3, reps)))
     p_ms, p_wall = time_plain(torch, run_p, 1)
     n_bytes = n_ops = 0
@@ -2463,14 +2527,20 @@ def tools_timed(torch, np, row, calls, scratch, label):
     names = sorted({n for n, _ in calls})
     shape = (f"{label}'s {len(calls)} {row} launches "
              f"({', '.join(names)})")
+    extra = ""
+    if one:
+        extra = (f" (runs {warm_runs[0]:.5f}, {warm_runs[1]:.5f}); the same "
+                 f"entries as {one['one_entry_launches']} one-entry "
+                 f"launches in turns: " + ", ".join(
+                     f"{v:.5f}" for v in one["one_entry_ms"]) + " ms warm")
     print(f"  {row} {shape}: {warm:.5f} ms warm ({warm / len(calls):.5f} "
-          f"a launch), {cold:.5f} ms cold, plain {p_ms:.5f} ms device, "
-          f"{p_wall:.5f} ms wall, bound {b_ms:.5f} ms ({b_by}: {n_bytes} "
-          f"bytes, {n_ops} ops), {100 * b_ms / warm:.1f}% of bound warm, "
-          f"{100 * b_ms / cold:.1f}% cold")
+          f"a launch){extra}, {cold:.5f} ms cold, plain {p_ms:.5f} ms "
+          f"device, {p_wall:.5f} ms wall, bound {b_ms:.5f} ms ({b_by}: "
+          f"{n_bytes} bytes, {n_ops} ops), {100 * b_ms / warm:.1f}% of "
+          f"bound warm, {100 * b_ms / cold:.1f}% cold")
     return dict(ms=warm, cold_ms=cold, plain_ms=p_ms, plain_wall_ms=p_wall,
                 bound_ms=b_ms, bound_by=b_by, shape=shape,
-                launch_ms=warm / len(calls))
+                launch_ms=warm / len(calls), **one)
 
 
 def tools_phase(torch, np, owned, kept, scratch, floor_ms):
@@ -2534,22 +2604,26 @@ def tools_phase(torch, np, owned, kept, scratch, floor_ms):
 
 
 def tools_launches(shapes, launches, name):
-    """The warp kernel ran once for each warp record and "w" sub-op of the
-    programs (ShapeLog), the comp kernel once for each comp record, the
-    OBMC kernel once for each obmc record. Prints the launches and the
-    records."""
+    """The warp kernel ran once for each warprun record of the programs
+    (ShapeLog; at most one a frame: its warp records and "w" sub-ops),
+    the comp kernel once for each comp record, the OBMC kernel once for
+    each obmcrun record (at most two a frame: one an OBMC phase). Prints
+    the launches and the records."""
     ops = {}
     for fr in shapes.frame_ops:
+        assert fr.get("warprun", 0) <= 1 and fr.get("obmcrun", 0) <= 2, \
+            (name, "tool runs a frame", fr)
         for k, v in fr.items():
             ops[k] = ops.get(k, 0) + v
-    want = {"warp": ops.get("warp", 0) + ops.get("comp w", 0),
-            "comp": ops.get("comp", 0), "obmc": ops.get("obmc", 0)}
+    want = {"warp": ops.get("warprun", 0), "comp": ops.get("comp", 0),
+            "obmc": ops.get("obmcrun", 0)}
     got = {k: launches[k] for k in want}
     assert got == want, (name, "tool launches", got, "for records", want)
-    print(f"{name}: inter tool launches {got}, for {ops.get('warp', 0)} "
-          f"warp records and {ops.get('comp w', 0)} \"w\" sub-ops, "
-          f"{ops.get('comp', 0)} comp and {ops.get('obmc', 0)} obmc "
-          f"records")
+    print(f"{name}: inter tool launches {got}, for {want['warp']} warprun "
+          f"records ({ops.get('warp', 0)} warp records and "
+          f"{ops.get('comp w', 0)} \"w\" sub-ops), {want['comp']} comp "
+          f"records and {want['obmc']} obmcrun records "
+          f"({ops.get('obmc', 0)} obmc records)")
 
 
 # coefficients at the int16/int32 extremes: the butterflies' products wrap

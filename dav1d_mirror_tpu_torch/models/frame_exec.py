@@ -10,21 +10,22 @@ device tensors, slicing each op's inputs out of the uploaded buffers.
 The executor implements the op kinds of the hybrid inter path and the
 filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
 from a reference of another size), ``comp`` (average, distance-weighted,
-wedge and seg joins), ``obmc``, the residual buckets (``residmc``, ``residc`` and ``hresc``
-(lossless WHT), ``hresmc``) and their work lists (``itxrun``), ``dbk``
-and ``dbkrun``,
-``snap``, ``cdef``, ``sres`` (super-resolution), ``lrw``, ``lrs`` and
-``out``, and the device intra engine's (models/intra): ``embed``,
+wedge and seg joins), ``obmc``, their work lists (``mcurun``,
+``mcsrun``, ``warprun``, ``obmcrun``), the residual buckets
+(``residmc``, ``residc`` and ``hresc`` (lossless WHT), ``hresmc``) and
+their work lists (``itxrun``), ``dbk`` and ``dbkrun``, ``snap``,
+``cdef``, ``sres`` (super-resolution), ``lrw``, ``lrs`` and ``out``, and
+the device intra engine's (models/intra): ``embed``,
 ``palset``, ``newres``, ``resrawmc`` and ``resrawc`` (residual planes),
 ``intrascan`` and ``crop``. Every other kind raises
 ``NotImplementedError`` saying why, before any op runs.
 
 Ops update the planes in place, in the reference's op order: puts and
 warps, compound blocks, OBMC laps (top, then left), then residuals. An op
-that reads the plane it writes reads its whole batch before it writes any
-of it (OBMC), or reads and writes only its own disjoint units (the
-residuals). The planner emits each run of consecutive residual bucket
-records (the reference interpreter's form, which the tests replay) and
+that reads the plane it writes reads and writes only its own disjoint
+units (a phase's OBMC laps, the residuals). The planner emits each run
+of consecutive residual bucket records (the reference interpreter's
+form, which the tests replay) and
 after it one ``itxrun`` record: the run's work list (``ItxRun``,
 ops/itx.build_table) in the int32 buffer. This executor runs the
 ``itxrun`` record, one launch of the itx kernel a run
@@ -41,14 +42,21 @@ executor runs all of it there: one launch of each unit MC kernel a
 frame (ops/mcu_cuda.mc_units_run, mc_scaled_run), which writes straight
 into the planes or the arena and reads the descriptors in place (int16
 or int32). It then passes over the ``put`` and ``scaled`` records. The
-inter tools run as kernels too (ops/tools_cuda): a ``warp`` record and
-each "w" sub-op of a side batch is one launch of the warp kernel, into
-the plane or the batch's arena slots; a ``comp`` record one launch of the
-join kernel over its real slots, which stores straight into the plane
-(its per-slot table rides a ``comptab`` record just before it, and seg
-luma joins write their chroma masks into the frame's seg-mask arena,
-``cmarena``, where the chroma joins read them); an ``obmc`` record one
-launch of the blend kernel, in place on the plane. The planner emits a
+inter tools run as kernels too (ops/tools_cuda). The frame's ``warp``
+records and every "w" sub-op of its side batches are the entries of one
+work list, its ``warprun`` record (after the last warp record, before the
+first comp record): one launch of the warp kernel a frame, into the
+planes and the batches' arena slots (ops/tools_cuda.warp_run); the
+executor passes over the warp records. A ``comp`` record is one launch
+of the join kernel over its real slots, which stores straight into the
+plane (its per-slot table rides a ``comptab`` record just before it, and
+seg luma joins write their chroma masks into the frame's seg-mask arena,
+``cmarena``, where the chroma joins read them). The ``obmc`` records of
+each OBMC phase (top laps, then left laps), of every plane, are the
+entries of one work list, an ``obmcrun`` record after the phase's last
+obmc record: one launch of the blend kernel a phase, in place on the
+planes (ops/tools_cuda.obmc_run); the executor passes over the obmc
+records. The planner emits a
 ``dbk`` record for each deblocked plane (the reference
 interpreter's form) and after them one ``dbkrun`` record with every
 plane's maps: the executor passes over the ``dbk`` records and runs the
@@ -297,24 +305,32 @@ def _narrow(h):
 
 
 class McRun:
-    """The unit MC work lists of one frame program, made where the
-    planner starts the frame's MC records. ``op`` emits each record (the
-    reference interpreter's form); of a ``put`` or ``scaled`` record, and
-    of each "t" or "s" sub-op of a ``comp`` or ``obmc`` record, it keeps
-    a work-list entry (ops/mc.mc_build_table's dict) on its first
-    `n_real` rows (a comp: a tuple a side, one count a sub-op; an obmc:
-    one count a sub-op; "w" sub-ops' counts unused), and it gives each
-    compound side and each OBMC lap batch its slot buffer in the frame's
-    arena. Before each ``comp`` record it emits ("comptab", table
-    handle): the table of the record's real slots that the join kernel
-    runs (comp_table), derived from the record's joins. ``close``
-    inserts, where the MC records start, ("mcarena", arena ints,
-    offsets) when the frame has comp or obmc records (offsets: a tuple
-    each, in record order: a comp's two sides', an obmc's lap batch's),
-    ("cmarena", ints) when it has seg joins (the seg-mask arena: a span
-    a seg luma slot, for its chroma mask), then ("mcurun", table handle,
-    work) and ("mcsrun", table handle, work) for the lists with
-    entries."""
+    """The unit MC, warp and OBMC work lists of one frame program, made
+    where the planner starts the frame's MC records. ``op`` emits each
+    record (the reference interpreter's form); of a ``put`` or ``scaled``
+    record, and of each "t" or "s" sub-op of a ``comp`` or ``obmc``
+    record, it keeps a work-list entry (ops/mc.mc_build_table's dict) on
+    its first `n_real` rows (a comp: a tuple a side, one count a sub-op;
+    an obmc: one count a sub-op; a warp: one count), of a ``warp`` record
+    and each "w" sub-op a warp entry (ops/mc.warp_build_table's), of an
+    ``obmc`` record an OBMC entry of its phase (ops/mc.obmc_build_table's,
+    on its laps before the PAD_OOB pad laps), and it gives each compound
+    side and each OBMC lap batch its slot buffer in the frame's arena.
+    Before each ``comp`` record it emits ("comptab", table handle): the
+    table of the record's real slots that the join kernel runs
+    (comp_table), derived from the record's joins. After the last
+    ``obmc`` record of each phase (0: top laps, 1: left laps) it emits
+    ("obmcrun", phase, table handle, work). ``close`` inserts, where the
+    MC records start, ("mcarena", arena ints, offsets) when the frame has
+    comp or obmc records (offsets: a tuple each, in record order: a
+    comp's two sides', an obmc's lap batch's), ("cmarena", ints) when it
+    has seg joins (the seg-mask arena: a span a seg luma slot, for its
+    chroma mask), then ("mcurun", table handle, work) and ("mcsrun",
+    table handle, work) for the lists with entries; and ("warprun",
+    table handle, work) after the frame's last ``warp`` record, before
+    its first scaled, comp or obmc record, when it has warp work. Every
+    plane write keeps its order; the "w" units move before the comp
+    records, into arena slots that only they write."""
 
     def __init__(self, prog):
         self.prog = prog
@@ -324,12 +340,19 @@ class McRun:
         self.offsets = []
         self.masks = 0       # the seg-mask arena's ints
         self.seg = {}        # seg luma join id -> (its slots, {slot: span})
+        self.warps = []      # warprun entries
+        # where the warprun goes: set at the first scaled, comp or obmc
+        # record, after the warp records
+        self.warp_at = None
+        self.obmcs = []      # obmcrun entries of the current phase
+        self.phase = None    # the current OBMC phase (vert)
 
     def _slots(self, pl, subops, n_real, N, bhp, bwp, prep):
-        """Entries of one slot batch's "t" and "s" sub-ops; returns the
-        batch's arena offset."""
+        """Entries of one slot batch's "t", "s" and "w" sub-ops; returns
+        the batch's arena offset."""
         off, n = self.arena, N * bhp * bwp
         self.arena += n
+        wflags = mc.WF_SLOT | mc.WF_PREP * bool(prep)
         prep = mc.MF_PREP * bool(prep) | mc.MF_ARENA
         for s, nr in zip(subops, n_real):
             if s[0] == "t":
@@ -348,6 +371,13 @@ class McRun:
                     desc=h_rows[0], ys=h_base[0], dst=off, dstn=n,
                     row_w=bwp, flags=prep,
                     steps=mc.mc_steps(self.prog.array(h_rows)[:nr])))
+            elif s[0] == "w":
+                _, h_rows, h_base = s
+                assert len(h_rows) == 2, "warp: int32 rows"
+                self.warps.append(dict(
+                    flags=wflags | mc.WF_YS16 * _narrow(h_base),
+                    plane=pl, rows=h_rows[0], ys=h_base[0], dst=off, dstn=n,
+                    row_w=bwp, B=h_rows[1][0], n_real=nr))
         return off
 
     def comp_table(self, bhp, bwp, joins, ss_hor, ss_ver, h_dy):
@@ -395,8 +425,24 @@ class McRun:
             raise ValueError("comp: a real slot that no join covers")
         return tab
 
+    def _obmc_close(self):
+        """Emit the current OBMC phase's obmcrun record."""
+        if self.obmcs:
+            table, work = mc.obmc_build_table(self.obmcs)
+            self.prog.op("obmcrun", int(self.phase), self.prog.emit(table),
+                         work)
+        self.obmcs = []
+
     def op(self, *rec, n_real):
         kind = rec[0]
+        if kind == "warp" and self.warp_at is not None:
+            raise ValueError("McRun: a warp record after the frame's "
+                             "scaled, comp or obmc records")
+        if kind not in ("put", "warp") and self.warp_at is None:
+            self.warp_at = len(self.prog.ops)
+        if kind == "obmc" and self.phase is not None and \
+                rec[5] != self.phase:
+            self._obmc_close()
         if kind == "comp":
             _, _, bwp, bhp, _, _, joins, ssh, ssv, h_dy, _ = rec
             self.prog.op("comptab", self.prog.emit(
@@ -424,15 +470,39 @@ class McRun:
             self.offsets.append(tuple(
                 self._slots(pl, side, nr, N, bhp, bwp, True)
                 for side, nr in zip(sides, n_real)))
+        elif kind == "warp":
+            _, pl, h_rows, h_ys, h_xs = rec
+            assert len(h_rows) == 2, "warp: int32 rows"
+            self.warps.append(dict(
+                flags=mc.WF_YS16 * _narrow(h_ys) | mc.WF_XS16 * _narrow(h_xs),
+                plane=pl, rows=h_rows[0], ys=h_ys[0], xs=h_xs[0],
+                B=h_rows[1][0], n_real=n_real))
         elif kind == "obmc":
-            _, pl, lh, lw, _, _, nL, subops = rec[:8]
-            self.offsets.append((self._slots(pl, subops, n_real, nL, lh,
-                                             lw, False),))
+            _, pl, lh, lw, region, vert, nL, subops, h_ys, h_xs = rec
+            off = self._slots(pl, subops, n_real, nL, lh, lw, False)
+            self.offsets.append((off,))
+            assert len(h_ys) == len(h_xs) == 2, "obmc: int32 origins"
+            ys = self.prog.array(h_ys)
+            n = int(np.sum(ys != PAD_OOB))
+            if (ys[:n] == PAD_OOB).any():
+                raise ValueError("obmc: a real lap after a pad lap")
+            self.obmcs.append(dict(plane=pl, laps=off, lh=lh, lw=lw,
+                                   region=region, vert=int(bool(vert)),
+                                   ys=h_ys[0], xs=h_xs[0], n_real=n))
+            self.phase = vert
         else:
             raise ValueError(f"McRun: not an MC record: {kind!r}")
 
     def close(self):
-        """Insert the arena and run records where the MC records start."""
+        """Emit the last OBMC phase's obmcrun; insert the warprun after
+        the warps, and the arena and unit MC run records where the MC
+        records start."""
+        self._obmc_close()
+        if self.warps:
+            at = len(self.prog.ops) if self.warp_at is None else self.warp_at
+            table, work = mc.warp_build_table(self.warps)
+            self.prog.ops.insert(at, ("warprun", self.prog.emit(table),
+                                      work))
         recs = []
         if self.offsets:
             recs.append(("mcarena", self.arena, tuple(self.offsets)))
@@ -484,10 +554,11 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
 HANDLED = ("mcarena", "mcurun", "mcsrun", "cmarena", "hpx", "puthv_x",
-           "put", "warp", "scaled", "comptab", "comp", "obmc", "residmc",
-           "residc", "hresmc", "hresc", "itxrun", "dbk", "dbkrun", "snap",
-           "cdef", "sres", "lrw", "lrs", "out", "embed", "palset", "newres",
-           "resrawmc", "resrawc", "intrascan", "crop")
+           "put", "warp", "warprun", "scaled", "comptab", "comp", "obmc",
+           "obmcrun", "residmc", "residc", "hresmc", "hresc", "itxrun",
+           "dbk", "dbkrun", "snap", "cdef", "sres", "lrw", "lrs", "out",
+           "embed", "palset", "newres", "resrawmc", "resrawc", "intrascan",
+           "crop")
 
 # op kinds of the reference that no planner of the port emits -> why
 LATER = {
@@ -519,6 +590,59 @@ MC_KINDS = ("put", "scaled", "comp", "obmc")
 MC_RUNS = ("mcarena", "mcurun", "mcsrun")
 
 
+def _check_tools(ops):
+    """Raise ValueError unless the frame's warp records and "w" sub-ops
+    are covered by one warprun record (after the frame's mcarena, where
+    it has one, after its warp records and before its first comp record)
+    and each OBMC phase's obmc records by one obmcrun record after them
+    (phase 1's records after phase 0's obmcrun)."""
+    n_warp = 0        # warp records and "w" sub-ops
+    warprun = None
+    comp = False
+    n_obmc = [0, 0]   # obmc records a phase
+    obmcrun = [None, None]
+    for rec in ops:
+        kind = rec[0]
+        if kind == "mcarena" and warprun is not None:
+            raise ValueError("warprun before the frame's mcarena")
+        elif kind == "warprun":
+            if warprun is not None or comp:
+                raise ValueError("warprun twice, or after the frame's "
+                                 "first comp record")
+            warprun = rec
+        elif kind == "warp":
+            if warprun is not None:
+                raise ValueError("a warp record after the frame's warprun")
+            n_warp += 1
+        elif kind == "comp":
+            comp = True
+            n_warp += sum(s[0] == "w" for side in rec[5] for s in side)
+        elif kind == "obmc":
+            ph = int(bool(rec[5]))
+            if obmcrun[ph] is not None:
+                raise ValueError(f"an obmc record after its phase's "
+                                 f"obmcrun (phase {ph})")
+            if ph and n_obmc[0] and obmcrun[0] is None:
+                raise ValueError("a phase-1 obmc record before phase 0's "
+                                 "obmcrun")
+            n_obmc[ph] += 1
+        elif kind == "obmcrun":
+            ph = rec[1]
+            if obmcrun[ph] is not None or rec[3][0] != n_obmc[ph]:
+                raise ValueError(f"obmcrun of {rec[3][0]} entries for "
+                                 f"{n_obmc[ph]} obmc records of phase "
+                                 f"{ph}, or twice")
+            obmcrun[ph] = rec
+    have = 0 if warprun is None else warprun[2][0]
+    if have != n_warp:
+        raise ValueError(f"warprun of {have} entries for {n_warp} warp "
+                         f"records and \"w\" sub-ops")
+    for ph in (0, 1):
+        if n_obmc[ph] and obmcrun[ph] is None:
+            raise ValueError(f"{n_obmc[ph]} obmc records of phase {ph} "
+                             f"without obmcrun")
+
+
 def check_ops(ops):
     """Raise NotImplementedError for the first op this executor lacks, and
     ValueError unless each run of residual bucket records is followed
@@ -528,8 +652,10 @@ def check_ops(ops):
     three (those present) before the first of them, unless each comp
     record comes right after its comptab record (and each comptab right
     before a comp record), a comp with seg joins after the frame's one
-    cmarena record, and unless the frame's dbk records are followed by
-    one dbkrun record with a plane's maps for each."""
+    cmarena record, unless the frame's dbk records are followed by
+    one dbkrun record with a plane's maps for each, and unless its warp
+    and OBMC work is covered by its warprun and obmcrun records
+    (_check_tools)."""
     pending = 0
     need = {"mcurun": 0, "mcsrun": 0, "mcarena": 0}
     runs = {}
@@ -592,6 +718,7 @@ def check_ops(ops):
         if have != n:
             raise ValueError(f"{kind} of {have} entries for {n} unit MC "
                              f"records or sub-ops")
+    _check_tools(ops)
 
 
 def execute_program(sig, desc, desc16, desc8, refsrc):
@@ -641,20 +768,6 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
     arena = None      # the comp sides' and OBMC laps' slot buffers
     slot_offs = iter(())
 
-    def side_tmp(pl, bwp, bhp, N, subops, prep, off):
-        """(N, bhp, bwp) slot batch of one compound side or one OBMC lap
-        bucket, at `off` in the arena: the mcurun and mcsrun records have
-        written its whole-block translational units ("t") and its units
-        from a scaled reference ("s"); its 8x8 warp units ("w") go in
-        here, a launch of the warp kernel a sub-op."""
-        tmp = arena[off:off + N * bhp * bwp].view(N, bhp, bwp)
-        for s in subops:
-            if s[0] == "w":
-                _, h_rows, h_base = s
-                tools_cuda.warp_slots(tmp, refs[pl], get(h_rows),
-                                      get(h_base), bd, prep)
-        return tmp
-
     for rec in ops:
         kind = rec[0]
         if kind == "mcarena":
@@ -683,28 +796,32 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                  get(h_tv)), uw, uh, bd, False)
             scatter_units(planes[pl], out, _ys_oob(get(h_ys)), get(h_xs),
                           uh, uw)
+        elif kind == "warprun":
+            # the frame's warp records and "w" sub-ops, into the planes
+            # and the arena slots of the compound sides
+            _, h_tab, work = rec
+            tools_cuda.warp_run(get(h_tab), work, desc, desc16, planes, refs,
+                                arena, bd)
         elif kind == "warp":
-            _, pl, h_rows, h_ys, h_xs = rec
-            tools_cuda.warp_plane(planes[pl], refs[pl], get(h_rows),
-                                  get(h_ys), get(h_xs), bd)
+            pass    # run by the frame's warprun record
         elif kind == "comptab":
             comp_tab = get(rec[1])
         elif kind == "comp":
-            # the joins of the record's real slots (comp_tab), stored
+            # the joins of the record's real slots (comp_tab) over its
+            # sides' slots (mcurun, mcsrun and warprun wrote them), stored
             # into the plane; its JAX-form joins are comp_tab's source
             (_, pl, bwp, bhp, N, sides, _, ssh, ssv, h_dy, h_dx) = rec
-            offs = next(slot_offs)
-            tmps = [side_tmp(pl, bwp, bhp, N, sides[i], True, offs[i])
-                    for i in (0, 1)]
+            tmps = [arena[o:o + N * bhp * bwp].view(N, bhp, bwp)
+                    for o in next(slot_offs)]
             tools_cuda.comp_record(planes[pl], tmps[0], tmps[1], comp_tab,
                                    get(h_dy), get(h_dx), masks, desc, ssh,
                                    ssv, bd)
         elif kind == "obmc":
-            _, pl, lh, lw, region, vert, nL, subops, h_ys, h_xs = rec
-            lap = side_tmp(pl, lw, lh, nL, subops, False,
-                           next(slot_offs)[0])
-            tools_cuda.obmc_plane(planes[pl], lap, get(h_ys), get(h_xs),
-                                  region, vert)
+            next(slot_offs)     # run by its phase's obmcrun record
+        elif kind == "obmcrun":
+            # a phase's laps of every plane, blended in place
+            _, _, h_tab, work = rec
+            tools_cuda.obmc_run(get(h_tab), work, desc, planes, arena)
         elif kind in RESID_KINDS:
             pass    # run by the itxrun record that follows its run
         elif kind == "itxrun":

@@ -640,9 +640,9 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
         refspec, srefspec,
         out_dtype=None if intra_frame else bufs.planes[0].dtype)
 
-    # the frame's unit MC work lists (McRun): its put and scaled records
-    # and the "t" and "s" sub-ops of its comp and obmc records, n_real
-    # the rows before their pad rows
+    # the frame's unit MC, warp and OBMC work lists (McRun): its put,
+    # scaled, warp and obmc records and the "t", "s" and "w" sub-ops of
+    # its comp and obmc records, n_real the rows before their pad rows
     mcr = McRun(prog)
 
     # translational put batches
@@ -666,7 +666,8 @@ def build_frame_program(seq, fhdr, coders, bufs, refs, jnt_weights=None,
                          None, P)
         ys = _pad_vec(np.asarray([y for _, y, _ in wl], np.int32), True, P)
         xs = _pad_vec(np.asarray([x for _, _, x in wl], np.int32), False, P)
-        prog.op("warp", pl, prog.emit(rows), prog.emit(ys), prog.emit(xs))
+        mcr.op("warp", pl, prog.emit(rows), prog.emit(ys), prog.emit(xs),
+               n_real=len(wl))
 
     # scaled put batches; a view holds one reference, so each row's
     # reference index is 0

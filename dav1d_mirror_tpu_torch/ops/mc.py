@@ -26,11 +26,13 @@ with ``resize_plane``.
 ``mc_units_run`` / ``mc_scaled_run`` a frame's work list of them
 (``mc_build_table``): the plain versions of the unit MC kernels
 ``csrc/mc_units.cu`` and ``csrc/mc_scaled.cu`` (wrappers in
-``ops/mcu_cuda.py``). ``warp_plane`` / ``warp_slots`` (the warp with its
-destination write), ``comp_record`` (every join of a compound record,
-stored into the plane) and ``obmc_plane`` are the plain versions of the
-tool kernels ``csrc/warp.cu``, ``csrc/comp.cu`` and ``csrc/obmc.cu``
-(wrappers in ``ops/tools_cuda.py``).
+``ops/mcu_cuda.py``). ``warp_run`` (a frame's warp work list, one
+``warp_plane`` or ``warp_slots`` an entry: the warp with its destination
+write), ``comp_record`` (every join of a compound record, stored into
+the plane) and ``obmc_run`` (a phase's OBMC work list, one
+``obmc_plane`` an entry) are the plain versions of the tool kernels
+``csrc/warp.cu``, ``csrc/comp.cu`` and ``csrc/obmc.cu`` (wrappers in
+``ops/tools_cuda.py``).
 
 Bit-exact with dav1d src/mc_tmpl.c put_8tap:112 / prep_8tap:224, avg:589,
 w_avg:604, mask:620, w_mask:683, warp_affine_8x8:758 / 8x8t:793,
@@ -583,6 +585,143 @@ def obmc_plane(plane, laps, ys, xs, region: int, vert: bool):
     _, lap_h, lap_w = laps.shape
     return obmc_blend_batch(plane, laps, ys, xs, lap_h, lap_w, region,
                             vert)
+
+
+# ---------------------------------------------------------------------
+# the warp and OBMC work lists of a frame: the plain versions of
+# csrc/warp.cu and csrc/obmc.cu (wrappers ops/tools_cuda.warp_run and
+# obmc_run). A table (made by models/frame_exec.McRun) has WENTRY or
+# OENTRY ints an entry; an entry's last field is the prefix sum of the
+# units (warp) or blended pixels (OBMC) of the entries before it, which
+# the kernels search for a unit's or pixel's entry.
+# ---------------------------------------------------------------------
+# a warp entry: a warp record's or "w" sub-op's real units, read from the
+# descriptor buffers at their offsets (ys and xs, or base, int16 where a
+# WF_*16 flag says; the rows always int32: their phases exceed int16),
+# stored into plane W_PLANE (at ys, xs) or, with WF_SLOT, into the arena
+# span [W_DST, W_DST + W_DSTN) at flat offsets W_YS (base) + y * W_ROWW
+# + x; the reference stack is the plane's
+WENTRY = 10
+(W_FLAGS, W_PLANE, W_ROWS, W_YS, W_XS, W_DST, W_DSTN, W_ROWW, W_NREAL,
+ W_START) = range(WENTRY)
+WF_SLOT, WF_PREP, WF_YS16, WF_XS16 = 1, 2, 4, 8
+# an OBMC entry: an obmc record's real laps, (O_NREAL, O_LH, O_LW) at
+# arena offset O_LAPS, origins at O_YS / O_XS of the int32 buffer, each
+# blended over its (O_ROWS, O_COLS) area (obmc_area)
+OENTRY = 12
+(O_PLANE, O_LAPS, O_LH, O_LW, O_REGION, O_VERT, O_YS, O_XS, O_NREAL, O_ROWS,
+ O_COLS, O_START) = range(OENTRY)
+
+
+def _fill(entries, width, fields):
+    """The (len(entries), width) int64 table of the entries' fields
+    ({column: key}; absent keys 0)."""
+    tab = np.zeros((len(entries), width), np.int64)
+    for i, e in enumerate(entries):
+        for f, k in fields.items():
+            tab[i, f] = e.get(k, 0)
+    return tab
+
+
+def _with_prefix(tab, count, start):
+    """tab with column `start` the prefix sum of `count` (a column of
+    counts a row), flattened to int32; and the total."""
+    tab[:, start] = np.cumsum(count) - count
+    total = int(count.sum())
+    if total >= 1 << 31:
+        raise ValueError(f"{total} work items do not fit int32")
+    return tab.astype(np.int32).reshape(-1), total
+
+
+def warp_build_table(entries):
+    """The warp work list of a frame. entries: dicts of flags, plane,
+    rows, ys, xs, dst, dstn, row_w, B, n_real (offsets in the descriptor
+    buffers and the arena; absent fields 0). Returns (table, (entries,
+    units)): WENTRY int32 an entry, W_START the units before it."""
+    tab = _fill(entries, WENTRY, {
+        W_FLAGS: "flags", W_PLANE: "plane", W_ROWS: "rows", W_YS: "ys",
+        W_XS: "xs", W_DST: "dst", W_DSTN: "dstn", W_ROWW: "row_w",
+        W_NREAL: "n_real"})
+    B = np.asarray([e["B"] for e in entries], np.int64)
+    n = tab[:, W_NREAL]
+    if ((n < 0) | (n > B)).any():
+        raise ValueError("warp: n_real outside [0, B]")
+    table, units = _with_prefix(tab, n, W_START)
+    return table, (len(entries), units)
+
+
+def obmc_area(lap_h: int, lap_w: int, region: int, vert: bool):
+    """(rows, columns) of a lap's blended area: the masked columns of a
+    left lap, the masked rows (at most its own) of a top lap."""
+    k = (region * 3) >> 2
+    return (lap_h, min(k, lap_w)) if vert else (min(k, lap_h), lap_w)
+
+
+def obmc_build_table(entries):
+    """The OBMC work list of one phase of a frame. entries: dicts of
+    plane, laps (arena offset), lh, lw, region, vert, ys, xs (int32
+    buffer offsets), n_real. Returns (table, (entries, blended
+    pixels)): OENTRY int32 an entry, O_START the pixels before it."""
+    tab = _fill(entries, OENTRY, {
+        O_PLANE: "plane", O_LAPS: "laps", O_LH: "lh", O_LW: "lw",
+        O_REGION: "region", O_VERT: "vert", O_YS: "ys", O_XS: "xs",
+        O_NREAL: "n_real"})
+    for i, e in enumerate(entries):
+        k = (e["region"] * 3) >> 2
+        if e["region"] < 0 or e["region"] + k > len(OBMC_MASKS):
+            raise ValueError(f"obmc: region {e['region']}")
+        tab[i, O_ROWS:O_COLS + 1] = obmc_area(e["lh"], e["lw"], e["region"],
+                                              e["vert"])
+    table, px = _with_prefix(
+        tab, tab[:, O_NREAL] * tab[:, O_ROWS] * tab[:, O_COLS], O_START)
+    return table, (len(entries), px)
+
+
+def table_rows(tab, n_entries: int, width: int):
+    """The entries of a warp or OBMC table (a 1-D int32 tensor or array)
+    as lists of `width` ints."""
+    flat = np.asarray(tab.cpu() if isinstance(tab, torch.Tensor) else tab)
+    return flat[:n_entries * width].reshape(n_entries, width).tolist()
+
+
+def warp_run(tab, work, desc, desc16, planes, refs, arena, bitdepth: int):
+    """A frame's warp work list, the plain version of the
+    ``csrc/warp.cu`` kernel: one ``warp_plane`` or ``warp_slots`` an
+    entry, on its real rows. tab, work: warp_build_table's; desc/desc16:
+    the int32 and int16 buffers the offsets count from; planes: the
+    destination planes, refs their reference stacks (entry plane i ->
+    planes[i], refs[i]); arena: the frame's flat int32 slot arena (None
+    without slot entries). Updates planes and arena in place."""
+    for e in table_rows(tab, work[0], WENTRY):
+        fl, n, pl = e[W_FLAGS], e[W_NREAL], e[W_PLANE]
+
+        def sl(f, flag, k):
+            src = desc16 if fl & flag else desc
+            return src[e[f]:e[f] + k].to(torch.int32)
+        rows = desc[e[W_ROWS]:e[W_ROWS] + 10 * n].view(n, 10)
+        ys = sl(W_YS, WF_YS16, n)
+        if fl & WF_SLOT:
+            buf = arena[e[W_DST]:e[W_DST] + e[W_DSTN]].view(
+                1, -1, e[W_ROWW])
+            warp_slots(buf, refs[pl], rows, ys, bitdepth, bool(fl & WF_PREP))
+        else:
+            warp_plane(planes[pl], refs[pl], rows, ys,
+                       sl(W_XS, WF_XS16, n), bitdepth)
+
+
+def obmc_run(tab, work, desc, planes, arena):
+    """One phase's OBMC work list, the plain version of the
+    ``csrc/obmc.cu`` kernel: one ``obmc_plane`` an entry, on its real
+    laps, in order. tab, work: obmc_build_table's; desc: the int32
+    buffer of the origins; planes: the planes (entry plane i ->
+    planes[i]); arena: the frame's flat int32 slot arena. Updates the
+    planes in place."""
+    for e in table_rows(tab, work[0], OENTRY):
+        n, lh, lw = e[O_NREAL], e[O_LH], e[O_LW]
+        laps = arena[e[O_LAPS]:e[O_LAPS] + n * lh * lw].view(n, lh, lw)
+        obmc_plane(planes[e[O_PLANE]], laps, desc[e[O_YS]:e[O_YS] + n],
+                   desc[e[O_XS]:e[O_XS] + n], e[O_REGION],
+                   bool(e[O_VERT]))
 
 
 # ---------------------------------------------------------------------

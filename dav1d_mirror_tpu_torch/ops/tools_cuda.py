@@ -1,26 +1,29 @@
-"""Wrappers of the three hand-written CUDA kernels of the inter tools, each
-one launch a record (or sub-op) of the frame program:
+"""Wrappers of the three hand-written CUDA kernels of the inter tools:
 
-- ``warp_plane`` / ``warp_slots``: ``csrc/warp.cu``, the affine warp of a
-  batch of 8x8 units (a ``warp`` record into the plane, or a "w" sub-op
-  of a compound side into its slots of the frame's arena);
+- ``warp_run``: ``csrc/warp.cu``, the affine warp of a frame's 8x8 warp
+  units, one launch a frame over its work list (the ``warprun`` record:
+  every ``warp`` record, into the planes, and every "w" sub-op of a
+  compound side, into its slots of the frame's arena);
 - ``comp_record``: ``csrc/comp.cu``, every join of a ``comp`` record
   (average, distance-weighted, wedge and seg masks) over its real slots,
-  stored straight into the plane; seg luma joins write their chroma masks
-  into the frame's seg-mask arena, where the chroma joins read them;
-- ``obmc_plane``: ``csrc/obmc.cu``, the OBMC blend of an ``obmc``
-  record's laps, in place on the plane.
+  stored straight into the plane, one launch a record; seg luma joins
+  write their chroma masks into the frame's seg-mask arena, where the
+  chroma joins read them;
+- ``obmc_run``: ``csrc/obmc.cu``, the OBMC blend of one phase's laps
+  (the ``obmcrun`` record: every ``obmc`` record of the phase, of every
+  plane), in place on the planes, one launch a phase.
 
 Each takes the arguments of its plain version in ``ops/mc.py`` and
-updates its destination in place. A tensor on the CPU goes to the plain
+updates its destinations in place. A tensor on the CPU goes to the plain
 version; a CUDA tensor to the kernel, or the call raises (no fallback).
-Descriptors are int32 views of the frame's buffers, read in place. The
-libraries are built and loaded by ``ops/cuda_build.py``; the warp filter
-table sits in the warp library's ``__constant__`` memory (int8, uploaded
-once per device), and the OBMC kernel reads the one table the plain
-version slices (``mc.obmc_mask_table``). ``WARP_LAUNCHES``,
-``COMP_LAUNCHES`` and ``OBMC_LAUNCHES`` count the launches. No wrapper
-reads a device tensor back to the host.
+Descriptors and work-list tables are views of the frame's buffers, read
+in place (int16 or int32). The libraries are built and loaded by
+``ops/cuda_build.py``; the warp filter table sits in the warp library's
+device memory (int8, uploaded once per device), and the OBMC
+kernel reads the one table the plain version slices
+(``mc.obmc_mask_table``). ``WARP_LAUNCHES``, ``COMP_LAUNCHES`` and
+``OBMC_LAUNCHES`` count the launches. No wrapper reads a device tensor
+back to the host.
 """
 from __future__ import annotations
 
@@ -38,21 +41,27 @@ COMP_LAUNCHES = 0
 OBMC_LAUNCHES = 0
 
 _count_lock = threading.Lock()
-# the warp filter table as the kernel keeps it (csrc/warp.cu c_warp)
+# the warp filter table as the kernel keeps it (csrc/warp.cu g_warp)
 WARP_TABLE = np.ascontiguousarray(mc.WARP_FILTER, np.int8)
 assert (WARP_TABLE == mc.WARP_FILTER).all()
 
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 
 
+# the planes and reference stacks a warp or OBMC run can name (csrc/warp.cu
+# WP_PLANES, csrc/obmc.cu OB_PLANES)
+MAX_PLANES = 3
+
+
 class WarpArgs(ct.Structure):
-    """csrc/warp.cu WarpArgs."""
-    _fields_ = [(n, _P) for n in ("rows", "ys", "xs", "base", "ref",
-                                  "dst")] + \
-        [(n, _L) for n in ("ref_pstride", "dst_n")] + \
-        [(n, _I) for n in ("ref_rstride", "ref_n", "ref_h", "ref_w",
-                           "dst_h", "dst_w", "dst_rstride", "row_w", "B",
-                           "ib", "bias", "bd_max", "prep")]
+    """csrc/warp.cu WarpRunArgs."""
+    _fields_ = [(n, _P) for n in ("tab", "desc", "desc16")] + \
+        [("ref", _P * MAX_PLANES), ("plane", _P * MAX_PLANES),
+         ("arena", _P), ("ref_pstride", _L * MAX_PLANES), ("arena_n", _L)] + \
+        [(n, _I * MAX_PLANES) for n in ("ref_rstride", "ref_n", "ref_h",
+                                        "ref_w", "plane_h", "plane_w",
+                                        "plane_rstride")] + \
+        [(n, _I) for n in ("n_entries", "n_units", "ib", "bias", "bd_max")]
 
 
 class CompArgs(ct.Structure):
@@ -66,10 +75,12 @@ class CompArgs(ct.Structure):
 
 
 class ObmcArgs(ct.Structure):
-    """csrc/obmc.cu ObmcArgs."""
-    _fields_ = [(n, _P) for n in ("plane", "laps", "ys", "xs", "masks")] + \
-        [(n, _I) for n in ("plane_h", "plane_w", "plane_rstride", "n",
-                           "lap_h", "lap_w", "region", "vert")]
+    """csrc/obmc.cu ObmcRunArgs."""
+    _fields_ = [(n, _P) for n in ("tab", "desc", "arena", "masks")] + \
+        [("plane", _P * MAX_PLANES), ("arena_n", _L)] + \
+        [(n, _I * MAX_PLANES) for n in ("plane_h", "plane_w",
+                                        "plane_rstride")] + \
+        [(n, _I) for n in ("n_entries", "n_pixels")]
 
 
 def _binder(name, args_t):
@@ -118,6 +129,19 @@ def _plane(a, plane, dev, prefix):
     setattr(a, f"{prefix}_rstride", plane.stride(0))
 
 
+def _planes(a, planes, dev):
+    """The destination planes, (H, W) int32 at their row strides."""
+    if len(planes) > MAX_PLANES:
+        raise ValueError(f"{len(planes)} planes, at most {MAX_PLANES}")
+    for i, p in enumerate(planes):
+        check(p, f"planes[{i}]", torch.int32, 2, dev, contiguous=False)
+        if p.stride(1) != 1:
+            raise ValueError(f"planes[{i}]: columns not contiguous")
+        a.plane[i] = p.data_ptr()
+        a.plane_h[i], a.plane_w[i] = p.shape
+        a.plane_rstride[i] = p.stride(0)
+
+
 def _column(t, name, n, dev):
     check(t, name, torch.int32, 1, dev)
     if t.shape[0] < n:
@@ -133,53 +157,58 @@ def _bd(a, bitdepth):
     a.bd_max = (1 << bitdepth) - 1
 
 
-def _warp_args(ref_stack, rows, bitdepth, prep, dev):
-    check(ref_stack, "ref_stack", torch.int32, 3, dev, contiguous=False)
-    if ref_stack.stride(2) != 1:
-        raise ValueError("ref_stack: columns not contiguous")
-    check(rows, "rows", torch.int32, 2, dev)
-    if rows.shape[1] != 10:
-        raise ValueError(f"rows: shape {tuple(rows.shape)}, expected "
-                         f"(B, 10)")
+def _table(a, tab, work, width, dev):
+    """The run's table: `width` ints an entry; its counts."""
+    check(tab, "tab", torch.int32, 1, dev)
+    n_entries, n_work = work
+    if tab.shape[0] != n_entries * width:
+        raise ValueError(f"tab: {tab.shape[0]} ints for work {work}")
+    a.tab, a.n_entries = tab.data_ptr(), n_entries
+    return n_work
+
+
+def _arena(a, arena, dev):
+    if arena is not None:
+        check(arena, "arena", torch.int32, 1, dev)
+        a.arena, a.arena_n = arena.data_ptr(), arena.numel()
+
+
+def warp_run(tab, work, desc, desc16, planes, refs, arena, bitdepth: int):
+    """A frame's warp work list; see ``ops/mc.warp_run`` for the
+    arguments (arena may be None when no entry writes slots). planes and
+    refs: at most MAX_PLANES each, refs[i] the (R, H, W) int32 stack of
+    planes[i] (unit column stride). Updates planes and arena in place;
+    one launch (none for a list without units)."""
+    if tab.device.type == "cpu":
+        return mc.warp_run(tab, work, desc, desc16, planes, refs, arena,
+                           bitdepth)
+    a = warp_args(tab, work, desc, desc16, planes, refs, arena, bitdepth)
+    if a.n_units:
+        _launch("warp", a, tab.device)
+
+
+def warp_args(tab, work, desc, desc16, planes, refs, arena, bitdepth: int):
+    """The checked WarpArgs struct of a warp_run call on CUDA tensors."""
+    dev = cuda_device(tab, "warp_run")
     a = WarpArgs()
-    a.rows, a.ref = rows.data_ptr(), ref_stack.data_ptr()
-    a.ref_pstride, a.ref_rstride = ref_stack.stride(0), ref_stack.stride(1)
-    a.ref_n, a.ref_h, a.ref_w = ref_stack.shape
-    a.B, a.prep = rows.shape[0], int(bool(prep))
+    a.n_units = _table(a, tab, work, mc.WENTRY, dev)
+    check(desc, "desc", torch.int32, 1, dev)
+    check(desc16, "desc16", torch.int16, 1, dev)
+    a.desc, a.desc16 = desc.data_ptr(), desc16.data_ptr()
+    if len(refs) > MAX_PLANES:
+        raise ValueError(f"{len(refs)} reference stacks, at most "
+                         f"{MAX_PLANES}")
+    for i, r in enumerate(refs):
+        check(r, f"refs[{i}]", torch.int32, 3, dev, contiguous=False)
+        if r.stride(2) != 1:
+            raise ValueError(f"refs[{i}]: columns not contiguous")
+        a.ref[i] = r.data_ptr()
+        a.ref_pstride[i], a.ref_rstride[i] = r.stride(0), r.stride(1)
+        a.ref_n[i], a.ref_h[i], a.ref_w[i] = r.shape
+    _planes(a, planes, dev)
+    _arena(a, arena, dev)
     _bd(a, bitdepth)
     return a
-
-
-def warp_plane(plane, ref_stack, rows, ys, xs, bitdepth: int):
-    """plane (H, W) int32 (unit column stride); ref_stack (R, H', W')
-    int32 (unit column stride); rows (B, 10) int32; ys, xs (B,) int32.
-    See ``ops/mc.warp_plane``."""
-    if plane.device.type == "cpu":
-        return mc.warp_plane(plane, ref_stack, rows, ys, xs, bitdepth)
-    dev = cuda_device(plane, "warp_plane")
-    a = _warp_args(ref_stack, rows, bitdepth, False, dev)
-    a.ys = _column(ys, "ys", a.B, dev)
-    a.xs = _column(xs, "xs", a.B, dev)
-    _plane(a, plane, dev, "dst")
-    a.dst = plane.data_ptr()
-    if a.B:
-        _launch("warp", a, dev)
-    return plane
-
-
-def warp_slots(buf, ref_stack, rows, base, bitdepth: int, prep: bool):
-    """buf (N, bhp, bwp) int32, contiguous; base (B,) int32 flat offsets.
-    See ``ops/mc.warp_slots``."""
-    if buf.device.type == "cpu":
-        return mc.warp_slots(buf, ref_stack, rows, base, bitdepth, prep)
-    dev = cuda_device(buf, "warp_slots")
-    check(buf, "buf", torch.int32, 3, dev)
-    a = _warp_args(ref_stack, rows, bitdepth, prep, dev)
-    a.base = _column(base, "base", a.B, dev)
-    a.dst, a.dst_n, a.row_w = buf.data_ptr(), buf.numel(), buf.shape[2]
-    if a.B:
-        _launch("warp", a, dev)
-    return buf
 
 
 def comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc, ss_hor: int,
@@ -225,25 +254,19 @@ def comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc, ss_hor: int,
     return plane
 
 
-def obmc_plane(plane, laps, ys, xs, region: int, vert: bool):
-    """plane (H, W) int32 (unit column stride); laps (nL, lap_h, lap_w)
-    int32, contiguous; ys, xs (nL,) int32. See ``ops/mc.obmc_plane``."""
-    if plane.device.type == "cpu":
-        return mc.obmc_plane(plane, laps, ys, xs, region, vert)
-    dev = cuda_device(plane, "obmc_plane")
-    check(laps, "laps", torch.int32, 3, dev)
+def obmc_run(tab, work, desc, planes, arena):
+    """One phase's OBMC work list; see ``ops/mc.obmc_run`` for the
+    arguments. planes: at most MAX_PLANES (H, W) int32 planes (unit
+    column stride). Updates the planes in place; one launch (none for a
+    list without pixels)."""
+    if tab.device.type == "cpu":
+        return mc.obmc_run(tab, work, desc, planes, arena)
+    dev = cuda_device(tab, "obmc_run")
     a = ObmcArgs()
-    a.n, a.lap_h, a.lap_w = laps.shape
-    n_mask = (region * 3) >> 2
-    if region < 0 or region + n_mask > len(mc.OBMC_MASKS) or \
-            n_mask > (a.lap_w if vert else a.lap_h):
-        raise ValueError(f"region {region} for laps {a.lap_w}x{a.lap_h}")
-    a.region, a.vert = region, int(bool(vert))
-    a.ys = _column(ys, "ys", a.n, dev)
-    a.xs = _column(xs, "xs", a.n, dev)
-    a.laps, a.masks = laps.data_ptr(), mc.obmc_mask_table(dev).data_ptr()
-    _plane(a, plane, dev, "plane")
-    a.plane = plane.data_ptr()
-    if a.n:
+    a.n_pixels = _table(a, tab, work, mc.OENTRY, dev)
+    check(desc, "desc", torch.int32, 1, dev)
+    a.desc, a.masks = desc.data_ptr(), mc.obmc_mask_table(dev).data_ptr()
+    _planes(a, planes, dev)
+    _arena(a, arena, dev)
+    if a.n_pixels:
         _launch("obmc", a, dev)
-    return plane

@@ -4,14 +4,20 @@
     python3 -m dav1d_mirror_tpu_torch.tools.tools_cases
 
 The case functions (numpy, from a seed) serve ``chip_smoke.py``'s tools
-phase and the CPU tests (``tests/test_torch_tools_kernels.py``, which
-hold the plain versions to the JAX package on them):
+phase and the CPU tests (``tests/test_torch_tools_kernels.py`` and
+``tests/test_torch_tools_runs.py``, which hold the plain versions to the
+JAX package on them). The warp and OBMC kernels run work lists
+(``warp_run``, ``obmc_run``): each case runs as a one-entry list, and
+the mixed lists hold many entries:
 
 - warp: bit depths 8, 10 and 12, put into a plane (units on the 8x8 grid,
   some cut by the plane's edges, PAD_OOB pad rows) and put or prep into
   slots of a slot buffer (8x8 sub-rects, pad rows repeating the last
   unit); windows far outside the reference; phases whose table rows lie
   above the table, in [-193, -1] (counted from its end) and below -193;
+  a bit depth's three cases as one mixed list (``warp_list``: a
+  reference stack a plane, int16 and int32 destinations, the slot
+  buffers at offsets of one arena);
 - comp: bit depths 8, 10 and 12 in the 4:2:0, 4:2:2 and 4:4:4 layouts:
   two luma records and two chroma records of one frame, every join kind
   (average, distance weights, wedge, seg luma, seg chroma from one luma
@@ -20,7 +26,8 @@ hold the plain versions to the JAX package on them):
   records' tables come from ``models/frame_exec.McRun.comp_table``;
 - obmc: top laps (rows blended; the blended rows may exceed the lap's
   rows) and left laps (columns), disjoint laps some cut by the plane's
-  edges, PAD_OOB pad laps.
+  edges, PAD_OOB pad laps; a mixed list a bit depth (``obmc_run_case``:
+  every lap shape on three planes, the laps of all entries disjoint).
 
 Run as a module on a machine with a CUDA card, it holds every case's
 kernel result to its plain version's (``torch.equal``) and prints the
@@ -89,8 +96,9 @@ def warp_rows(rng, n, refs_shape):
 
 
 def warp_cases(rng):
-    """[(label, kw)]: kw = dict(refs, rows, bd, and either plane, ys, xs
-    (warp_plane) or buf, base, prep (warp_slots))."""
+    """[(label, kw)]: kw = dict(refs, rows, bd, n_real (the rows before
+    the pad rows), and either plane, ys, xs (a plane entry) or buf, base,
+    prep (a slot entry))."""
     out = []
     for bd in BDS:
         refs = rng.integers(0, 1 << bd, (3, 40, 56)).astype(np.int32)
@@ -101,7 +109,7 @@ def warp_cases(rng):
         out.append((f"warp plane bd{bd}", dict(
             refs=refs, rows=rows, bd=bd,
             plane=rng.integers(0, 1 << bd, (H, W)).astype(np.int32),
-            ys=pad_to(ys, 16, PAD_OOB), xs=pad_to(xs, 16))))
+            ys=pad_to(ys, 16, PAD_OOB), xs=pad_to(xs, 16), n_real=13)))
         # into slots: (4, 16, 24) slot buffer, 8x8 sub-rects, pads
         # repeating the last unit
         for prep in (False, True):
@@ -113,8 +121,75 @@ def warp_cases(rng):
                         dict(refs=refs, bd=bd, prep=prep,
                              rows=pad_to(warp_rows(rng, 11, refs.shape), 16),
                              buf=rng.integers(-99, 99, (N, bhp, bwp)).astype(
-                                 np.int32), base=pad_to(base, 16))))
+                                 np.int32), base=pad_to(base, 16),
+                             n_real=11)))
     return out
+
+
+class _Buffers:
+    """The int32 and int16 descriptor buffers of a synthetic list."""
+
+    def __init__(self):
+        self.chunks = {np.int32: [], np.int16: []}
+        self.off = {np.int32: 0, np.int16: 0}
+
+    def emit(self, a, dtype=np.int32):
+        a = np.asarray(a).reshape(-1)
+        if dtype == np.int16:     # pad rows' PAD_OOB as the planner's OOB16
+            a = np.where(a >= PAD_OOB, 0x7FFF, a)
+        off = self.off[dtype]
+        self.chunks[dtype].append(a.astype(dtype))
+        self.off[dtype] += a.size
+        return off
+
+    def flat(self, dtype):
+        c = self.chunks[dtype]
+        return np.concatenate(c) if c else np.zeros(1, dtype)
+
+
+def warp_list(kws, narrow=False):
+    """The warp cases `kws` (warp_cases' dicts, of one bit depth and one
+    reference stack) as one work list (ops/mc.warp_build_table): plane
+    cases into planes 0, 1, ..., slot case i reading plane i % 3's
+    reference stack, its buffer at its offset of one arena; with
+    `narrow`, every other entry's destinations in the int16 buffer.
+    Plane p reads refs[p]: the cases' own stack, the stack reversed, and
+    its pictures turned by 180 degrees. Returns dict(tab, work, desc,
+    desc16, planes, refs, arena, bd, at: [(plane index, arena offset or
+    None)] a case)."""
+    from ..ops import mc
+    buf = _Buffers()
+    r = kws[0]["refs"]
+    refs = [r] + [np.ascontiguousarray(v) for v in
+                  (r[::-1], np.rot90(r, 2, (1, 2)))]
+    planes, arena, entries, at = [], [], [], []
+    for i, kw in enumerate(kws):
+        d16 = np.int16 if narrow and i % 2 == 0 else np.int32
+        e = dict(rows=buf.emit(kw["rows"]), B=len(kw["rows"]),
+                 n_real=kw["n_real"])
+        if "plane" in kw:
+            p = len(planes)
+            planes.append(kw["plane"])
+            e.update(plane=p, ys=buf.emit(kw["ys"], d16),
+                     xs=buf.emit(kw["xs"], d16),
+                     flags=(mc.WF_YS16 | mc.WF_XS16) * (d16 == np.int16))
+            at.append((p, None))
+        else:
+            off = sum(a.size for a in arena)
+            arena.append(kw["buf"].reshape(-1))
+            e.update(plane=i % 3, ys=buf.emit(kw["base"], d16), dst=off,
+                     dstn=kw["buf"].size, row_w=kw["buf"].shape[2],
+                     flags=mc.WF_SLOT | mc.WF_PREP * bool(kw["prep"]) |
+                     mc.WF_YS16 * (d16 == np.int16))
+            at.append((i % 3, off))
+        entries.append(e)
+    while len(planes) < 3:        # a plane only slot entries name
+        planes.append(np.zeros((8, 8), np.int32))
+    tab, work = mc.warp_build_table(entries)
+    return dict(tab=tab, work=work, desc=buf.flat(np.int32),
+                desc16=buf.flat(np.int16), planes=planes, refs=refs,
+                arena=np.concatenate(arena) if arena else
+                np.zeros(1, np.int32), bd=kws[0]["bd"], at=at)
 
 
 def _join_lists(kinds):
@@ -263,15 +338,37 @@ def to_torch(v, dev):
     return v
 
 
+def one_entry_lists(tab, work, width):
+    """[(tab, work)] of a warp (width mc.WENTRY) or OBMC (mc.OENTRY) work
+    list: its entries, each as a one-entry list of its own on the table's
+    device, in order."""
+    from ..ops import mc
+    start = mc.W_START if width == mc.WENTRY else mc.O_START
+    out = []
+    for i, e in enumerate(mc.table_rows(tab, work[0], width)):
+        one = tab[i * width:(i + 1) * width].clone()
+        one[start] = 0
+        out.append((one, (1, e[mc.W_NREAL] if width == mc.WENTRY else
+                          e[mc.O_NREAL] * e[mc.O_ROWS] * e[mc.O_COLS])))
+    return out
+
+
+def run_warp_list(mod, case, dev):
+    """A warp list (warp_list's dict) through `mod`'s warp_run (ops/mc or
+    ops/tools_cuda) on fresh tensors on dev; returns (planes, arena)."""
+    a = to_torch(case, dev)
+    mod.warp_run(a["tab"], case["work"], a["desc"], a["desc16"],
+                 a["planes"], a["refs"], a["arena"], case["bd"])
+    return a["planes"], a["arena"]
+
+
 def run_warp(mod, kw, dev):
-    """A warp case through `mod`'s warp_plane or warp_slots (ops/mc or
-    ops/tools_cuda) on fresh tensors on dev; returns the destination."""
-    a = to_torch(kw, dev)
-    if "plane" in a:
-        return mod.warp_plane(a["plane"], a["refs"], a["rows"], a["ys"],
-                              a["xs"], kw["bd"])
-    return mod.warp_slots(a["buf"], a["refs"], a["rows"], a["base"],
-                          kw["bd"], kw["prep"])
+    """A warp case through `mod`'s warp_run as a one-entry list; returns
+    its destination (the plane, or the slot buffer)."""
+    planes, arena = run_warp_list(mod, warp_list([kw]), dev)
+    if "plane" in kw:
+        return planes[0]
+    return arena[:kw["buf"].size].view(kw["buf"].shape)
 
 
 def comp_slice(desc, h):
@@ -297,12 +394,72 @@ def run_comp(mod, case, dev):
     return planes[0], planes[1], masks
 
 
+def obmc_list(kws):
+    """OBMC cases (obmc_cases' dicts, each with `pl`, the index of its
+    destination plane, or plane 0) as one work list
+    (ops/mc.obmc_build_table), in order, their laps at offsets of one
+    arena. Returns dict(tab, work, desc, arena)."""
+    from ..ops import mc
+    buf = _Buffers()
+    arena, entries = [], []
+    for kw in kws:
+        nL, lh, lw = kw["laps"].shape
+        entries.append(dict(
+            plane=kw.get("pl", 0), laps=sum(a.size for a in arena), lh=lh,
+            lw=lw, region=kw["region"], vert=int(kw["vert"]),
+            ys=buf.emit(kw["ys"]), xs=buf.emit(kw["xs"]),
+            n_real=int(np.sum(kw["ys"] != PAD_OOB))))
+        arena.append(kw["laps"].reshape(-1))
+    tab, work = mc.obmc_build_table(entries)
+    return dict(tab=tab, work=work, desc=buf.flat(np.int32),
+                arena=np.concatenate(arena))
+
+
+def obmc_run_case(rng, bd):
+    """One phase-free mixed OBMC list of bit depth bd: every OBMC_SHAPES
+    shape on a luma plane of odd sides and the chroma shapes on two
+    chroma planes, up to 4 real laps an entry on its shape's lap grid
+    (the row and column past the plane's edges included), the laps of
+    all entries disjoint, and PAD_OOB pad laps. Returns dict(planes,
+    recs: obmc_cases-like dicts with `pl`, and obmc_list's fields)."""
+    shapes = ((95, 127), (47, 63), (47, 63))
+    planes = [rng.integers(0, 1 << bd, s).astype(np.int32) for s in shapes]
+    recs = []
+    for p, (H, W) in enumerate(shapes):
+        taken = np.zeros((H + 64, W + 64), bool)
+        for vert, lh, lw, region in OBMC_SHAPES:
+            if p and lh > 16:
+                continue
+            gy, gx = H // lh + 1, W // lw + 1
+            ys, xs = [], []
+            for c in rng.permutation(gy * gx):
+                y, x = c // gx * lh, c % gx * lw
+                if len(ys) < 4 and not taken[y:y + lh, x:x + lw].any():
+                    taken[y:y + lh, x:x + lw] = True
+                    ys.append(y)
+                    xs.append(x)
+            nL = 8
+            recs.append(dict(
+                pl=p, region=region, vert=vert,
+                laps=rng.integers(0, 1 << bd, (nL, lh, lw)).astype(np.int32),
+                ys=pad_to(np.asarray(ys, np.int32), nL, PAD_OOB),
+                xs=pad_to(np.asarray(xs, np.int32), nL)))
+    return dict(planes=planes, recs=recs, **obmc_list(recs))
+
+
+def run_obmc_list(mod, case, planes, dev):
+    """An OBMC list (obmc_list's fields) through `mod`'s obmc_run on fresh
+    tensors on dev, onto copies of `planes`; returns the planes."""
+    a = to_torch(dict(case, planes=planes), dev)
+    mod.obmc_run(a["tab"], case["work"], a["desc"], a["planes"],
+                 a["arena"])
+    return a["planes"]
+
+
 def run_obmc(mod, kw, dev):
-    """An obmc case through `mod`'s obmc_plane on fresh tensors on dev;
-    returns the plane."""
-    a = to_torch(kw, dev)
-    return mod.obmc_plane(a["plane"], a["laps"], a["ys"], a["xs"],
-                          kw["region"], kw["vert"])
+    """An obmc case through `mod`'s obmc_run as a one-entry list on fresh
+    tensors on dev; returns the plane."""
+    return run_obmc_list(mod, obmc_list([kw]), [kw["plane"]], dev)[0]
 
 
 def check_all(torch, dev, seed=2027):
@@ -312,15 +469,26 @@ def check_all(torch, dev, seed=2027):
     from ..ops import mc, tools_cuda
     rng = np.random.default_rng(seed)
     res = []
-    for label, kw in warp_cases(rng):
+    warps = warp_cases(rng)
+    for label, kw in warps:
         res.append((label, torch.equal(run_warp(tools_cuda, kw, dev),
                                        run_warp(mc, kw, dev))))
+    for bd in BDS:
+        case = warp_list([kw for _, kw in warps if kw["bd"] == bd], True)
+        got, want = (run_warp_list(m, case, dev) for m in (tools_cuda, mc))
+        res.append((f"warp list bd{bd}", all(map(
+            torch.equal, got[0] + [got[1]], want[0] + [want[1]]))))
     for label, case in comp_cases(rng):
         got, want = run_comp(tools_cuda, case, dev), run_comp(mc, case, dev)
         res.append((label, all(map(torch.equal, got, want))))
     for label, kw in obmc_cases(rng):
         res.append((label, torch.equal(run_obmc(tools_cuda, kw, dev),
                                        run_obmc(mc, kw, dev))))
+    for bd in BDS:
+        case = obmc_run_case(rng, bd)
+        got, want = (run_obmc_list(m, case, case["planes"], dev)
+                     for m in (tools_cuda, mc))
+        res.append((f"obmc list bd{bd}", all(map(torch.equal, got, want))))
     return res
 
 

@@ -1,8 +1,9 @@
 """The inter tool kernels' plain versions and records on the CPU
-(dav1d_mirror_tpu_torch/ops/mc.py warp_plane, warp_slots, comp_record and
-obmc_plane, the plain versions of csrc/warp.cu, csrc/comp.cu and
-csrc/obmc.cu; their wrappers' CPU route in ops/tools_cuda.py; the
-planner's comptab and cmarena records, models/frame_exec.McRun):
+(dav1d_mirror_tpu_torch/ops/mc.py warp_run, comp_record and obmc_run, the
+plain versions of csrc/warp.cu, csrc/comp.cu and csrc/obmc.cu, here on
+one-entry lists: warp_plane, warp_slots and obmc_plane an entry; their
+wrappers' CPU route in ops/tools_cuda.py; the planner's comptab and
+cmarena records, models/frame_exec.McRun):
 
 - the synthetic cases of dav1d_mirror_tpu_torch/tools/tools_cases.py
   (the ones chip_smoke.py holds the kernels to) through the plain
@@ -35,10 +36,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
 
-import torch_streams as ts  # noqa: E402
+import torch_tools_programs as ttp  # noqa: E402
 from dav1d_mirror_tpu.ops import mc_tpu as jmc  # noqa: E402
-from dav1d_mirror_tpu_torch import api as tapi  # noqa: E402
-from dav1d_mirror_tpu_torch.host.ivf import parse_ivf  # noqa: E402
 from dav1d_mirror_tpu_torch.models import frame_exec as tfe  # noqa: E402
 from dav1d_mirror_tpu_torch.ops import mc, tools_cuda  # noqa: E402
 from dav1d_mirror_tpu_torch.tools import tools_cases as tc  # noqa: E402
@@ -169,16 +168,15 @@ def test_wrappers_route_cpu_and_refuse_other_devices():
     assert torch.equal(tc.run_obmc(tools_cuda, kw, CPU),
                        tc.run_obmc(mc, kw, CPU))
     m = torch.zeros(120, dtype=torch.int32, device="meta")
-    p, m3, rows = m[:64].view(8, 8), m[:64].view(1, 8, 8), m.view(12, 10)
+    p, m3 = m[:64].view(8, 8), m[:64].view(1, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        tools_cuda.warp_plane(p, m3, rows, m, m, 8)
-    with pytest.raises(ValueError, match="CUDA"):
-        tools_cuda.warp_slots(m3, m3, rows, m, 8, True)
+        tools_cuda.warp_run(m[:mc.WENTRY], (1, 1), m, m.to(torch.int16),
+                            [p], [m3], m, 8)
     with pytest.raises(ValueError, match="CUDA"):
         tools_cuda.comp_record(p, m3, m3, m.view(40, 3)[:1], m, m, m, m, 1,
                                1, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        tools_cuda.obmc_plane(p, m3, m, m, 8, True)
+        tools_cuda.obmc_run(m[:mc.OENTRY], (1, 1), m, [p], m)
 
 
 # ---------------------------------------------------------------------
@@ -189,25 +187,7 @@ def tools_programs():
     """(sig, desc) of the recon programs of a lossless 128x64 stream with
     every tool (its frame 1 holds all four joins, warps and OBMC laps of
     both phases)."""
-    _, data, _ = ts.build_tools_stream(dict(ts.TOOLS, w=128, h=64,
-                                            n_inter=3, q=0), 5)
-    _, _, _, frames = parse_ivf(data)
-    seen = []
-    orig = tfe.execute_program
-
-    def spy(sig, desc, *args):
-        if any(r[0] == "comp" for r in sig[0]):
-            seen.append((sig, desc.numpy().copy()))
-        return orig(sig, desc, *args)
-    tfe.execute_program = spy
-    try:
-        dec = tapi.Decoder(tapi.Settings(device="cpu"))
-        for fr in frames:
-            dec.send_data(fr.data)
-    finally:
-        tfe.execute_program = orig
-    assert seen
-    return seen
+    return [(p[0], p[1]) for p in ttp.tools_programs()]
 
 
 def test_obmc_laps_of_a_record_are_disjoint(tools_programs):
