@@ -26,9 +26,11 @@ Run from the root of a checkout. It
    each way a plane, the direction search and a filter launch a
    plane), the warp kernel once for each warprun record (a frame's warp
    records and "w" sub-ops in one work list, at most once a frame), the
-   compound join kernel once for each comp record and the OBMC kernel
-   once for each obmcrun record (a phase's obmc records of every plane,
-   at most twice a frame) (each path's launches printed):
+   compound join kernel once for each comprun record (a frame's comp
+   records of every plane in one work list, at most once a frame; also
+   in the tile-sharded decode, a list a frame) and the OBMC kernel once
+   for each obmcrun record (a phase's obmc records of every plane, at
+   most twice a frame) (each path's launches printed):
    config 2, the 9-frame 1080p 8-bit inter + deblock + CDEF stream
    (bench_cache/e2e_1080p_inter_cdef_727de0883e7e.ivf); config 3, the
    5-frame 1080p 10-bit stream with Wiener loop restoration and film
@@ -147,20 +149,22 @@ Run from the root of a checkout. It
    filter programs are replayed with the kernels and with the plain
    versions in their place (no plain deblock or CDEF function may run in
    the kernel route), counting eager ops. The inter tool kernels (the
-   warp and the OBMC blend: work-list kernels, one launch a warprun or
-   obmcrun record; the compound joins: one launch a comp record) are
-   held to ``torch.equal`` with their plain versions (ops/mc.warp_run,
-   comp_record, obmc_run) on the synthetic cases of tools/tools_cases
-   (bd 8/10/12, the three layouts, every join kind, pad slots and rows,
-   edge-cut units, phases past the warp table, both OBMC phases; each
-   warp and OBMC case as a one-entry list, and a mixed list of each a
-   bit depth) and on every path's own largest call of each wrapper; the
-   tools path's frame 1 calls of each kernel (its warprun, its comp
-   records, its two obmcrun records) are timed warm and cold against a
-   byte and operation bound, the warp and OBMC runs also in turns with
-   the same entries as one-entry launches (an entry a launch, as the
-   records ran before), beside their plain version's device and wall
-   time; and the tools path's frame 1 and the super-res path's frame 4
+   warp, the compound joins and the OBMC blend: work-list kernels, one
+   launch a warprun, comprun or obmcrun record) are held to
+   ``torch.equal`` with their plain versions (ops/mc.warp_run, comp_run,
+   obmc_run) on the synthetic cases of tools/tools_cases (bd 8/10/12,
+   the three layouts, every join kind, pad slots and rows, edge-cut
+   units, phases past the warp table, both OBMC phases; each warp and
+   OBMC case as a one-entry list, and a mixed list of each a bit depth;
+   each comp case as a mixed list and as a one-entry list of each of its
+   records) and on every path's own largest call of each wrapper (the
+   tile-sharded decode's comp_run among them); the tools path's frame 1
+   calls of each kernel (its warprun, its comprun, its two obmcrun
+   records) are timed warm and cold against a byte and operation bound,
+   each run also in turns with the same entries as one-entry launches
+   (an entry a launch, as the records ran before), beside their plain
+   version's device and wall time; and the tools path's frame 1 and the
+   super-res path's frame 4
    are replayed with the kernels and with their plain versions in their
    place (no warp8x8_batch, join, obmc_blend_batch, scatter_slot_units
    or per-record plain tool function may run in the kernel route),
@@ -308,15 +312,13 @@ NO_SPILL = {"itx", "mc_units", "mc_scaled", "deblock", "cdef", "warp",
             "comp", "obmc"}
 # the inter tool wrappers (ops/tools_cuda; their plain versions in ops/mc)
 # -> their kernel row
-TOOLS_FNS = {"warp_run": "warp", "comp_record": "comp", "obmc_run": "obmc"}
-# the warp and OBMC work-list wrappers -> ints a table entry (ops/mc)
-TOOLS_RUNS = {"warp_run": "WENTRY", "obmc_run": "OENTRY"}
+TOOLS_FNS = {"warp_run": "warp", "comp_run": "comp", "obmc_run": "obmc"}
 # the functions that ran the tools as eager ops before their kernels
 # (ops/mc): none may run in the kernel route of a replay
-TOOLS_EAGER = ("warp8x8_batch", "obmc_blend_batch", "comp_join_wavg",
-               "w_avg_batch", "mask_batch", "w_mask_batch",
-               "scatter_slot_units", "warp_plane", "warp_slots",
-               "obmc_plane", *TOOLS_FNS)
+TOOLS_EAGER = ("warp8x8_batch", "obmc_blend_batch", "w_avg_batch",
+               "mask_batch", "w_mask_batch", "scatter_slot_units",
+               "warp_plane", "warp_slots", "comp_record", "obmc_plane",
+               *TOOLS_FNS)
 # integer operations a warp unit (120 horizontal and 64 vertical 8-tap
 # sums, a multiply and an add a tap), a joined pixel and a blended pixel
 WARP_UNIT_OPS = 2 * 8 * (120 + 64)
@@ -612,9 +614,7 @@ class ToolsLog(CallLog):
         if name == "warp_run":
             return "calls", name, a[1][1], lambda: (
                 _clone(a[:5]) + (a[5],) + _clone(a[6:]), _clone(k))
-        size = a[1][1] if name == "obmc_run" else \
-            a[3].shape[0] * a[1][0].numel()
-        return "calls", name, size, lambda: _clone((a, k))
+        return "calls", name, a[1][-1], lambda: _clone((a, k))
 
 
 class ShapeLog:
@@ -1104,10 +1104,11 @@ def parallel_phase(torch):
     config 3's first-frame planes and parameters against the
     single-device filters, and the dry run's steps at its shapes (its
     itx buckets under ItxLog, its unit MC calls under McuLog, its band
-    deblock and CDEF calls under FilterLog). Returns (steps, frame checks,
-    ItxLog, McuLog, FilterLog)."""
+    deblock and CDEF calls under FilterLog, its comp runs under
+    ToolsLog). Returns (steps, frame checks, ItxLog, McuLog, FilterLog,
+    ToolsLog)."""
     from dav1d_mirror_tpu_torch.ops import (cdef_cuda, deblock_cuda,
-                                            itx_cuda, mcu_cuda)
+                                            itx_cuda, mcu_cuda, tools_cuda)
     from dav1d_mirror_tpu_torch.parallel import dryrun
     from dav1d_mirror_tpu_torch.parallel.mesh import close_mesh, init_mesh
     with open(os.path.join(TOOLS_DIR, SHARDED_STREAM), "rb") as f:
@@ -1116,14 +1117,16 @@ def parallel_phase(torch):
     mesh = init_mesh(1, 0, f"tcp://127.0.0.1:{dryrun.free_port()}", "cuda")
     print(f"parallel: NCCL mesh of world size 1 formed in "
           f"{time.perf_counter() - t0:.2f} s")
-    # the itx, unit MC, deblock and CDEF kernels' launches in the
+    # the itx, unit MC, deblock, CDEF and comp kernels' launches in the
     # tile-sharded decode
     sharded_itx, sharded_units, sharded_filters = [], [], []
+    sharded_comp = []
     real_decode = dryrun.sharded_stream_decode
 
     def counted_decode(*args):
         n0, u0 = itx_cuda.ITX_LAUNCHES, mcu_cuda.UNITS_LAUNCHES
         d0, c0 = deblock_cuda.DEBLOCK_LAUNCHES, cdef_cuda.CDEF_LAUNCHES
+        j0 = tools_cuda.COMP_LAUNCHES
         try:
             return real_decode(*args)
         finally:
@@ -1131,10 +1134,11 @@ def parallel_phase(torch):
             sharded_units.append(mcu_cuda.UNITS_LAUNCHES - u0)
             sharded_filters.append((deblock_cuda.DEBLOCK_LAUNCHES - d0,
                                     cdef_cuda.CDEF_LAUNCHES - c0))
+            sharded_comp.append(tools_cuda.COMP_LAUNCHES - j0)
     dryrun.sharded_stream_decode = counted_decode
     try:
         with ItxLog() as itx_log, McuLog() as mcu_log, \
-                FilterLog() as filter_log:
+                FilterLog() as filter_log, ToolsLog() as tools_log:
             steps = dryrun.run_rank(mesh, 1, sharded)
         frame_checks = {}
         for cfg, path in (("config 2", STREAM), ("config 3", STREAM3)):
@@ -1147,8 +1151,11 @@ def parallel_phase(torch):
         close_mesh()
     assert sharded_itx and sharded_itx[0] > 0, sharded_itx
     assert sharded_units and sharded_units[0] > 0, sharded_units
-    # the stream deblocks and runs CDEF in every frame
+    # the stream deblocks and runs CDEF in every frame, and codes
+    # compound blocks (average and distance weights)
     assert sharded_filters and min(sharded_filters[0]) > 0, sharded_filters
+    assert sharded_comp and sharded_comp[0] > 0, sharded_comp
+    assert set(tools_log.calls) == {"comp_run"}, sorted(tools_log.calls)
     st = steps["sharded_stream_decode"]
     want = TOOLS_STREAMS[SHARDED_STREAM]
     assert (st["md5"], st["frames"]) == want, (st, want)
@@ -1163,9 +1170,9 @@ def parallel_phase(torch):
           f"on the card ({st['decoder_md5']}), {st['frames']} frames, "
           f"{st['ms']:.1f} ms tile-sharded against {st['decoder_ms']:.1f} "
           f"ms through the Decoder; {sharded_itx[0]} itx, "
-          f"{sharded_units[0]} mc_units, {sharded_filters[0][0]} deblock "
-          f"and {sharded_filters[0][1]} CDEF launches in the tile-sharded "
-          f"decode")
+          f"{sharded_units[0]} mc_units, {sharded_filters[0][0]} deblock, "
+          f"{sharded_filters[0][1]} CDEF and {sharded_comp[0]} comp "
+          f"launches in the tile-sharded decode")
     for k, v in steps.items():
         print(f"parallel step {k}: equal, {v['ms']:.2f} ms")
     for k, v in frame_checks.items():
@@ -1182,7 +1189,7 @@ def parallel_phase(torch):
     assert {"apply_pass base 0", f"apply_pass base {HALO_ROWS}",
             "cdef_filter_plane", "cdef_dir"} <= set(filter_log.calls), \
         sorted(filter_log.calls)
-    return steps, frame_checks, itx_log, mcu_log, filter_log
+    return steps, frame_checks, itx_log, mcu_log, filter_log, tools_log
 
 
 def _event(torch):
@@ -2348,15 +2355,10 @@ def tools_plain():
 
 def _tools_dst(name, args):
     """The tensors a tool wrapper's call writes: its destinations (a
-    warp run's planes and arena, an OBMC run's planes; a comp record's
-    plane and its seg-mask arena)."""
+    warp run's planes and arena, a comp or OBMC run's planes)."""
     if name == "warp_run":
         return tuple(args[4]) + ((args[6],) if args[6] is not None else ())
-    if name == "obmc_run":
-        return tuple(args[3])
-    if args[6] is not None:
-        return (args[0], args[6])
-    return (args[0],)
+    return tuple(args[3])
 
 
 def tools_compare(torch, name, args, kwargs):
@@ -2381,9 +2383,10 @@ def _tools_describe(name, args):
     if name == "warp_run":
         return (f"{args[1][1]} units of {args[1][0]} entries into "
                 f"{[tuple(p.shape) for p in args[4]]}")
-    if name == "comp_record":
-        return (f"{args[3].shape[0]} slots of {tuple(args[1].shape[1:])} "
-                f"into {tuple(args[0].shape)}")
+    if name == "comp_run":
+        return (f"{args[1][2]} work items of {args[1][1]} slots of "
+                f"{args[1][0]} entries into "
+                f"{[tuple(p.shape) for p in args[3]]}")
     return (f"{args[1][1]} pixels of {args[1][0]} lap entries into "
             f"{[tuple(p.shape) for p in args[3]]}")
 
@@ -2401,14 +2404,15 @@ def tools_cost(np, name, args):
     """(bytes, operations) one tool wrapper call needs, from its data:
     each input read once (a warp run: its table, the distinct reference
     pixels its units' clamped windows cover in each plane's stack, their
-    rows and destinations; a comp: the real slots' sides, their masks,
-    table and origins; an OBMC run: its table, the blended pixels inside
-    the planes of its laps, read from the lap and the plane, their
-    origins, the mask values), each output written once (the pixels
-    inside the plane or the slots, a seg luma slot's chroma mask);
+    rows and destinations; a comp run: its table, the distinct arena
+    values its real slots' sides and its seg chroma rows' luma sides
+    cover, the distinct wedge mask values, the origins; an OBMC run: its
+    table, the blended pixels inside the planes of its laps, read from
+    the lap and the plane, their origins, the mask values), each output
+    written once (the pixels inside the planes or the slots);
     WARP_UNIT_OPS a warp unit, COMP_PIXEL_OPS a joined and
-    OBMC_PIXEL_OPS a blended pixel. A run counts its real rows and laps
-    only: the pad rows are not work of its list."""
+    OBMC_PIXEL_OPS a blended pixel. A run counts its real rows, slots
+    and laps only: the pad rows are not work of its list."""
     from dav1d_mirror_tpu_torch.ops import mc
     if name == "warp_run":
         tab, work, desc, desc16, planes, refs = args[:6]
@@ -2441,18 +2445,32 @@ def tools_cost(np, name, args):
             units += n
         n_bytes += 4 * sum(int(v.sum()) for v in seen) + 4 * out_px
         return n_bytes, WARP_UNIT_OPS * units
-    if name == "comp_record":
-        plane, tmp0, _, tab, dy, dx = args[:6]
-        t = tab.cpu().numpy()
-        n, (_, bhp, bwp) = len(t), tmp0.shape
-        px = _inside(np, dy.cpu().numpy()[:n], dx.cpu().numpy()[:n], bhp,
-                     bwp, plane.shape)
-        masked = np.isin(t[:, 0], (mc.CJ_SEGC, mc.CJ_WEDGE))
-        seg_l = int((t[:, 0] == mc.CJ_SEGL).sum())
-        mh, mw = mc.seg_mask_shape(bhp, bwp, args[8], args[9])
-        n_bytes = 4 * (2 * n * bhp * bwp + 5 * n + px + seg_l * mh * mw +
-                       len(np.unique(t[masked, 2])) * bhp * bwp)
-        return n_bytes, COMP_PIXEL_OPS * n * bhp * bwp
+    if name == "comp_run":
+        tab, work, desc, planes, arena = args[:5]
+        ents, rows = mc.comp_table_parts(tab, work)
+        d32 = desc.cpu().numpy()
+        read = np.zeros(arena.numel(), bool)
+        masks = np.zeros(desc.numel(), bool)
+        n_bytes, px, joined = 4 * tab.numel(), 0, 0
+        for e in ents.tolist():
+            n, f, bh, bw = e[mc.C_NREAL], e[mc.C_FIRST], e[mc.C_BH], \
+                e[mc.C_BW]
+            area = bh * bw
+            for side in (e[mc.C_S0], e[mc.C_S1]):
+                read[side:side + n * area] = True
+            for r in rows[f:f + n].tolist():
+                if r[mc.R_KIND] == mc.CJ_WEDGE:
+                    masks[r[mc.R_MOFF]:r[mc.R_MOFF] + area] = True
+                elif r[mc.R_KIND] == mc.CJ_SEGC:
+                    for side in (r[mc.R_L0], r[mc.R_L1]):
+                        read[side:side + r[mc.R_LH] * r[mc.R_LW]] = True
+            px += _inside(np, d32[e[mc.C_DY]:e[mc.C_DY] + n].astype(np.int64),
+                          d32[e[mc.C_DX]:e[mc.C_DX] + n].astype(np.int64),
+                          bh, bw, tuple(planes[e[mc.C_PLANE]].shape))
+            n_bytes += 8 * n
+            joined += n * area
+        n_bytes += 4 * (int(read.sum()) + int(masks.sum()) + px)
+        return n_bytes, COMP_PIXEL_OPS * joined
     tab, work, desc, planes = args[:4]
     d32 = desc.cpu().numpy()
     n_bytes, px = 4 * tab.numel() + 4 * len(mc.OBMC_MASKS), 0
@@ -2468,18 +2486,13 @@ def tools_cost(np, name, args):
 
 
 def tools_singles(calls):
-    """The calls with each warp or OBMC run split into one-entry lists of
-    its entries, in order (tools/tools_cases.one_entry_lists): a launch an
-    entry, as the records ran before the work lists."""
-    from dav1d_mirror_tpu_torch.ops import mc
+    """The calls with each run split into one-entry lists of its entries,
+    in order (tools/tools_cases.one_entry_lists): a launch an entry, as
+    the records ran before the work lists."""
     from dav1d_mirror_tpu_torch.tools.tools_cases import one_entry_lists
     out = []
     for n, (a, k) in calls:
-        if n not in TOOLS_RUNS:
-            out.append((n, (a, k)))
-            continue
-        for tab, work in one_entry_lists(a[0], a[1],
-                                         getattr(mc, TOOLS_RUNS[n])):
+        for tab, work in one_entry_lists(a[0], a[1], TOOLS_FNS[n]):
             out.append((n, ((tab, work) + tuple(a[2:]), k)))
     return out
 
@@ -2488,9 +2501,9 @@ def tools_timed(torch, np, row, calls, scratch, label):
     """A frame's calls of one tool kernel (`row`: warp, comp or obmc;
     calls [(wrapper, (args, kwargs))], in the frame's order) timed as one
     unit with the kernels, warm and cold, against the byte and operation
-    bound, and with the plain versions (device and wall). A warp or OBMC
-    run is also timed warm as one-entry launches (tools_singles), in
-    turns with the run: run, one-entry, one-entry, run."""
+    bound, and with the plain versions (device and wall). A run is also
+    timed warm as one-entry launches (tools_singles), in turns with the
+    run: run, one-entry, one-entry, run."""
     from dav1d_mirror_tpu_torch.ops import tools_cuda
     plain = tools_plain()
 
@@ -2606,24 +2619,28 @@ def tools_phase(torch, np, owned, kept, scratch, floor_ms):
 def tools_launches(shapes, launches, name):
     """The warp kernel ran once for each warprun record of the programs
     (ShapeLog; at most one a frame: its warp records and "w" sub-ops),
-    the comp kernel once for each comp record, the OBMC kernel once for
-    each obmcrun record (at most two a frame: one an OBMC phase). Prints
-    the launches and the records."""
+    the comp kernel once for each comprun record (at most one a frame:
+    its comp records), the OBMC kernel once for each obmcrun record (at
+    most two a frame: one an OBMC phase). Prints the launches and the
+    records."""
     ops = {}
     for fr in shapes.frame_ops:
-        assert fr.get("warprun", 0) <= 1 and fr.get("obmcrun", 0) <= 2, \
-            (name, "tool runs a frame", fr)
+        assert fr.get("warprun", 0) <= 1 and fr.get("comprun", 0) <= 1 \
+            and fr.get("obmcrun", 0) <= 2, (name, "tool runs a frame", fr)
+        assert bool(fr.get("comp")) == bool(fr.get("comprun")), \
+            (name, "comp records without their comprun", fr)
         for k, v in fr.items():
             ops[k] = ops.get(k, 0) + v
-    want = {"warp": ops.get("warprun", 0), "comp": ops.get("comp", 0),
+    want = {"warp": ops.get("warprun", 0), "comp": ops.get("comprun", 0),
             "obmc": ops.get("obmcrun", 0)}
     got = {k: launches[k] for k in want}
     assert got == want, (name, "tool launches", got, "for records", want)
     print(f"{name}: inter tool launches {got}, for {want['warp']} warprun "
           f"records ({ops.get('warp', 0)} warp records and "
-          f"{ops.get('comp w', 0)} \"w\" sub-ops), {want['comp']} comp "
-          f"records and {want['obmc']} obmcrun records "
-          f"({ops.get('obmc', 0)} obmc records)")
+          f"{ops.get('comp w', 0)} \"w\" sub-ops), {want['comp']} "
+          f"comprun records ({ops.get('comp', 0)} comp records) and "
+          f"{want['obmc']} obmcrun records ({ops.get('obmc', 0)} obmc "
+          f"records)")
 
 
 # coefficients at the int16/int32 extremes: the butterflies' products wrap
@@ -3713,7 +3730,8 @@ def main():
 
     mark('the parallel paths at world size 1 on the card')
     # ---- the parallel paths at world size 1 on the card ----
-    _, _, sharded_itx, sharded_mcu, sharded_filters = parallel_phase(torch)
+    _, _, sharded_itx, sharded_mcu, sharded_filters, sharded_tools = \
+        parallel_phase(torch)
 
     mark('2. kernel phase')
     # ---- 2. kernel phase ----
@@ -3761,7 +3779,7 @@ def main():
     rows.extend(tools_phase(
         torch, np,
         {"config 2": shapes, "tools": shapes_t, "superres": shapes_s,
-         "pipelined tools": piped_tools["tools"],
+         "pipelined tools": piped_tools["tools"], "sharded": sharded_tools,
          **{key: prof["shapes"] for key, prof in profiles.items()}},
         (f"tools frame {TOOLS_OPS_FRAME}", shapes_t.tools_kept),
         torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda"),

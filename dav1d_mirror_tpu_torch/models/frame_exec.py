@@ -11,7 +11,7 @@ The executor implements the op kinds of the hybrid inter path and the
 filter chain: ``hpx``, ``puthv_x``, ``put``, ``warp``, ``scaled`` (MC
 from a reference of another size), ``comp`` (average, distance-weighted,
 wedge and seg joins), ``obmc``, their work lists (``mcurun``,
-``mcsrun``, ``warprun``, ``obmcrun``), the residual buckets
+``mcsrun``, ``warprun``, ``comprun``, ``obmcrun``), the residual buckets
 (``residmc``, ``residc`` and ``hresc`` (lossless WHT), ``hresmc``) and
 their work lists (``itxrun``), ``dbk`` and ``dbkrun``, ``snap``,
 ``cdef``, ``sres`` (super-resolution), ``lrw``, ``lrs`` and ``out``, and
@@ -47,11 +47,12 @@ records and every "w" sub-op of its side batches are the entries of one
 work list, its ``warprun`` record (after the last warp record, before the
 first comp record): one launch of the warp kernel a frame, into the
 planes and the batches' arena slots (ops/tools_cuda.warp_run); the
-executor passes over the warp records. A ``comp`` record is one launch
-of the join kernel over its real slots, which stores straight into the
-plane (its per-slot table rides a ``comptab`` record just before it, and
-seg luma joins write their chroma masks into the frame's seg-mask arena,
-``cmarena``, where the chroma joins read them). The ``obmc`` records of
+executor passes over the warp records. The frame's ``comp`` records, of
+every plane, are the entries of one work list, its ``comprun`` record (at
+the first comp record): one launch of the join kernel a frame over their
+real slots, stored straight into the planes (ops/tools_cuda.comp_run; a
+seg chroma join derives its mask from its luma slot's sides in the
+arena); the executor passes over the comp records. The ``obmc`` records of
 each OBMC phase (top laps, then left laps), of every plane, are the
 entries of one work list, an ``obmcrun`` record after the phase's last
 obmc record: one launch of the blend kernel a phase, in place on the
@@ -305,7 +306,7 @@ def _narrow(h):
 
 
 class McRun:
-    """The unit MC, warp and OBMC work lists of one frame program, made
+    """The unit MC, warp, comp and OBMC work lists of one frame program, made
     where the planner starts the frame's MC records. ``op`` emits each
     record (the reference interpreter's form); of a ``put`` or ``scaled``
     record, and of each "t" or "s" sub-op of a ``comp`` or ``obmc``
@@ -314,23 +315,26 @@ class McRun:
     an obmc: one count a sub-op; a warp: one count), of a ``warp`` record
     and each "w" sub-op a warp entry (ops/mc.warp_build_table's), of an
     ``obmc`` record an OBMC entry of its phase (ops/mc.obmc_build_table's,
-    on its laps before the PAD_OOB pad laps), and it gives each compound
-    side and each OBMC lap batch its slot buffer in the frame's arena.
-    Before each ``comp`` record it emits ("comptab", table handle): the
-    table of the record's real slots that the join kernel runs
-    (comp_table), derived from the record's joins. After the last
-    ``obmc`` record of each phase (0: top laps, 1: left laps) it emits
-    ("obmcrun", phase, table handle, work). ``close`` inserts, where the
-    MC records start, ("mcarena", arena ints, offsets) when the frame has
-    comp or obmc records (offsets: a tuple each, in record order: a
-    comp's two sides', an obmc's lap batch's), ("cmarena", ints) when it
-    has seg joins (the seg-mask arena: a span a seg luma slot, for its
-    chroma mask), then ("mcurun", table handle, work) and ("mcsrun",
-    table handle, work) for the lists with entries; and ("warprun",
-    table handle, work) after the frame's last ``warp`` record, before
-    its first scaled, comp or obmc record, when it has warp work. Every
-    plane write keeps its order; the "w" units move before the comp
-    records, into arena slots that only they write."""
+    on its laps before the PAD_OOB pad laps), of a ``comp`` record a comp
+    entry (ops/mc.comp_build_table's: the table of the record's real
+    slots, comp_table, derived from its joins), and it gives each
+    compound side and each OBMC lap batch its slot buffer in the frame's
+    arena. After the last ``obmc`` record of each phase (0: top laps, 1:
+    left laps) it emits ("obmcrun", phase, table handle, work).
+    ``close`` inserts, where the MC records start, ("mcarena", arena
+    ints, offsets) when the frame has comp or obmc records (offsets: a
+    tuple each, in record order: a comp's two sides', an obmc's lap
+    batch's), then ("mcurun", table handle, work) and ("mcsrun", table
+    handle, work) for the lists with entries; ("warprun", table handle,
+    work) after the frame's last ``warp`` record, before its first
+    scaled, comp or obmc record, when it has warp work; and ("comprun",
+    table handle, (entries, rows, work items)) right before its first comp
+    record (after the warprun), when it has comp records. Every plane
+    write keeps its order: the "w" units move before the comp records,
+    into arena slots that only they write, and the joins move to the
+    first comp record, where every side is written and before any record
+    that reads or writes their pixels (only comp records lie between the
+    first comp record and the last)."""
 
     def __init__(self, prog):
         self.prog = prog
@@ -338,8 +342,10 @@ class McRun:
         self.units, self.scaled = [], []
         self.arena = 0
         self.offsets = []
-        self.masks = 0       # the seg-mask arena's ints
-        self.seg = {}        # seg luma join id -> (its slots, {slot: span})
+        self.comps = []      # comprun entries
+        self.n_rows = 0      # their real slots (rows of the comp table)
+        self.comp_at = None  # where the comprun goes: the first comp record
+        self.seg = {}        # seg luma join id -> (its slots, {slot: row})
         self.warps = []      # warprun entries
         # where the warprun goes: set at the first scaled, comp or obmc
         # record, after the warp records
@@ -380,13 +386,13 @@ class McRun:
                     row_w=bwp, B=h_rows[1][0], n_real=nr))
         return off
 
-    def comp_table(self, bhp, bwp, joins, ss_hor, ss_ver, h_dy):
+    def comp_table(self, bhp, bwp, joins, h_dy):
         """The (n, mc.CJ_COLS) int32 table of a comp record's real slots
         (those before its PAD_OOB pad slots; the JAX-form joins `joins`
-        cover every slot): join kind, weight or sign, mask offset. A seg
-        luma slot gets a new span of the seg-mask arena for its chroma
-        mask, a seg chroma slot the span of the luma slot its registry
-        entry names, a wedge slot the offset of its mask in the int32
+        cover every slot): join kind, weight or sign, mask offset. Its
+        rows become the frame's next n comp rows: a seg chroma slot's
+        offset is the frame row of the luma slot its registry entry
+        names, a wedge slot's the offset of its mask in the int32
         buffer."""
         arr = self.prog.array
         dy = arr(h_dy)
@@ -399,15 +405,9 @@ class McRun:
             if j[0] == "wavg":
                 kind, moff = mc.CJ_WAVG, np.zeros(len(sl), np.int64)
             elif j[0] == "segl":
-                kind = mc.CJ_SEGL
-                mh, mw = mc.seg_mask_shape(bhp, bwp, ss_hor, ss_ver)
-                spans = {}
-                for s in dict.fromkeys(sl.tolist()):
-                    if s < n:
-                        spans[s] = self.masks
-                        self.masks += mh * mw
-                self.seg[j[3]] = (sl, spans)
-                moff = np.asarray([spans.get(s, -1) for s in sl], np.int64)
+                kind, moff = mc.CJ_SEGL, np.zeros(len(sl), np.int64)
+                self.seg[j[3]] = (sl, {s: self.n_rows + s for s in
+                                       sl.tolist() if s < n})
             elif j[0] == "segc":
                 kind = mc.CJ_SEGC
                 spec = j[3]
@@ -423,6 +423,7 @@ class McRun:
                     tab[sl[k]] = (kind, par[k], moff[k])
         if (tab[:, 0] < 0).any():
             raise ValueError("comp: a real slot that no join covers")
+        self.n_rows += n
         return tab
 
     def _obmc_close(self):
@@ -443,10 +444,8 @@ class McRun:
         if kind == "obmc" and self.phase is not None and \
                 rec[5] != self.phase:
             self._obmc_close()
-        if kind == "comp":
-            _, _, bwp, bhp, _, _, joins, ssh, ssv, h_dy, _ = rec
-            self.prog.op("comptab", self.prog.emit(
-                self.comp_table(bhp, bwp, joins, ssh, ssv, h_dy)))
+        if kind == "comp" and self.comp_at is None:
+            self.comp_at = len(self.prog.ops)
         self.prog.op(*rec)
         if kind == "put":
             _, pl, uw, uh, hh, hv, h_arr, h_ys, h_xs = rec
@@ -466,10 +465,14 @@ class McRun:
                 n_real=n_real, desc=h_rows[0], ys=h_ys[0], xs=h_xs[0],
                 flags=0, steps=mc.mc_steps(rows)))
         elif kind == "comp":
-            _, pl, bwp, bhp, N, sides = rec[:6]
-            self.offsets.append(tuple(
-                self._slots(pl, side, nr, N, bhp, bwp, True)
-                for side, nr in zip(sides, n_real)))
+            _, pl, bwp, bhp, N, sides, joins, ssh, ssv, h_dy, h_dx = rec
+            s0, s1 = (self._slots(pl, side, nr, N, bhp, bwp, True)
+                      for side, nr in zip(sides, n_real))
+            self.offsets.append((s0, s1))
+            self.comps.append(dict(
+                plane=pl, bhp=bhp, bwp=bwp, ch=int(bool(ssh)),
+                cv=int(bool(ssh and ssv)), s0=s0, s1=s1, dy=h_dy[0],
+                dx=h_dx[0], rows=self.comp_table(bhp, bwp, joins, h_dy)))
         elif kind == "warp":
             _, pl, h_rows, h_ys, h_xs = rec
             assert len(h_rows) == 2, "warp: int32 rows"
@@ -494,10 +497,15 @@ class McRun:
             raise ValueError(f"McRun: not an MC record: {kind!r}")
 
     def close(self):
-        """Emit the last OBMC phase's obmcrun; insert the warprun after
-        the warps, and the arena and unit MC run records where the MC
+        """Emit the last OBMC phase's obmcrun; insert the comprun at the
+        first comp record, the warprun after the warps (before the
+        comprun), and the arena and unit MC run records where the MC
         records start."""
         self._obmc_close()
+        if self.comps:
+            table, work = mc.comp_build_table(self.comps)
+            self.prog.ops.insert(self.comp_at, ("comprun",
+                                                self.prog.emit(table), work))
         if self.warps:
             at = len(self.prog.ops) if self.warp_at is None else self.warp_at
             table, work = mc.warp_build_table(self.warps)
@@ -506,8 +514,6 @@ class McRun:
         recs = []
         if self.offsets:
             recs.append(("mcarena", self.arena, tuple(self.offsets)))
-        if self.masks:
-            recs.append(("cmarena", self.masks))
         for kind, entries, scaled in (("mcurun", self.units, False),
                                       ("mcsrun", self.scaled, True)):
             if entries:
@@ -553,12 +559,11 @@ def frame_program_to_torch(desc, desc16, desc8, refsrc, device):
 
 _OUT_DTYPES = {"uint8": torch.uint8, "uint16": torch.int16}
 
-HANDLED = ("mcarena", "mcurun", "mcsrun", "cmarena", "hpx", "puthv_x",
-           "put", "warp", "warprun", "scaled", "comptab", "comp", "obmc",
-           "obmcrun", "residmc", "residc", "hresmc", "hresc", "itxrun",
-           "dbk", "dbkrun", "snap", "cdef", "sres", "lrw", "lrs", "out",
-           "embed", "palset", "newres", "resrawmc", "resrawc", "intrascan",
-           "crop")
+HANDLED = ("mcarena", "mcurun", "mcsrun", "hpx", "puthv_x", "put", "warp",
+           "warprun", "scaled", "comprun", "comp", "obmc", "obmcrun",
+           "residmc", "residc", "hresmc", "hresc", "itxrun", "dbk",
+           "dbkrun", "snap", "cdef", "sres", "lrw", "lrs", "out", "embed",
+           "palset", "newres", "resrawmc", "resrawc", "intrascan", "crop")
 
 # op kinds of the reference that no planner of the port emits -> why
 LATER = {
@@ -593,16 +598,31 @@ MC_RUNS = ("mcarena", "mcurun", "mcsrun")
 def _check_tools(ops):
     """Raise ValueError unless the frame's warp records and "w" sub-ops
     are covered by one warprun record (after the frame's mcarena, where
-    it has one, after its warp records and before its first comp record)
-    and each OBMC phase's obmc records by one obmcrun record after them
-    (phase 1's records after phase 0's obmcrun)."""
+    it has one, after its warp records and before its first comp record),
+    its comp records by one comprun record (after the frame's mcarena and
+    warprun, right before the first comp record, only comp records
+    between it and the last), and each OBMC phase's obmc records by one
+    obmcrun record after them (phase 1's records after phase 0's
+    obmcrun)."""
     n_warp = 0        # warp records and "w" sub-ops
     warprun = None
     comp = False
+    n_comp = 0        # comp records
+    comprun = None
+    comp_open = False   # after the comprun, only comp records so far
     n_obmc = [0, 0]   # obmc records a phase
     obmcrun = [None, None]
     for rec in ops:
         kind = rec[0]
+        if kind in ("mcarena", "warprun") and comprun is not None:
+            raise ValueError(f"comprun before the frame's {kind}")
+        if kind == "comp":
+            if not comp_open:
+                raise ValueError("a comp record before the frame's "
+                                 "comprun, or after another record that "
+                                 "follows it")
+        elif kind != "comprun":
+            comp_open = False
         if kind == "mcarena" and warprun is not None:
             raise ValueError("warprun before the frame's mcarena")
         elif kind == "warprun":
@@ -614,8 +634,13 @@ def _check_tools(ops):
             if warprun is not None:
                 raise ValueError("a warp record after the frame's warprun")
             n_warp += 1
+        elif kind == "comprun":
+            if comprun is not None:
+                raise ValueError("comprun twice")
+            comprun, comp_open = rec, True
         elif kind == "comp":
             comp = True
+            n_comp += 1
             n_warp += sum(s[0] == "w" for side in rec[5] for s in side)
         elif kind == "obmc":
             ph = int(bool(rec[5]))
@@ -637,6 +662,10 @@ def _check_tools(ops):
     if have != n_warp:
         raise ValueError(f"warprun of {have} entries for {n_warp} warp "
                          f"records and \"w\" sub-ops")
+    have = 0 if comprun is None else comprun[2][0]
+    if have != n_comp:
+        raise ValueError(f"comprun of {have} entries for {n_comp} comp "
+                         f"records")
     for ph in (0, 1):
         if n_obmc[ph] and obmcrun[ph] is None:
             raise ValueError(f"{n_obmc[ph]} obmc records of phase {ph} "
@@ -649,35 +678,19 @@ def check_ops(ops):
     directly by the itxrun record that covers it, unless the frame's
     put, scaled, "t" and "s" work is covered by the mcurun and mcsrun
     records and its comp and obmc records by the mcarena record, all
-    three (those present) before the first of them, unless each comp
-    record comes right after its comptab record (and each comptab right
-    before a comp record), a comp with seg joins after the frame's one
-    cmarena record, unless the frame's dbk records are followed by
-    one dbkrun record with a plane's maps for each, and unless its warp
-    and OBMC work is covered by its warprun and obmcrun records
-    (_check_tools)."""
+    three (those present) before the first of them, unless the frame's
+    dbk records are followed by one dbkrun record with a plane's maps for
+    each, and unless its warp, comp and OBMC work is covered by its
+    warprun, comprun and obmcrun records (_check_tools)."""
     pending = 0
     need = {"mcurun": 0, "mcsrun": 0, "mcarena": 0}
     runs = {}
     n_dbk = None     # dbk records (None: the dbkrun seen, or none yet)
-    prev = None
     for rec in ops:
         kind = rec[0]
         if kind not in HANDLED:
             where = LATER.get(kind, "unknown op kind")
             raise NotImplementedError(f"frame op {kind!r}: {where}")
-        if (kind == "comp") != (prev == "comptab"):
-            raise ValueError("a comp record without its comptab record, "
-                             "or a comptab record without its comp")
-        prev = kind
-        if kind == "cmarena":
-            if kind in runs:
-                raise ValueError("cmarena twice")
-            runs[kind] = rec
-        elif kind == "comp" and "cmarena" not in runs and any(
-                j[0] in ("segl", "segc") for j in rec[6]):
-            raise ValueError("a comp record with seg joins before the "
-                             "frame's cmarena record")
         if kind == "dbk":
             if n_dbk is None and "dbkrun" in runs:
                 raise ValueError("dbk record after the frame's dbkrun")
@@ -707,8 +720,6 @@ def check_ops(ops):
             pending = 0
     if pending:
         raise ValueError(f"{pending} residual records without itxrun")
-    if prev == "comptab":
-        raise ValueError("a comptab record without its comp record")
     if n_dbk:
         raise ValueError(f"{n_dbk} dbk records without dbkrun")
     for kind, n in need.items():
@@ -759,22 +770,16 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
         planes = [torch.zeros(s, dtype=torch.int32, device=dev)
                   for s in plane_shapes]
     hp = {}       # cache id -> H-plane stack
-    masks = None  # the seg-mask arena (chroma masks of the luma seg joins)
-    comp_tab = None   # the comptab record's table, for the comp after it
     snap = {}     # filter-chain plane snapshots (pre-CDEF, pre-LR)
     hres = []
     # residuals fit int16 at 8 bpc (dav1d's own coef type)
     hres_t = torch.int16 if bd == 8 else torch.int32
     arena = None      # the comp sides' and OBMC laps' slot buffers
-    slot_offs = iter(())
 
     for rec in ops:
         kind = rec[0]
         if kind == "mcarena":
             arena = torch.zeros(rec[1], dtype=torch.int32, device=dev)
-            slot_offs = iter(rec[2])
-        elif kind == "cmarena":
-            masks = torch.zeros(rec[1], dtype=torch.int32, device=dev)
         elif kind == "mcurun":
             _, h_tab, work = rec
             mcu_cuda.mc_units_run(get(h_tab), work, desc, desc16, planes,
@@ -804,20 +809,13 @@ def execute_program(sig, desc, desc16, desc8, refsrc):
                                 arena, bd)
         elif kind == "warp":
             pass    # run by the frame's warprun record
-        elif kind == "comptab":
-            comp_tab = get(rec[1])
-        elif kind == "comp":
-            # the joins of the record's real slots (comp_tab) over its
-            # sides' slots (mcurun, mcsrun and warprun wrote them), stored
-            # into the plane; its JAX-form joins are comp_tab's source
-            (_, pl, bwp, bhp, N, sides, _, ssh, ssv, h_dy, h_dx) = rec
-            tmps = [arena[o:o + N * bhp * bwp].view(N, bhp, bwp)
-                    for o in next(slot_offs)]
-            tools_cuda.comp_record(planes[pl], tmps[0], tmps[1], comp_tab,
-                                   get(h_dy), get(h_dx), masks, desc, ssh,
-                                   ssv, bd)
-        elif kind == "obmc":
-            next(slot_offs)     # run by its phase's obmcrun record
+        elif kind == "comprun":
+            # the frame's joins over the comp sides' arena slots (mcurun,
+            # mcsrun and warprun wrote them), stored into the planes
+            _, h_tab, work = rec
+            tools_cuda.comp_run(get(h_tab), work, desc, planes, arena, bd)
+        elif kind in ("comp", "obmc"):
+            pass    # run by the comprun / its phase's obmcrun record
         elif kind == "obmcrun":
             # a phase's laps of every plane, blended in place
             _, _, h_tab, work = rec

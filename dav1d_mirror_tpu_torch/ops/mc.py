@@ -14,10 +14,9 @@ one subpel phase each; these functions run one bucket:
   plane.
 
 The rest of the inter toolset runs on whole-block batches: the compound
-joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``;
-``comp_join_wavg``, the slot form over ``set_slots`` that the tile-sharded
-decode runs), the affine warp (``warp8x8_batch``) and the OBMC
-blend (``obmc_blend_batch``). Blocks whose reference has another size
+joins (``avg_batch``, ``w_avg_batch``, ``mask_batch``, ``w_mask_batch``),
+the affine warp (``warp8x8_batch``) and the OBMC blend
+(``obmc_blend_batch``). Blocks whose reference has another size
 than the frame run ``mc_scaled_batch``; super-resolution upscales a plane
 with ``resize_plane``.
 
@@ -28,9 +27,10 @@ with ``resize_plane``.
 ``csrc/mc_units.cu`` and ``csrc/mc_scaled.cu`` (wrappers in
 ``ops/mcu_cuda.py``). ``warp_run`` (a frame's warp work list, one
 ``warp_plane`` or ``warp_slots`` an entry: the warp with its destination
-write), ``comp_record`` (every join of a compound record, stored into
-the plane) and ``obmc_run`` (a phase's OBMC work list, one
-``obmc_plane`` an entry) are the plain versions of the tool kernels
+write), ``comp_run`` (a frame's compound joins, one ``comp_record`` an
+entry: every join of a compound record, stored into the plane) and
+``obmc_run`` (a phase's OBMC work list, one ``obmc_plane`` an entry) are
+the plain versions of the tool kernels
 ``csrc/warp.cu``, ``csrc/comp.cu`` and ``csrc/obmc.cu`` (wrappers in
 ``ops/tools_cuda.py``).
 
@@ -380,14 +380,6 @@ def scatter_slot_units(buf, base, vals, uh: int, uw: int, row_w: int):
     return buf
 
 
-def comp_join_wavg(out, tmp0, tmp1, sl, w, bitdepth: int):
-    """(weighted-)average join for slots sl; w: (B, 1, 1) distance weights
-    (8 = plain avg: the same rounding, dav1d mc_tmpl.c avg:585)."""
-    idx = sl.long()
-    return set_slots(out, sl, w_avg_batch(tmp0[idx], tmp1[idx], w,
-                                          bitdepth))
-
-
 def _signed_pair(tmp0, tmp1, sl, sgn):
     """The slots' operand pair, mask side first (sgn == 0: side 0)."""
     t0, t1 = tmp0[sl.long()], tmp1[sl.long()]
@@ -396,23 +388,17 @@ def _signed_pair(tmp0, tmp1, sl, sgn):
 
 
 # ---------------------------------------------------------------------
-# a compound record's joins stored into the plane: the plain version of
-# csrc/comp.cu (wrapper ops/tools_cuda.comp_record). The record's table
-# (its "comptab" record, made by models/frame_exec.McRun) has a row a
-# real slot, in slot order: the join, its weight (CJ_WAVG: 8 for a plain
+# a compound record's joins stored into the plane, one entry of the
+# frame's comp work list (comp_run, the plain version of csrc/comp.cu;
+# wrapper ops/tools_cuda.comp_run). The record's table has a row a real
+# slot, in slot order: the join, its weight (CJ_WAVG: 8 for a plain
 # average) or mask sign, and its mask's offset (CJ_SEGL: where its
-# chroma mask goes in the frame's seg-mask arena; CJ_SEGC: where its
-# mask lies there; CJ_WEDGE: where its mask lies in the frame's int32
-# descriptor buffer).
+# chroma mask goes in a seg-mask arena; CJ_SEGC: where its mask lies
+# there; CJ_WEDGE: where its mask lies in the frame's int32 descriptor
+# buffer).
 # ---------------------------------------------------------------------
 CJ_WAVG, CJ_SEGL, CJ_SEGC, CJ_WEDGE = range(4)
 CJ_COLS = 3
-
-
-def seg_mask_shape(bhp: int, bwp: int, ss_hor: int, ss_ver: int):
-    """(rows, columns) of the chroma mask that w_mask_batch derives from
-    a (bhp, bwp) luma slot."""
-    return (bhp >> ss_ver, bwp >> 1) if ss_hor else (bhp, bwp)
 
 
 def _flat_index(offs, n):
@@ -429,9 +415,9 @@ def comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc, ss_hor: int,
     slot buffers; tab: (n, CJ_COLS) int32, the table of slots 0..n-1 (the
     record's real slots; the pad slots after them are not computed); dy,
     dx: (>= n,) plane origins of the slots (pixels outside the plane are
-    dropped); masks: the frame's flat int32 seg-mask arena (None when the
-    frame has no seg join); desc: the frame's flat int32 descriptor
-    buffer. A seg luma slot's chroma mask (seg_mask_shape) is written
+    dropped); masks: a flat int32 seg-mask arena (None when the record
+    has no seg join); desc: the frame's flat int32 descriptor
+    buffer. A seg luma slot's chroma mask (w_mask_batch's) is written
     into `masks` at its offset. Updates plane (and masks) in place and
     returns the plane."""
     _, bhp, bwp = tmp0.shape
@@ -722,6 +708,142 @@ def obmc_run(tab, work, desc, planes, arena):
         obmc_plane(planes[e[O_PLANE]], laps, desc[e[O_YS]:e[O_YS] + n],
                    desc[e[O_XS]:e[O_XS] + n], e[O_REGION],
                    bool(e[O_VERT]))
+
+
+# ---------------------------------------------------------------------
+# the compound joins of a frame as one work list (models/frame_exec.McRun's
+# comprun record): the plain version of csrc/comp.cu (wrapper
+# ops/tools_cuda.comp_run). The table holds CENTRY ints an entry (a comp
+# record), then CROW ints a row (a real slot, entry by entry); an entry's
+# last field is the prefix sum of the work items (COMP_ITEM pixels of a
+# slot's row each) of the entries before it, which the kernel searches for
+# an item's entry.
+# ---------------------------------------------------------------------
+# a comp entry: a comp record's C_NREAL real (C_BH, C_BW) slots, its two
+# sides' slot buffers at arena offsets C_S0 / C_S1, their origins at C_DY
+# / C_DX of the int32 buffer, plane C_PLANE, the cell of its seg chroma
+# mask (1 << C_CV rows, 1 << C_CH columns) and its first row C_FIRST
+CENTRY = 12
+(C_PLANE, C_BH, C_BW, C_CH, C_CV, C_S0, C_S1, C_DY, C_DX, C_NREAL, C_FIRST,
+ C_START) = range(CENTRY)
+COMP_ITEM = 4     # the pixels of a work item (csrc/comp.cu CP_ITEM)
+# a slot row: McRun.comp_table's (kind, par, moff), where the moff of a
+# CJ_SEGC row is the frame row of the CJ_SEGL slot whose chroma mask it
+# reads; such a row also holds that luma slot's sides (arena offsets R_L0
+# / R_L1), shape (R_LH, R_LW) and sign R_LSGN, from which the kernel
+# derives the mask again
+CROW = 8
+(R_KIND, R_PAR, R_MOFF, R_L0, R_L1, R_LH, R_LW, R_LSGN) = range(CROW)
+
+
+def comp_build_table(entries):
+    """The compound joins of a frame as one work list. entries: dicts of
+    plane, bhp, bwp, ch, cv, s0, s1 (arena offsets of the two (N, bhp,
+    bwp) side slot buffers), dy, dx (int32 buffer offsets) and rows, the
+    (n, CJ_COLS) table of the record's n real slots (a CJ_SEGC row's
+    moff: the frame row of a CJ_SEGL row of the same mask cell, whose
+    chroma mask covers the slot). A work item is COMP_ITEM pixels of a
+    slot's row, so every slot width is a multiple of COMP_ITEM (a
+    compound block is 8x8 luma or larger). Returns (table, (entries,
+    rows, work items))."""
+    tab = _fill(entries, CENTRY, {
+        C_PLANE: "plane", C_BH: "bhp", C_BW: "bwp", C_CH: "ch", C_CV: "cv",
+        C_S0: "s0", C_S1: "s1", C_DY: "dy", C_DX: "dx"})
+    rows = [np.asarray(e["rows"], np.int64).reshape(-1, CJ_COLS)
+            for e in entries]
+    n = np.asarray([len(r) for r in rows], np.int64)
+    if ((tab[:, C_BH] >> tab[:, C_CV] <= 0) |
+            (tab[:, C_BW] >> tab[:, C_CH] <= 0) |
+            (tab[:, C_BW] % COMP_ITEM != 0)).any():
+        raise ValueError(f"comp: a slot smaller than its mask cell, or of "
+                         f"a width not a multiple of {COMP_ITEM}")
+    tab[:, C_NREAL] = n
+    tab[:, C_FIRST] = np.cumsum(n) - n
+    rt = np.zeros((int(n.sum()), CROW), np.int64)
+    if len(rt):
+        rt[:, :CJ_COLS] = np.concatenate(rows)
+    ent = np.repeat(np.arange(len(entries)), n)
+    for g in np.flatnonzero(rt[:, R_KIND] == CJ_SEGC):
+        lg = rt[g, R_MOFF]
+        if not 0 <= lg < len(rt) or rt[lg, R_KIND] != CJ_SEGL:
+            raise ValueError(f"comp: seg chroma row {g} names row {lg}, "
+                             f"not a seg luma row")
+        le, ce = tab[ent[lg]], tab[ent[g]]
+        if (le[C_CH], le[C_CV]) != (ce[C_CH], ce[C_CV]) or \
+                ce[C_BH] * ce[C_BW] > (le[C_BH] >> le[C_CV]) * (
+                    le[C_BW] >> le[C_CH]):
+            raise ValueError(f"comp: seg chroma row {g} outside the mask "
+                             f"of row {lg}")
+        off = (lg - le[C_FIRST]) * le[C_BH] * le[C_BW]
+        rt[g, R_L0:] = (le[C_S0] + off, le[C_S1] + off, le[C_BH], le[C_BW],
+                        rt[lg, R_PAR])
+    if len(rt) and (rt.min() < -(1 << 31) or rt.max() >= 1 << 31):
+        raise ValueError("comp: a row value does not fit int32")
+    table, items = _with_prefix(
+        tab, n * tab[:, C_BH] * tab[:, C_BW] // COMP_ITEM, C_START)
+    return (np.concatenate([table, rt.astype(np.int32).reshape(-1)]),
+            (len(entries), len(rt), items))
+
+
+def comp_table_parts(tab, work):
+    """(entries (E, CENTRY), rows (R, CROW)) int64 arrays of a comp work
+    list's table (a 1-D int32 tensor or array)."""
+    n_e, n_r = work[:2]
+    flat = np.asarray(tab.cpu() if isinstance(tab, torch.Tensor) else tab,
+                      np.int64)
+    return (flat[:n_e * CENTRY].reshape(n_e, CENTRY),
+            flat[n_e * CENTRY:n_e * CENTRY + n_r * CROW].reshape(n_r, CROW))
+
+
+def comp_run(tab, work, desc, planes, arena, bitdepth: int):
+    """A frame's compound joins, the plain version of the ``csrc/comp.cu``
+    kernel: one ``comp_record`` an entry, on its real slots, in order.
+    Its seg-mask arena has a span a seg row: a seg chroma row's holds
+    its luma slot's chroma mask, derived from that slot's sides
+    (w_mask_batch), as the kernel derives it; a seg luma row's takes the
+    mask it writes. tab, work: comp_build_table's; desc: the int32
+    buffer of the origins and wedge masks; planes: the planes (entry
+    plane i -> planes[i]); arena: the frame's flat int32 slot arena.
+    Updates the planes in place."""
+    ents, rows = comp_table_parts(tab, work)
+    ent = np.repeat(np.arange(len(ents)), ents[:, C_NREAL])
+    dev = desc.device
+    kind = rows[:, R_KIND]
+    moff = rows[:, R_MOFF].copy()
+    spans, at = [], 0
+    segc = np.flatnonzero(kind == CJ_SEGC)
+    # the seg chroma rows' masks, a w_mask_batch for the rows of one luma
+    # shape and mask cell
+    key = np.stack([rows[segc, R_LH], rows[segc, R_LW], ents[ent[segc], C_CH],
+                    ents[ent[segc], C_CV]], 1)
+    for lh, lw, ch, cv in np.unique(key, axis=0).tolist():
+        g = segc[(key == (lh, lw, ch, cv)).all(1)]
+        luma = [arena[_flat_index(torch.from_numpy(rows[g, f]).to(dev),
+                                  lh * lw)].view(-1, lh, lw)
+                for f in (R_L0, R_L1)]
+        cm = w_mask_batch(*luma, torch.from_numpy(rows[g, R_LSGN]).to(
+            device=dev, dtype=torch.int32), ch, cv, bitdepth)[1]
+        moff[g] = at + np.arange(len(g)) * cm[0].numel()
+        at += cm.numel()
+        spans.append(cm.reshape(-1))
+    # a span for each seg luma row's mask, which no row reads here
+    segl = np.flatnonzero(kind == CJ_SEGL)
+    le = ents[ent[segl]]
+    size = (le[:, C_BH] >> le[:, C_CV]) * (le[:, C_BW] >> le[:, C_CH])
+    moff[segl] = at + np.cumsum(size) - size
+    spans.append(torch.zeros(int(size.sum()), dtype=torch.int32, device=dev))
+    masks = torch.cat(spans)
+    t = torch.from_numpy(np.stack([rows[:, R_KIND], rows[:, R_PAR], moff],
+                                  1).astype(np.int32)).to(dev)
+    for e in ents.tolist():
+        n, f, bh, bw = e[C_NREAL], e[C_FIRST], e[C_BH], e[C_BW]
+        if not n:
+            continue
+        s0, s1 = (arena[o:o + n * bh * bw].view(n, bh, bw)
+                  for o in (e[C_S0], e[C_S1]))
+        comp_record(planes[e[C_PLANE]], s0, s1, t[f:f + n],
+                    desc[e[C_DY]:e[C_DY] + n], desc[e[C_DX]:e[C_DX] + n],
+                    masks, desc, e[C_CH], e[C_CV], bitdepth)
 
 
 # ---------------------------------------------------------------------

@@ -4,11 +4,12 @@
   units, one launch a frame over its work list (the ``warprun`` record:
   every ``warp`` record, into the planes, and every "w" sub-op of a
   compound side, into its slots of the frame's arena);
-- ``comp_record``: ``csrc/comp.cu``, every join of a ``comp`` record
-  (average, distance-weighted, wedge and seg masks) over its real slots,
-  stored straight into the plane, one launch a record; seg luma joins
-  write their chroma masks into the frame's seg-mask arena, where the
-  chroma joins read them;
+- ``comp_run``: ``csrc/comp.cu``, every join (average,
+  distance-weighted, wedge and seg masks) of a frame's compound records
+  over their real slots, one launch a frame over its work list (the
+  ``comprun`` record: every ``comp`` record, of every plane), stored
+  straight into the planes; a seg chroma join derives its mask from its
+  luma slot's sides in the frame's arena;
 - ``obmc_run``: ``csrc/obmc.cu``, the OBMC blend of one phase's laps
   (the ``obmcrun`` record: every ``obmc`` record of the phase, of every
   plane), in place on the planes, one launch a phase.
@@ -48,8 +49,8 @@ assert (WARP_TABLE == mc.WARP_FILTER).all()
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 
 
-# the planes and reference stacks a warp or OBMC run can name (csrc/warp.cu
-# WP_PLANES, csrc/obmc.cu OB_PLANES)
+# the planes and reference stacks a warp, comp or OBMC run can name
+# (csrc/warp.cu WP_PLANES, csrc/comp.cu CP_PLANES, csrc/obmc.cu OB_PLANES)
 MAX_PLANES = 3
 
 
@@ -65,13 +66,13 @@ class WarpArgs(ct.Structure):
 
 
 class CompArgs(ct.Structure):
-    """csrc/comp.cu CompArgs."""
-    _fields_ = [(n, _P) for n in ("tmp0", "tmp1", "tab", "dy", "dx",
-                                  "masks", "desc", "plane")] + \
-        [(n, _L) for n in ("masks_n", "desc_n")] + \
-        [(n, _I) for n in ("plane_h", "plane_w", "plane_rstride", "n",
-                           "bhp", "bwp", "ch", "cv", "bd", "ib", "bias",
-                           "bd_max")]
+    """csrc/comp.cu CompRunArgs."""
+    _fields_ = [(n, _P) for n in ("tab", "desc", "arena")] + \
+        [("plane", _P * MAX_PLANES), ("arena_n", _L), ("desc_n", _L)] + \
+        [(n, _I * MAX_PLANES) for n in ("plane_h", "plane_w",
+                                        "plane_rstride")] + \
+        [(n, _I) for n in ("n_entries", "n_rows", "n_items", "bd", "ib",
+                           "bias", "bd_max")]
 
 
 class ObmcArgs(ct.Structure):
@@ -118,17 +119,6 @@ def _launch(name, a, dev):
             OBMC_LAUNCHES += 1
 
 
-def _plane(a, plane, dev, prefix):
-    """The (H, W) int32 plane at its row stride (unit column stride)."""
-    check(plane, "plane", torch.int32, 2, dev, contiguous=False)
-    if plane.stride(1) != 1:
-        raise ValueError("plane: columns not contiguous")
-    h, w = plane.shape
-    setattr(a, f"{prefix}_h", h)
-    setattr(a, f"{prefix}_w", w)
-    setattr(a, f"{prefix}_rstride", plane.stride(0))
-
-
 def _planes(a, planes, dev):
     """The destination planes, (H, W) int32 at their row strides."""
     if len(planes) > MAX_PLANES:
@@ -140,13 +130,6 @@ def _planes(a, planes, dev):
         a.plane[i] = p.data_ptr()
         a.plane_h[i], a.plane_w[i] = p.shape
         a.plane_rstride[i] = p.stride(0)
-
-
-def _column(t, name, n, dev):
-    check(t, name, torch.int32, 1, dev)
-    if t.shape[0] < n:
-        raise ValueError(f"{name}: {t.shape[0]} rows, expected {n}")
-    return t.data_ptr()
 
 
 def _bd(a, bitdepth):
@@ -211,47 +194,37 @@ def warp_args(tab, work, desc, desc16, planes, refs, arena, bitdepth: int):
     return a
 
 
-def comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc, ss_hor: int,
-                ss_ver: int, bitdepth: int):
-    """plane (H, W) int32 (unit column stride); tmp0, tmp1 (N, bhp, bwp)
-    int32, contiguous; tab (n, mc.CJ_COLS) int32; dy, dx (>= n,) int32;
-    masks: the flat int32 seg-mask arena or None; desc: the flat int32
-    descriptor buffer. See ``ops/mc.comp_record``. A slot whose mask
-    span lies outside its buffer is dropped."""
-    if plane.device.type == "cpu":
-        return mc.comp_record(plane, tmp0, tmp1, tab, dy, dx, masks, desc,
-                              ss_hor, ss_ver, bitdepth)
-    dev = cuda_device(plane, "comp_record")
-    check(tmp0, "tmp0", torch.int32, 3, dev)
-    check(tmp1, "tmp1", torch.int32, 3, dev)
-    if tmp0.shape != tmp1.shape:
-        raise ValueError(f"sides {tuple(tmp0.shape)}, {tuple(tmp1.shape)}")
-    check(tab, "tab", torch.int32, 2, dev)
-    if tab.shape[1] != mc.CJ_COLS or tab.shape[0] > tmp0.shape[0]:
-        raise ValueError(f"tab: shape {tuple(tab.shape)} for "
-                         f"{tmp0.shape[0]} slots")
+def comp_run(tab, work, desc, planes, arena, bitdepth: int):
+    """A frame's compound joins; see ``ops/mc.comp_run`` for the
+    arguments. planes: at most MAX_PLANES (H, W) int32 planes (unit
+    column stride). Updates the planes in place; one launch (none for a
+    list without work items). A slot whose mask or sides lie outside
+    their buffer is dropped."""
+    if tab.device.type == "cpu":
+        return mc.comp_run(tab, work, desc, planes, arena, bitdepth)
+    a = comp_args(tab, work, desc, planes, arena, bitdepth)
+    if a.n_items:
+        _launch("comp", a, tab.device)
+
+
+def comp_args(tab, work, desc, planes, arena, bitdepth: int):
+    """The checked CompArgs struct of a comp_run call on CUDA tensors."""
+    dev = cuda_device(tab, "comp_run")
     a = CompArgs()
-    a.n, a.bhp, a.bwp = tab.shape[0], tmp0.shape[1], tmp0.shape[2]
-    # a thread a cell of the seg chroma mask: 2x2, 1x2 or 1x1 pixels
-    a.ch, a.cv = int(bool(ss_hor)), int(bool(ss_hor and ss_ver))
-    if a.bhp % (1 << a.cv) or a.bwp % (1 << a.ch):
-        raise ValueError(f"slots {a.bwp}x{a.bhp} for layout "
-                         f"({ss_hor}, {ss_ver})")
-    a.tmp0, a.tmp1, a.tab = tmp0.data_ptr(), tmp1.data_ptr(), tab.data_ptr()
-    a.dy = _column(dy, "dy", a.n, dev)
-    a.dx = _column(dx, "dx", a.n, dev)
-    if masks is not None:
-        check(masks, "masks", torch.int32, 1, dev)
-        a.masks, a.masks_n = masks.data_ptr(), masks.numel()
+    check(tab, "tab", torch.int32, 1, dev)
+    a.n_entries, a.n_rows, a.n_items = work
+    if tab.shape[0] != a.n_entries * mc.CENTRY + a.n_rows * mc.CROW:
+        raise ValueError(f"tab: {tab.shape[0]} ints for work {work}")
+    a.tab = tab.data_ptr()
     check(desc, "desc", torch.int32, 1, dev)
     a.desc, a.desc_n = desc.data_ptr(), desc.numel()
-    _plane(a, plane, dev, "plane")
-    a.plane = plane.data_ptr()
+    _planes(a, planes, dev)
+    if arena is None:
+        raise ValueError("comp_run: no arena")
+    _arena(a, arena, dev)
     _bd(a, bitdepth)
     a.bd = bitdepth
-    if a.n:
-        _launch("comp", a, dev)
-    return plane
+    return a
 
 
 def obmc_run(tab, work, desc, planes, arena):

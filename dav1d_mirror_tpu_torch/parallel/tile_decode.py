@@ -40,11 +40,11 @@ from ..models.inter import _p2, _pad_rows, _units_for_block_raw
 from ..models.intra import IntraPlan, build_intra_plan, intra_scan, \
     wave_families
 from ..ops import ipred as P
-from ..ops import itx_cuda, mcu_cuda
+from ..ops import itx_cuda, mc, mcu_cuda, tools_cuda
 from ..ops.ipred import PAD, PADT
 from ..ops.itx import itx_multi_sel
 from ..ops.itx_meta import TX_INFO, WHT_WHT
-from ..ops.mc import PAD_OOB, comp_join_wavg, scatter_units
+from ..ops.mc import PAD_OOB
 from ..ops.spec_consts import calc_eih
 from .filter_shard import _prep_lvls, band_deblock_plane, cdef_banded
 from .mesh import all_gather_slabs, axis_info, mesh_device
@@ -389,7 +389,8 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
         in the ref; dav1d's analogue is the shared address space its
         frame threads read ref rows from, thread_task.c:403-431);
       * each rank runs its tile's 8-tap MC unit batches (the unit MC
-        kernel, ops/mcu_cuda), compound avg/weighted-avg joins and the
+        kernel, ops/mcu_cuda), compound avg/weighted-avg joins (the
+        join kernel, ops/tools_cuda.comp_run: one launch a frame) and the
         type-as-data residual scatter, with no collective until the
         tiles are all-gathered;
       * the in-loop filters cross tile boundaries and run band-sharded
@@ -442,26 +443,29 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
                                     t(a[:, 6]), t(a[:, 7]), uw, uh,
                                     bool(hh), bool(hv), bitdepth)
 
-    # compound buckets: slot Np-1 is sacrificial (pad sides set_slots into
-    # it; its destination is PAD_OOB, so the scatter drops it)
-    for key in sorted(comp):
+    # compound buckets: each bucket's two sides in one slot arena (slot
+    # Np-1 of a side is sacrificial: its pad rows set_slots into it), then
+    # the real slots of every bucket as one comp_run list of average and
+    # distance-weighted joins, into the planes in one launch
+    sizes = [_p2(len(comp[key]) + 1) * key[1] * key[2]
+             for key in sorted(comp)]
+    arena = torch.zeros(2 * sum(sizes), dtype=torch.int32, device=dev)
+    entries, origins = [], []
+    off = 0
+    for key, size in zip(sorted(comp), sizes):
         pl, bwp, bhp = key
         lst = comp[key]
-        Np = _p2(len(lst) + 1)
+        Np = size // (bhp * bwp)
         srows = np.zeros((2, Np, 6), np.int32)
         shh = np.zeros((2, Np), bool)
         shv = np.zeros((2, Np), bool)
-        wts = np.full(Np, 8, np.int32)
-        dys = np.full(Np, PAD_OOB, np.int32)
-        dxs = np.zeros(Np, np.int32)
-        for i, (sides, w, dy, dx) in enumerate(lst):
+        for i, (sides, _, _, _) in enumerate(lst):
             for si, (row6, hh, hv) in enumerate(sides):
                 srows[si, i] = row6
                 shh[si, i] = hh
                 shv[si, i] = hv
-            wts[i], dys[i], dxs[i] = w, dy, dx
-        tmps = [torch.zeros((Np, bhp, bwp), dtype=torch.int32, device=dev)
-                for _ in (0, 1)]
+        tmps = [arena[off + si * size:off + (si + 1) * size].view(
+            Np, bhp, bwp) for si in (0, 1)]
         for si in (0, 1):
             for hh in (False, True):
                 for hv in (False, True):
@@ -479,11 +483,16 @@ def sharded_inter_decode(seq, fhdr, coders, mesh, bufs, refs,
                     mcu_cuda.mc_units_slots(tmps[si], refstk[pl], t(rr),
                                             t(sl), bool(hh), bool(hv),
                                             bitdepth, True)
-        joined = comp_join_wavg(
-            torch.zeros((Np, bhp, bwp), dtype=torch.int32, device=dev),
-            tmps[0], tmps[1], torch.arange(Np, device=dev),
-            t(wts)[:, None, None], bitdepth)
-        scatter_units(planes[pl], joined, t(dys), t(dxs), bhp, bwp)
+        entries.append(dict(
+            plane=pl, bhp=bhp, bwp=bwp, s0=off, s1=off + size,
+            dy=len(origins), dx=len(origins) + len(lst),
+            rows=[(mc.CJ_WAVG, w, 0) for _, w, _, _ in lst]))
+        origins += [dy for _, _, dy, _ in lst] + [dx for _, _, _, dx in lst]
+        off += 2 * size
+    if entries:
+        table, work = mc.comp_build_table(entries)
+        tools_cuda.comp_run(t(table), work, t(origins), planes, arena,
+                            bitdepth)
 
     for (pl, tx) in sorted(res):
         lst = res[(pl, tx)]

@@ -178,7 +178,7 @@ def _wrappers():
             (mcu_cuda, "mc_units_run"), (mcu_cuda, "mc_scaled_run"),
             (itx_cuda, "itx_run"), (deblock_cuda, "deblock_frame"),
             (cdef_cuda, "cdef_frame")] + [
-        (tools_cuda, n) for n in ("warp_run", "comp_record", "obmc_run")]
+        (tools_cuda, n) for n in ("warp_run", "comp_run", "obmc_run")]
 
 
 def main():

@@ -4,11 +4,13 @@
     python3 -m dav1d_mirror_tpu_torch.tools.tools_cases
 
 The case functions (numpy, from a seed) serve ``chip_smoke.py``'s tools
-phase and the CPU tests (``tests/test_torch_tools_kernels.py`` and
-``tests/test_torch_tools_runs.py``, which hold the plain versions to the
-JAX package on them). The warp and OBMC kernels run work lists
-(``warp_run``, ``obmc_run``): each case runs as a one-entry list, and
-the mixed lists hold many entries:
+phase and the CPU tests (``tests/test_torch_tools_kernels.py``,
+``tests/test_torch_tools_runs.py`` and ``tests/test_torch_comp_run.py``,
+which hold the plain versions to the JAX package on them). The kernels
+run work lists (``warp_run``, ``comp_run``, ``obmc_run``): a warp or
+OBMC case runs as a one-entry list, a comp case as a mixed list and as
+a one-entry list of each of its records, and the mixed lists hold many
+entries:
 
 - warp: bit depths 8, 10 and 12, put into a plane (units on the 8x8 grid,
   some cut by the plane's edges, PAD_OOB pad rows) and put or prep into
@@ -19,11 +21,13 @@ the mixed lists hold many entries:
   reference stack a plane, int16 and int32 destinations, the slot
   buffers at offsets of one arena);
 - comp: bit depths 8, 10 and 12 in the 4:2:0, 4:2:2 and 4:4:4 layouts:
-  two luma records and two chroma records of one frame, every join kind
-  (average, distance weights, wedge, seg luma, seg chroma from one luma
-  record and from both), both mask signs, pad slots and padded join
-  lists as the planner makes them, blocks cut by the plane's edges; the
-  records' tables come from ``models/frame_exec.McRun.comp_table``;
+  two luma records and two chroma records of one frame as one work list
+  (``comp_case``), every join kind (average, distance weights, wedge,
+  seg luma, seg chroma from one luma record and from both), both mask
+  signs, pad slots and padded join lists as the planner makes them,
+  blocks cut by the plane's edges; the records' rows come from
+  ``models/frame_exec.McRun.comp_table``, the list from
+  ``ops/mc.comp_build_table``;
 - obmc: top laps (rows blended; the blended rows may exceed the lap's
   rows) and left laps (columns), disjoint laps some cut by the plane's
   edges, PAD_OOB pad laps; a mixed list a bit depth (``obmc_run_case``:
@@ -208,17 +212,20 @@ def _join_lists(kinds):
 
 
 def comp_case(rng, bd, ssh, ssv, bw=16, bh=8, H=48, W=80):
-    """One frame's compound records: two luma records (every luma join)
-    and two chroma records (the second with seg slots of both luma
-    records). Returns dict(bd, ssh, ssv, desc (the frame's int32
-    buffer), cm_n (seg-mask arena ints), planes ((H, W) luma, chroma),
-    records [dict(pl, bwp, bhp, N, joins (the JAX form, handles into
-    desc), h_dy, h_dx, h_tab, tmp0, tmp1)])."""
+    """One frame's compound records as one work list: two luma records
+    (every luma join) and two chroma records (the second with seg slots
+    of both luma records), all blocks disjoint. Returns dict(bd, ssh,
+    ssv, desc (the frame's int32 buffer), planes ((H, W) luma, chroma),
+    arena (every record's two side slot buffers), tab, work
+    (ops/mc.comp_build_table's), records [dict(pl, bwp, bhp, N, joins
+    (the JAX form, handles into desc), h_dy, h_dx, s0, s1 (its sides'
+    arena offsets), tmp0, tmp1)])."""
     from ..models.frame_exec import FrameProgram, McRun
+    from ..ops import mc
     Hc, Wc = H >> ssv, W >> ssh
     prog = FrameProgram(3, bd, [(H, W), (Hc, Wc), (Hc, Wc)])
     run = McRun(prog)
-    recs = []
+    recs, entries, arena = [], [], []
     blocks = []     # per luma record: {block slot: (kind, sign, weight)}
 
     def record(pl, bwp, bhp, ents, dsts, cmask):
@@ -257,11 +264,16 @@ def comp_case(rng, bd, ssh, ssv, bw=16, bh=8, H=48, W=80):
                     ("mix", tuple(refs))
                 joins.append(("segc", h_sl, h_sgn, spec))
         h_dy, h_dx = prog.emit(dy), prog.emit(dx)
-        h_tab = prog.emit(run.comp_table(bhp, bwp, joins, ssh, ssv, h_dy))
+        tmp = [prep_values(rng, bd, (N, bhp, bwp)) for _ in (0, 1)]
+        s0 = sum(a.size for a in arena)
+        arena.extend(t.reshape(-1) for t in tmp)
+        entries.append(dict(
+            plane=pl, bhp=bhp, bwp=bwp, ch=ssh, cv=ssh & ssv, s0=s0,
+            s1=s0 + tmp[0].size, dy=h_dy[0], dx=h_dx[0],
+            rows=run.comp_table(bhp, bwp, joins, h_dy)))
         recs.append(dict(pl=pl, bwp=bwp, bhp=bhp, N=N, joins=tuple(joins),
-                         h_dy=h_dy, h_dx=h_dx, h_tab=h_tab,
-                         tmp0=prep_values(rng, bd, (N, bhp, bwp)),
-                         tmp1=prep_values(rng, bd, (N, bhp, bwp))))
+                         h_dy=h_dy, h_dx=h_dx, s0=s0, s1=s0 + tmp[0].size,
+                         tmp0=tmp[0], tmp1=tmp[1]))
 
     kinds = ("wavg", "seg", "wedge", "seg", "wavg", "seg", "wedge")
     ys, xs = grid_units(rng, 2 * len(kinds), bh, bw, H, W)
@@ -277,12 +289,14 @@ def comp_case(rng, bd, ssh, ssv, bw=16, bh=8, H=48, W=80):
         luma_cm.append(cm)
         blocks.append([(k, s, w, y, x) for (k, s, w), y, x in
                        zip(ents, ys[sl], xs[sl])])
-    # chroma: record 0's blocks, then blocks of both records
-    for pick in (blocks[0], blocks[0][:4] + blocks[1][:4]):
+    # chroma: four blocks of luma record 0, then its other three and four
+    # of record 1 (the blocks of a frame's records are disjoint: the
+    # kernel joins every record in one launch)
+    for c, pick in enumerate((blocks[0][:4], blocks[0][4:] + blocks[1][:4])):
         cm = {}
         ents, dst = [], []
         for i, (k, s, w, y, x) in enumerate(pick):
-            src = 0 if pick is blocks[0] or i < 4 else 1
+            src = 0 if c == 0 or i < 3 else 1
             slot = blocks[src].index((k, s, w, y, x))
             if k == "seg":
                 cm[len(ents)] = luma_cm[src][slot]
@@ -290,10 +304,11 @@ def comp_case(rng, bd, ssh, ssv, bw=16, bh=8, H=48, W=80):
             dst.append((y >> ssv, x >> ssh))
         record(1, bw >> ssh, bh >> ssv, ents,
                tuple(np.asarray(d, np.int32) for d in zip(*dst)), cm)
-    desc = prog.finalize()[1]
-    return dict(bd=bd, ssh=ssh, ssv=ssv, desc=desc, cm_n=run.masks,
+    tab, work = mc.comp_build_table(entries)
+    return dict(bd=bd, ssh=ssh, ssv=ssv, desc=prog.finalize()[1],
                 planes=[rng.integers(0, 1 << bd, (H, W)).astype(np.int32),
                         rng.integers(0, 1 << bd, (Hc, Wc)).astype(np.int32)],
+                arena=np.concatenate(arena), tab=tab, work=work,
                 records=recs)
 
 
@@ -338,17 +353,33 @@ def to_torch(v, dev):
     return v
 
 
-def one_entry_lists(tab, work, width):
-    """[(tab, work)] of a warp (width mc.WENTRY) or OBMC (mc.OENTRY) work
-    list: its entries, each as a one-entry list of its own on the table's
-    device, in order."""
+def one_entry_lists(tab, work, kind):
+    """[(tab, work)] of a `kind` ("warp", "comp" or "obmc") work list (a
+    tensor, or a numpy array): its entries, each as a one-entry list of
+    its own on the table's device, in order (a comp entry with its
+    rows)."""
     from ..ops import mc
-    start = mc.W_START if width == mc.WENTRY else mc.O_START
+    if kind == "comp":
+        width = mc.CENTRY
+        import torch
+        ents, _ = mc.comp_table_parts(tab, work)
+        cat = np.concatenate if isinstance(tab, np.ndarray) else torch.cat
+        out, base = [], work[0] * width
+        for i, e in enumerate(ents.tolist()):
+            f, n = e[mc.C_FIRST], e[mc.C_NREAL]
+            one = cat([tab[i * width:(i + 1) * width],
+                       tab[base + f * mc.CROW:base + (f + n) * mc.CROW]])
+            one[mc.C_FIRST] = one[mc.C_START] = 0
+            out.append((one, (1, n, n * e[mc.C_BH] * e[mc.C_BW] //
+                              mc.COMP_ITEM)))
+        return out
+    width, start = (mc.WENTRY, mc.W_START) if kind == "warp" else \
+        (mc.OENTRY, mc.O_START)
     out = []
     for i, e in enumerate(mc.table_rows(tab, work[0], width)):
         one = tab[i * width:(i + 1) * width].clone()
         one[start] = 0
-        out.append((one, (1, e[mc.W_NREAL] if width == mc.WENTRY else
+        out.append((one, (1, e[mc.W_NREAL] if kind == "warp" else
                           e[mc.O_NREAL] * e[mc.O_ROWS] * e[mc.O_COLS])))
     return out
 
@@ -378,20 +409,55 @@ def comp_slice(desc, h):
 
 
 def run_comp(mod, case, dev):
-    """A comp case's records through `mod`'s comp_record, in order, on
-    fresh tensors on dev; returns (luma plane, chroma plane, the
-    seg-mask arena)."""
+    """A comp case's list (or a one-entry list of it: `case` with its tab
+    and work) through `mod`'s comp_run (ops/mc or ops/tools_cuda) on
+    fresh tensors on dev; returns the (luma, chroma) planes."""
+    a = to_torch({k: case[k] for k in ("tab", "desc", "planes", "arena")},
+                 dev)
+    mod.comp_run(a["tab"], case["work"], a["desc"], a["planes"], a["arena"],
+                 case["bd"])
+    return a["planes"]
+
+
+def comp_record_tables(case):
+    """The (n, mc.CJ_COLS) comp_record table of each record of a comp
+    case, for a seg-mask arena where each seg luma slot writes its chroma
+    mask (a span each, in row order) and each seg chroma slot reads its
+    luma slot's; and that arena's ints."""
+    from ..ops import mc
+    ents, rows = mc.comp_table_parts(case["tab"], case["work"])
+    moff = rows[:, mc.R_MOFF].copy()
+    at = 0
+    for e in ents:
+        for g in range(e[mc.C_FIRST], e[mc.C_FIRST] + e[mc.C_NREAL]):
+            if rows[g, mc.R_KIND] == mc.CJ_SEGL:
+                moff[g] = at
+                at += (e[mc.C_BH] >> e[mc.C_CV]) * (e[mc.C_BW] >> e[mc.C_CH])
+    segc = rows[:, mc.R_KIND] == mc.CJ_SEGC
+    moff[segc] = moff[rows[segc, mc.R_MOFF]]
+    tab = np.stack([rows[:, mc.R_KIND], rows[:, mc.R_PAR], moff],
+                   1).astype(np.int32)
+    return [tab[e[mc.C_FIRST]:e[mc.C_FIRST] + e[mc.C_NREAL]]
+            for e in ents], int(at)
+
+
+def run_comp_records(case, dev):
+    """A comp case's records through the plain per-record comp_record
+    (ops/mc), in order, with the seg-mask arena of comp_record_tables;
+    returns the (luma, chroma) planes."""
     import torch
+    from ..ops import mc
+    tabs, n_masks = comp_record_tables(case)
     desc = to_torch(case["desc"], dev)
     planes = to_torch(case["planes"], dev)
-    masks = torch.zeros(case["cm_n"], dtype=torch.int32, device=dev)
-    for r in case["records"]:
-        mod.comp_record(planes[r["pl"]], to_torch(r["tmp0"], dev),
-                        to_torch(r["tmp1"], dev), comp_slice(desc, r["h_tab"]),
-                        comp_slice(desc, r["h_dy"]),
-                        comp_slice(desc, r["h_dx"]), masks, desc,
-                        case["ssh"], case["ssv"], case["bd"])
-    return planes[0], planes[1], masks
+    masks = torch.zeros(n_masks, dtype=torch.int32, device=dev)
+    for r, tab in zip(case["records"], tabs):
+        mc.comp_record(planes[r["pl"]], to_torch(r["tmp0"], dev),
+                       to_torch(r["tmp1"], dev), to_torch(tab, dev),
+                       comp_slice(desc, r["h_dy"]),
+                       comp_slice(desc, r["h_dx"]), masks, desc,
+                       case["ssh"], case["ssv"], case["bd"])
+    return planes
 
 
 def obmc_list(kws):
@@ -481,6 +547,12 @@ def check_all(torch, dev, seed=2027):
     for label, case in comp_cases(rng):
         got, want = run_comp(tools_cuda, case, dev), run_comp(mc, case, dev)
         res.append((label, all(map(torch.equal, got, want))))
+        for i, (tab, work) in enumerate(one_entry_lists(
+                case["tab"], case["work"], "comp")):
+            one = dict(case, tab=tab, work=work)
+            got, want = (run_comp(m, one, dev) for m in (tools_cuda, mc))
+            res.append((f"{label} entry {i}", all(map(torch.equal, got,
+                                                      want))))
     for label, kw in obmc_cases(rng):
         res.append((label, torch.equal(run_obmc(tools_cuda, kw, dev),
                                        run_obmc(mc, kw, dev))))

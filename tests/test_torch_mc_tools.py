@@ -79,16 +79,27 @@ def _join_inputs(rng, bd, N=16, h=8, w=16):
 
 @pytest.mark.parametrize("bd", BDS)
 def test_comp_joins_with_pad_slots_match_jax(bd):
-    """comp_join_wavg, the join form the tile-sharded decode runs (the
-    frame path's joins, comp_record, are held to the JAX joins in
-    tests/test_torch_tools_kernels.py)."""
+    """mc.comp_run on a list of average and distance-weighted rows (the
+    join form the tile-sharded decode runs; the frame path's joins are
+    held to the JAX joins in tests/test_torch_comp_run.py), against
+    comp_join_wavg on the padded slot list: its real slots (the pads
+    repeat the last) as rows, each slot joined into its rows of an (N h,
+    w) plane that holds the N slots one under another."""
     rng = np.random.default_rng(100 + bd)
     t0, t1, sl, sgn, wt = _join_inputs(rng, bd)
     N, h, w = t0.shape
-    out0 = np.zeros((N, h, w), np.int32)
-    got = mc.comp_join_wavg(_t(out0.copy()), _t(t0), _t(t1), _t(sl),
-                            _t(wt)[:, None, None], bd)
-    _eq(got, jmc.comp_join_wavg(out0, t0, t1, sl, wt[:, None, None], bd))
+    out0 = rng.integers(-99, 99, (N, h, w)).astype(np.int32)
+    want = jmc.comp_join_wavg(out0, t0, t1, sl, wt[:, None, None], bd)
+    real = sl[:5]
+    table, work = mc.comp_build_table([dict(
+        plane=0, bhp=h, bwp=w, s0=0, s1=5 * h * w, dy=0, dx=5,
+        rows=[(mc.CJ_WAVG, k, 0) for k in wt[:5]])])
+    assert work == (1, 5, 5 * h * w // mc.COMP_ITEM)
+    desc = np.concatenate([real * h, np.zeros(5, np.int32)])
+    arena = np.concatenate([t0[real].reshape(-1), t1[real].reshape(-1)])
+    plane = _t(out0.copy()).view(N * h, w)
+    mc.comp_run(_t(table), work, _t(desc), [plane], _t(arena), bd)
+    _eq(plane.view(N, h, w), want)
 
 
 def test_set_slots_and_scatter_slot_units_match_jax():

@@ -1,9 +1,10 @@
 """The inter tool kernels' plain versions and records on the CPU
-(dav1d_mirror_tpu_torch/ops/mc.py warp_run, comp_record and obmc_run, the
+(dav1d_mirror_tpu_torch/ops/mc.py warp_run, comp_run and obmc_run, the
 plain versions of csrc/warp.cu, csrc/comp.cu and csrc/obmc.cu, here on
-one-entry lists: warp_plane, warp_slots and obmc_plane an entry; their
-wrappers' CPU route in ops/tools_cuda.py; the planner's comptab and
-cmarena records, models/frame_exec.McRun):
+one-entry lists: warp_plane, warp_slots and obmc_plane an entry, and a
+comp case's records through comp_record and as one comp_run list; their
+wrappers' CPU route in ops/tools_cuda.py; the planner's comprun record,
+models/frame_exec.McRun):
 
 - the synthetic cases of dav1d_mirror_tpu_torch/tools/tools_cases.py
   (the ones chip_smoke.py holds the kernels to) through the plain
@@ -19,10 +20,10 @@ cmarena records, models/frame_exec.McRun):
   devices;
 - on the planner's programs of a miniature tools stream: the real laps
   of each obmc record are disjoint (the blend kernel reads and writes the
-  plane in one launch), and each comp record's table and the seg-mask
-  arena are what its JAX-form joins imply;
-- the executor refuses a comp record without its comptab, a comptab
-  without its comp, and seg joins without the frame's cmarena.
+  plane in one launch), and each comp record's rows of the comprun table
+  are what its JAX-form joins imply;
+- the executor refuses comp records that no comprun covers, a comprun
+  of too few entries, and a comprun before the frame's mcarena.
 
 Tolerance: exact."""
 import sys
@@ -78,58 +79,28 @@ def test_warp_plain_matches_jax(case):
     assert ((tab < 0) & (tab >= -193)).any()
 
 
-def _jax_comp(case):
-    """The JAX interpreter's comp branch (models/frame_exec._interpreter)
-    on each record of the case, in order: (luma plane, chroma plane)."""
-    desc = case["desc"]
-
-    def get(h):
-        return jnp.asarray(tc.comp_slice(desc, h))
-    planes = [jnp.asarray(p) for p in case["planes"]]
-    cms = {}
-    bd, ssh, ssv = case["bd"], case["ssh"], case["ssv"]
-    for r in case["records"]:
-        t0, t1 = jnp.asarray(r["tmp0"]), jnp.asarray(r["tmp1"])
-        out = jnp.zeros((r["N"], r["bhp"], r["bwp"]), jnp.int32)
-        for j in r["joins"]:
-            if j[0] == "wavg":
-                out = jmc.comp_join_wavg(out, t0, t1, get(j[1]),
-                                         get(j[2])[:, None, None], bd)
-            elif j[0] == "segl":
-                out, cms[j[3]] = jmc.comp_join_wmask(
-                    out, t0, t1, get(j[1]), get(j[2]), ssh, ssv, bd)
-            elif j[0] == "segc":
-                spec = j[3]
-                m = cms[spec[1]][get(spec[2])] if spec[0] == "one" else \
-                    jnp.stack([cms[c][jj] for c, jj in spec[1]])
-                out = jmc.comp_join_mask(out, t0, t1, get(j[1]), get(j[2]),
-                                         m, bd)
-            else:
-                out = jmc.comp_join_mask(out, t0, t1, get(j[1]), get(j[2]),
-                                         get(j[3]), bd)
-        planes[r["pl"]] = jmc.scatter_units(
-            planes[r["pl"]], out, get(r["h_dy"]), get(r["h_dx"]), r["bhp"],
-            r["bwp"])
-    return planes
-
-
 @pytest.mark.parametrize("case", COMP, ids=_ids(COMP))
 def test_comp_record_plain_matches_jax(case):
+    """The case's records through the per-record comp_record (seg luma
+    slots writing their chroma masks into an arena, seg chroma slots
+    reading them) and as one list through the wrapper's CPU route (the
+    plain comp_run), each equal to the JAX interpreter's joins."""
     _, c = case
     kinds = {j[0] for r in c["records"] for j in r["joins"]}
     assert kinds == {"wavg", "segl", "segc", "wedge"}
     specs = {j[3][0] for r in c["records"] for j in r["joins"]
              if j[0] == "segc"}
     assert specs == {"one", "mix"}
-    signs = np.concatenate([tc.comp_slice(c["desc"], r["h_tab"])[:, 1]
-                            for r in c["records"]])
-    assert {0, 1} <= set(signs.tolist())
-    luma, chroma, masks = tc.run_comp(tools_cuda, c, CPU)
-    want = _jax_comp(c)
-    np.testing.assert_array_equal(luma.numpy(), np.asarray(want[0]))
-    np.testing.assert_array_equal(chroma.numpy(), np.asarray(want[1]))
-    assert not np.array_equal(luma.numpy(), c["planes"][0])
-    assert masks.numel() == c["cm_n"] > 0
+    _, rows = mc.comp_table_parts(c["tab"], c["work"])
+    assert {0, 1} <= set(rows[rows[:, mc.R_KIND] != mc.CJ_WAVG,
+                              mc.R_PAR].tolist())
+    want = ttp.jax_comp(c)
+    _, n_masks = tc.comp_record_tables(c)
+    assert n_masks > 0
+    for got in (tc.run_comp_records(c, CPU), tc.run_comp(tools_cuda, c, CPU)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert not np.array_equal(got[0].numpy(), c["planes"][0])
 
 
 @pytest.mark.parametrize("case", OBMC, ids=_ids(OBMC))
@@ -173,8 +144,8 @@ def test_wrappers_route_cpu_and_refuse_other_devices():
         tools_cuda.warp_run(m[:mc.WENTRY], (1, 1), m, m.to(torch.int16),
                             [p], [m3], m, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        tools_cuda.comp_record(p, m3, m3, m.view(40, 3)[:1], m, m, m, m, 1,
-                               1, 8)
+        tools_cuda.comp_run(m[:mc.CENTRY + mc.CROW], (1, 1, 64), m, [p], m,
+                            8)
     with pytest.raises(ValueError, match="CUDA"):
         tools_cuda.obmc_run(m[:mc.OENTRY], (1, 1), m, [p], m)
 
@@ -219,28 +190,41 @@ def _real_slots(desc, rec):
 
 
 def test_comp_tables_and_mask_arena_match_the_joins(tools_programs):
-    """Each comp record follows its comptab record: a row a real slot
-    (those before the pad slots) with the kind, weight or sign of the
-    join that covers it; a wedge row's offset holds its mask; the seg
-    luma rows' spans lie disjoint inside the cmarena record's arena, and
-    each seg chroma row names the span of the luma slot that its
-    registry entry names."""
+    """The frame's one comprun record, right before its first comp record,
+    holds an entry for each comp record, in order: its plane, slot shape,
+    mask cell, sides' arena offsets (the mcarena record's), origins and
+    real slots (those before the pad slots), each with a row holding the
+    kind and weight or sign of the join that covers it; a wedge row's
+    offset holds its mask, and each seg chroma row names the seg luma row
+    that its registry entry names, with that luma slot's sides, shape and
+    sign (from which the kernel derives the mask)."""
     kinds_seen = set()
     for sig, desc in tools_programs:
         ops = sig[0]
-        arena = [r[1] for r in ops if r[0] == "cmarena"]
-        spans = {}       # (seg luma join id, slot) -> span
-        used = []
-        for i, rec in enumerate(ops):
+        kinds = [r[0] for r in ops]
+        at = kinds.index("comprun")
+        assert kinds.count("comprun") == 1 and kinds[at + 1] == "comp"
+        assert "comp" not in kinds[:at]
+        _, h_tab, work = ops[at]
+        ents, rows = mc.comp_table_parts(tc.comp_slice(desc, h_tab), work)
+        offs = iter(next(r for r in ops if r[0] == "mcarena")[2])
+        seg = {}        # (seg luma join id, list index) -> its luma row
+        n_ent = 0
+        for rec in ops:
+            if rec[0] == "obmc":
+                next(offs)
             if rec[0] != "comp":
                 continue
-            tab_rec = ops[i - 1]
-            assert tab_rec[0] == "comptab"
-            tab = tc.comp_slice(desc, tab_rec[1])
-            _, pl, bwp, bhp, N, _, joins, ssh, ssv, _, _ = rec
+            s0, s1 = next(offs)
+            _, pl, bwp, bhp, N, _, joins, ssh, ssv, h_dy, h_dx = rec
             n = _real_slots(desc, rec)
-            assert tab.shape == (n, mc.CJ_COLS) and n < N
-            seg_luma = {}
+            e = ents[n_ent]
+            n_ent += 1
+            assert n < N
+            assert tuple(e[:mc.C_NREAL + 1]) == (
+                pl, bhp, bwp, int(bool(ssh)), int(bool(ssh and ssv)), s0, s1,
+                h_dy[0], h_dx[0], n)
+            f = e[mc.C_FIRST]
             for j in joins:
                 sl = tc.comp_slice(desc, j[1])
                 par = tc.comp_slice(desc, j[2])
@@ -248,49 +232,51 @@ def test_comp_tables_and_mask_arena_match_the_joins(tools_programs):
                         "segc": mc.CJ_SEGC, "wedge": mc.CJ_WEDGE}[j[0]]
                 kinds_seen.add(j[0])
                 for k, s in enumerate(sl):
+                    if j[0] == "segl" and s < n:
+                        seg[(j[3], k)] = (f + s, s0 + s * bhp * bwp,
+                                          s1 + s * bhp * bwp, bhp, bwp,
+                                          par[k])
                     if s >= n:
                         continue
-                    assert tuple(tab[s, :2]) == (kind, par[k]), (j[0], s)
-                    moff = int(tab[s, 2])
+                    row = rows[f + s]
+                    assert tuple(row[:2]) == (kind, par[k]), (j[0], s)
+                    moff = int(row[mc.R_MOFF])
                     if j[0] == "wedge":
                         m = tc.comp_slice(desc, j[3])[k]
                         np.testing.assert_array_equal(
                             desc[moff:moff + bhp * bwp].reshape(bhp, bwp), m)
-                    elif j[0] == "segl":
-                        seg_luma[s] = moff
-                        spans[(j[3], k)] = moff
                     elif j[0] == "segc":
                         spec = j[3]
                         ref = (spec[1], int(tc.comp_slice(desc, spec[2])[k])) \
                             if spec[0] == "one" else spec[1][k]
-                        assert moff == spans[ref], (ref, moff)
-            if seg_luma:
-                mh, mw = mc.seg_mask_shape(bhp, bwp, ssh, ssv)
-                used.extend((o, o + mh * mw) for o in seg_luma.values())
-        if used:
-            assert len(arena) == 1
-            used.sort()
-            assert used[0][0] >= 0 and used[-1][1] <= arena[0]
-            assert all(a[1] <= b[0] for a, b in zip(used, used[1:]))
-        else:
-            assert not arena
+                        assert (moff,) + tuple(row[mc.R_L0:]) == seg[ref], \
+                            (ref, row)
+        assert n_ent == len(ents) == work[0]
+        assert ents[:, mc.C_NREAL].sum() == len(rows) == work[1]
+        items = ents[:, mc.C_NREAL] * ents[:, mc.C_BH] * ents[:, mc.C_BW] // \
+            mc.COMP_ITEM
+        assert list(ents[:, mc.C_START]) == list(np.cumsum(items) - items)
+        assert work[2] == items.sum()
     assert kinds_seen == {"wavg", "segl", "segc", "wedge"}
 
 
-@pytest.mark.parametrize("how", ["no comptab", "comptab alone",
-                                 "no cmarena"])
+@pytest.mark.parametrize("how", ["no comprun", "comprun short",
+                                 "comprun before mcarena"])
 def test_executor_refuses_comp_records_without_their_tables(
         tools_programs, how):
     sig, desc = next((s, d) for s, d in tools_programs
-                     if any(r[0] == "cmarena" for r in s[0]))
+                     if any(j[0] == "segc" for r in s[0] if r[0] == "comp"
+                            for j in r[6]))
     ops = list(sig[0])
-    if how == "no comptab":
-        ops = [r for r in ops if r[0] != "comptab"]
-    elif how == "comptab alone":
-        i = next(i for i, r in enumerate(ops) if r[0] == "comp")
-        ops.pop(i)
+    if how == "no comprun":
+        ops = [r for r in ops if r[0] != "comprun"]
+    elif how == "comprun short":
+        ops = [r if r[0] != "comprun" else
+               r[:2] + ((r[2][0] - 1,) + r[2][1:],) for r in ops]
     else:
-        ops = [r for r in ops if r[0] != "cmarena"]
-    with pytest.raises(ValueError, match="comptab|cmarena"):
+        rec = next(r for r in ops if r[0] == "comprun")
+        ops.remove(rec)
+        ops.insert(0, rec)
+    with pytest.raises(ValueError, match="comprun"):
         tfe.check_ops(ops)
     tfe.check_ops(sig[0])

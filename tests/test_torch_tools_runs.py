@@ -205,7 +205,7 @@ def test_planner_tables_hold_real_rows_and_laps(programs):
         if want:
             at = kinds.index("warprun")
             assert kinds.count("warprun") == 1
-            assert kinds.index("mcarena") < at < kinds.index("comptab")
+            assert kinds.index("mcarena") < at < kinds.index("comprun")
             assert "warp" not in kinds[at:]
             assert kinds[at - 1] == "warp" or "warp" not in kinds
             _, h_tab, work = ops[at]
@@ -254,10 +254,10 @@ def test_executor_runs_each_frame_s_warps_and_laps_in_one_call_each(
         programs, monkeypatch):
     """The executor equals the JAX interpreter on a program with warp
     records, "w" sub-ops and OBMC laps of both phases, with one warp_run
-    call and one obmc_run call a phase, and the comp records one
-    comp_record call each."""
+    call, one obmc_run call a phase and one comp_run call for the comp
+    records."""
     calls = {}
-    for name in ("warp_run", "obmc_run", "comp_record"):
+    for name in ("warp_run", "obmc_run", "comp_run"):
         def spy(*a, _fn=getattr(tools_cuda, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _fn(*a, **k)
@@ -266,13 +266,11 @@ def test_executor_runs_each_frame_s_warps_and_laps_in_one_call_each(
         p for p in programs
         if {"warp", "warprun", "obmcrun"} <= {r[0] for r in p[0][0]} and
         len({r[1] for r in p[0][0] if r[0] == "obmcrun"}) == 2)
-    kinds = [r[0] for r in sig[0]]
     assert any(s[0] == "w" for r in sig[0] if r[0] == "comp"
                for side in r[5] for s in side)
     planes, _ = tfe.execute_program(sig, *tfe.frame_program_to_torch(
         desc, desc16, desc8, refsrc, "cpu"))
-    assert calls == {"warp_run": 1, "obmc_run": 2,
-                     "comp_record": kinds.count("comp")}
+    assert calls == {"warp_run": 1, "obmc_run": 2, "comp_run": 1}
     j_planes, _ = jfe._interpreter(sig)(desc, desc16, desc8, refsrc)
     for t, j in zip(planes, j_planes):
         np.testing.assert_array_equal(t.numpy().astype(np.int32),

@@ -3,11 +3,14 @@ on the CPU route: lossless 128x64 streams with every inter tool (seed 5:
 its frames hold all four compound joins, warps and OBMC laps of both
 phases; seed 1 also warped compound sides, "w" sub-ops), for the tests of
 the planner's tool records and the executor's tool runs
-(tests/test_torch_tools_kernels.py, tests/test_torch_tools_runs.py)."""
+(tests/test_torch_tools_kernels.py, tests/test_torch_tools_runs.py,
+tests/test_torch_comp_run.py); and the JAX interpreter's joins of a
+synthetic comp case (jax_comp)."""
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch_streams as ts
 from dav1d_mirror_tpu_torch import api as tapi
 from dav1d_mirror_tpu_torch.host.ivf import parse_ivf
@@ -39,3 +42,44 @@ def tools_programs(seed=5):
         tfe.execute_program = orig
     assert seen
     return tuple(seen)
+
+
+def jax_comp(case):
+    """The JAX interpreter's comp branch (dav1d_mirror_tpu/models/
+    frame_exec._interpreter: comp_join_wavg, comp_join_wmask and
+    comp_join_mask with its seg-mask registry, then scatter_units) on each
+    record of a comp case (tools/tools_cases.comp_case), in order:
+    (luma plane, chroma plane)."""
+    import jax.numpy as jnp
+    from dav1d_mirror_tpu.ops import mc_tpu as jmc
+    from dav1d_mirror_tpu_torch.tools.tools_cases import comp_slice
+    desc = case["desc"]
+
+    def get(h):
+        return jnp.asarray(comp_slice(desc, h))
+    planes = [jnp.asarray(p) for p in case["planes"]]
+    cms = {}
+    bd, ssh, ssv = case["bd"], case["ssh"], case["ssv"]
+    for r in case["records"]:
+        t0, t1 = jnp.asarray(r["tmp0"]), jnp.asarray(r["tmp1"])
+        out = jnp.zeros((r["N"], r["bhp"], r["bwp"]), jnp.int32)
+        for j in r["joins"]:
+            if j[0] == "wavg":
+                out = jmc.comp_join_wavg(out, t0, t1, get(j[1]),
+                                         get(j[2])[:, None, None], bd)
+            elif j[0] == "segl":
+                out, cms[j[3]] = jmc.comp_join_wmask(
+                    out, t0, t1, get(j[1]), get(j[2]), ssh, ssv, bd)
+            elif j[0] == "segc":
+                spec = j[3]
+                m = cms[spec[1]][get(spec[2])] if spec[0] == "one" else \
+                    jnp.stack([cms[c][jj] for c, jj in spec[1]])
+                out = jmc.comp_join_mask(out, t0, t1, get(j[1]), get(j[2]),
+                                         m, bd)
+            else:
+                out = jmc.comp_join_mask(out, t0, t1, get(j[1]), get(j[2]),
+                                         get(j[3]), bd)
+        planes[r["pl"]] = jmc.scatter_units(
+            planes[r["pl"]], out, get(r["h_dy"]), get(r["h_dx"]), r["bhp"],
+            r["bwp"])
+    return [np.asarray(p) for p in planes]
